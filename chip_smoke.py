@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
-Drives clearcam_tpu_torch's main path, the NVR detect tick (YOLOv9-t, res
-640, random weights from seed 0), and the hand-written stem kernel on the
-card. Every phase raises on failure, so the script exits non-zero:
+Drives clearcam_tpu_torch's paths, the NVR detect tick (YOLOv9-t, res
+640, random weights from seed 0) and the NVR's object search (CLIP
+ViT-L/14 image and text towers, BlazeFace and AdaFace IR-50, random
+weights from seed 0), and the hand-written kernels (stem, ViT attention)
+on the card. Every phase raises on failure, so the script exits non-zero:
 
   0  the card: nvidia-smi name and power limit, torch, nvcc; TF32 off
   1  build csrc/*.cu with nvcc for sm_90a, timed
@@ -14,14 +16,25 @@ card. Every phase raises on failure, so the script exits non-zero:
      clearcam_tpu_torch.testing's rule), the bf16 default path through
      BatchDetector, and frames/s at batch 1, 8, 32
   4  `python -m clearcam_tpu_torch` on an empty data directory, set up
-     through its API as a user does (/edit_settings to YOLOv9-t 640,
-     /add_camera for two synthetic 1080p cameras): /healthz, one /yolo
-     offload request, /metrics (detect_step >= 3, no detect or tracker
-     errors), stem launches reported at shutdown
+     through its API as a user does (/edit_settings to YOLOv9-t 640, then
+     use_clip and use_face on; /add_camera for two synthetic 1080p
+     cameras): /healthz, one /yolo offload request, /metrics (detect_step
+     >= 3, no detect or tracker errors), /v1/embeddings (768-d unit rows,
+     with a small synthetic BPE merge table), an uploaded-image search,
+     and, where the NVR saved object crops, their embeddings.pkl and a
+     similar_img search that finds the crop itself first; stem and
+     vit_attention launches reported at shutdown
+  5  ViT attention kernel vs its plain version (mha_reference) at the CLIP
+     tower's shapes and the Qwen3-VL vision lengths: f32 max|d| < 1e-4
+     (TF32 off), bf16 max|d| < 2e-2; timed with CUDA events
+  6  the towers on the card against the CPU, f32: ViT-L/14 (24 blocks,
+     through the kernel) and the text tower (12 blocks), cosine > 1 - 1e-5
+     per row; BlazeFace detect and IR-50 AdaFace embed; image-tower img/s
+     at batch 1, 16, 64 with the kernel and with the plain attention
 
 The line before the last is the card's name and power limit; before it, a
-JSON line with each kernel's launches on the main path, its error against
-the plain version and both times. The last line is
+JSON line with each kernel's launches on a served path (phase 4), its
+error against the plain version and both times. The last line is
 {"ok": true, "device": {...}}. Without CUDA, or outside the repository, it
 exits non-zero and prints no result.
 
@@ -30,8 +43,11 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import base64
+import gzip
 import json
 import os
+import pickle
 import re
 import shutil
 import signal
@@ -51,6 +67,20 @@ BF16_TOL, F32_TOL = 0.05, 1e-4      # stem kernel vs plain, max |d|
 RAW_TOL = 2e-3                      # forward_raw GPU vs CPU, rtol and atol
 STEM_SOURCE = "clearcam_tpu_torch/csrc/stem.cu"
 STEM_REPLACES = "clearcam_tpu/ops/stem.py:149"
+ATTN_SOURCE = "clearcam_tpu_torch/csrc/vit_attention.cu"
+ATTN_REPLACES = "clearcam_tpu/ops/vit_attention.py:54"
+# attention kernel vs plain, max |d|: f32 differs by summation order and
+# exp2 vs exp only; in bf16 the plain version rounds the probabilities to
+# bf16 before the PV product
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# one CROP_BATCH of crops, one crop, and ragged lengths up to the Qwen3-VL
+# vision tower's 784 and 1600
+ATTN_SHAPES = [(16, 16, 257, 64), (1, 16, 257, 64)] + [
+    (2, 16, t, 64) for t in (1, 7, 128, 129, 784, 1600)]
+TOWER_COS = 1 - 1e-5                # towers, GPU vs CPU, cosine per row
+# BPE merges for the server's tokenizer: the real vocab is not in the repo
+MERGES = [("h", "e"), ("l", "l"), ("he", "ll"), ("hell", "o</w>"),
+          ("w", "o"), ("r", "l"), ("wo", "rl"), ("worl", "d</w>")]
 
 
 def log(msg: str) -> None:
@@ -296,7 +326,12 @@ def phase4():
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
-    env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONUNBUFFERED="1")
+    vocab = tmp / "merges.txt.gz"
+    with gzip.open(vocab, "wt", encoding="utf-8") as f:
+        # no trailing newline: the reader takes every line after the header
+        f.write("#version: smoke\n" + "\n".join(" ".join(m) for m in MERGES))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONUNBUFFERED="1",
+               CLEARCAM_BPE_PATH=str(vocab))
     out_path = tmp / "server.log"
     with open(out_path, "w") as out:
         proc = subprocess.Popen(
@@ -344,6 +379,7 @@ def phase4():
                                      + out_path.read_text()[-4000:])
         log(f"/metrics: detect_step {snap['timers']['detect_step']}, "
             f"counters {counters}")
+        search = _object_search(base, tmp / "data" / "cameras", proc, out_path)
     finally:
         proc.send_signal(signal.SIGTERM)
         try:
@@ -355,18 +391,223 @@ def phase4():
     shutil.rmtree(tmp, ignore_errors=True)
     for line in text.splitlines():
         log(f"  server| {line}")
-    m = re.search(r"^stem\.launches=(\d+)$", text, re.M)
-    if m is None:
-        raise AssertionError("server printed no stem.launches line")
-    launches = int(m.group(1))
-    if launches < 1:
-        raise AssertionError("the NVR path never launched the stem kernel")
+    if "object queue error" in text:
+        raise AssertionError("the NVR's crop ingest raised (see the server log)")
+    launches = {}
+    for name, what in (("stem", "the NVR detect path"),
+                       ("vit_attention", "the object-search path")):
+        m = re.search(rf"^{name}\.launches=(\d+)$", text, re.M)
+        if m is None:
+            raise AssertionError(f"server printed no {name}.launches line")
+        launches[name] = int(m.group(1))
+        if launches[name] < 1:
+            raise AssertionError(f"{what} never launched the {name} kernel")
+    log(f"launches on the served paths: {launches}; object search: {search}")
     return launches
+
+
+def _object_search(base: str, cameras: Path, proc, out_path: Path) -> dict:
+    """CLIP and faces turned on over HTTP; then the text tower, an
+    uploaded-image search, and the crops the NVR saved and embedded."""
+    import cv2
+    t0 = time.time()
+    # the web UI posts every setting: the detector's stay as they are
+    _post(f"{base}/edit_settings", json.dumps(
+        {"model_size": "t", "model_res": 640, "use_clip": True,
+         "use_face": True}).encode(), timeout=600)
+    line = _wait("the CLIP line", lambda: re.search(
+        r"^clip: ViT-L/14 .*$", out_path.read_text(), re.M),
+        proc, out_path, 600).group(0)
+    log(f"/edit_settings use_clip, use_face ({time.time() - t0:.1f} s) -> {line}")
+    if "attention kernel CUDA" not in line:
+        raise AssertionError(f"the CLIP tower does not run the attention kernel: {line}")
+
+    data = json.loads(_post(f"{base}/v1/embeddings", json.dumps(
+        {"input": ["hello world", "hello"]}).encode(), timeout=120))["data"]
+    embs = np.asarray([d["embedding"] for d in data], np.float32)
+    norms = np.linalg.norm(embs, axis=-1)
+    if embs.shape != (2, 768) or not np.isfinite(embs).all() \
+            or np.abs(norms - 1).max() > 1e-4:
+        raise AssertionError(f"/v1/embeddings: {embs.shape}, norms {norms}")
+    log(f"/v1/embeddings: 2 rows of {embs.shape[1]}, norms {norms.tolist()}")
+
+    crop = np.random.default_rng(7).integers(0, 256, (120, 80, 3), np.uint8)
+    jpeg = base64.b64encode(cv2.imencode(".jpg", crop)[1].tobytes()).decode()
+    found = json.loads(_post(f"{base}/event_thumbs", json.dumps(
+        {"uploaded_image": jpeg}).encode(), timeout=120))
+    if not isinstance(found.get("images"), list):
+        raise AssertionError(f"/event_thumbs uploaded_image: {found}")
+    log(f"/event_thumbs uploaded_image: {found['count']} results")
+    out = {"uploaded_image_results": found["count"]}
+
+    def embedded():
+        """(day cache, its crop paths) once one reads whole."""
+        for pkl in sorted(cameras.glob("*/objects/*/embeddings.pkl")):
+            try:
+                with open(pkl, "rb") as f:
+                    return pkl, list(pickle.load(f)["embeddings"])
+            except (EOFError, pickle.UnpicklingError, KeyError):
+                pass        # being rewritten by the NVR
+        return None
+    try:
+        pkl, keys = _wait("an embeddings.pkl of saved crops", embedded, proc,
+                          out_path, 120)
+    except AssertionError:
+        crops = sorted(cameras.glob("*/objects/*/*.jpg"))
+        if crops:
+            raise AssertionError(f"{len(crops)} crops saved, none embedded:\n"
+                                 + out_path.read_text()[-4000:])
+        log("no object crops saved within 120 s: similar_img not checked")
+        return dict(out, crops_saved=0)
+    rel = Path(keys[0]).resolve().relative_to(cameras.resolve())
+    found = json.loads(_post(f"{base}/event_thumbs", json.dumps(
+        {"similar_img": str(rel)}).encode(), timeout=120))
+    top = (found.get("images") or [{}])[0]
+    if abs(top.get("score", 0) - 1.0) > 1e-4:
+        raise AssertionError(f"similar_img {rel}: {found}")
+    if top["url"] != f"/{rel}":
+        # a static scene saves the same pixels twice; either copy may lead
+        same = np.array_equal(cv2.imread(str(cameras / rel)),
+                              cv2.imread(str(cameras / top["url"].lstrip("/"))))
+        if not same:
+            raise AssertionError(f"similar_img {rel}: first is {top}")
+        log(f"similar_img {rel}: first is {top['url']}, the same pixels")
+    n_crops = len(list(cameras.glob("*/objects/*/*.jpg")))
+    n_faces = len(list(cameras.glob("*/faces/*/*.jpg")))
+    log(f"crops saved {n_crops}, embedded in {pkl.parent.name}: {len(keys)}; "
+        f"faces saved {n_faces}; similar_img {rel} -> itself first, score "
+        f"{found['images'][0]['score']}")
+    return dict(out, crops_saved=n_crops, embedded=len(keys), faces_saved=n_faces,
+                similar_score=found["images"][0]["score"])
+
+
+def _qkv(torch, shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, np.float32)).to("cuda", dtype)
+            for _ in range(3)]
+
+
+def phase5(torch):
+    log("== phase 5: ViT attention kernel vs plain (mha_reference) on the card")
+    from clearcam_tpu_torch.ops.vit_attention import mha_flash, mha_reference
+    max_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for i, shape in enumerate(ATTN_SHAPES):
+            q, k, v = _qkv(torch, shape, dtype, seed=i)
+            got = mha_flash(q, k, v)
+            ref = mha_reference(q, k, v)
+            torch.cuda.synchronize()
+            if tuple(got.shape) != shape or got.dtype != dtype:
+                raise AssertionError(f"attention {shape}: got {tuple(got.shape)} {got.dtype}")
+            err = (got.float() - ref.float()).abs().max().item()
+            max_err[name] = max(max_err.get(name, 0.0), err)
+            log(f"attention {list(shape)} {name}: max|kernel - plain| = {err:.3e} "
+                f"(bound {ATTN_TOL[name]})")
+            if not err < ATTN_TOL[name]:
+                raise AssertionError(f"attention {shape} {name}: max|d| {err} >= "
+                                     f"{ATTN_TOL[name]}")
+    times = {}
+    for b, dtype in ((16, torch.float32), (64, torch.float32), (16, torch.bfloat16)):
+        q, k, v = _qkv(torch, (b, 16, 257, 64), dtype, seed=b)
+        # plain, kernel, kernel, plain: drift on the card hits both alike
+        p1 = cuda_ms(lambda: mha_reference(q, k, v))
+        k1 = cuda_ms(lambda: mha_flash(q, k, v))
+        k2 = cuda_ms(lambda: mha_flash(q, k, v))
+        p2 = cuda_ms(lambda: mha_reference(q, k, v))
+        key = (b, str(dtype)[6:])
+        times[key] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        flop = 4 * b * 16 * 257 * 257 * 64
+        log(f"attention [{b},16,257,64] {key[1]}: kernel {times[key][0]:.4f} ms "
+            f"(runs {k1:.4f}, {k2:.4f}) = {flop / times[key][0] / 1e9:.1f} TFLOP/s, "
+            f"plain {times[key][1]:.4f} ms (runs {p1:.4f}, {p2:.4f})")
+    return max_err, times
+
+
+def _cos_rows(a, b):
+    return (a * b).sum(-1) / np.linalg.norm(a, axis=-1) / np.linalg.norm(b, axis=-1)
+
+
+def _tower_check(what, got, ref):
+    cos = _cos_rows(got, ref)
+    log(f"{what} GPU vs CPU: cosine min {cos.min():.9f}, max|d| "
+        f"{np.abs(got - ref).max():.3e} (bound cosine > {TOWER_COS})")
+    if not (np.isfinite(got).all() and cos.min() > TOWER_COS):
+        raise AssertionError(f"{what}: cosine {cos}")
+
+
+def phase6(torch):
+    log("== phase 6: CLIP ViT-L/14, text tower, BlazeFace, IR-50 on the card vs CPU (f32)")
+    from clearcam_tpu_torch.models import adaface, blazeface, clip
+    from clearcam_tpu_torch.ops.vit_attention import mha_flash
+
+    t0 = time.time()
+    params = clip.init_params(seed=0)
+    log(f"clip.init_params(seed=0): {time.time() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    px = rng.integers(0, 256, (2, 224, 224, 3), np.uint8)
+    toks = np.zeros((2, 77), np.int64)
+    toks[0, :4] = [49406, 320, 1929, 49407]
+    toks[1, :6] = [49406, 1237, 530, 518, 2368, 49407]
+    fps = {}
+    with torch.inference_mode():
+        p_gpu = clip.params_from_jax(params, "cuda")
+        p_cpu = clip.params_from_jax(params, "cpu")
+        before = mha_flash.launches
+        got = clip.encode_image(p_gpu, torch.from_numpy(px).cuda()).cpu().numpy()
+        if mha_flash.launches - before != clip.IMG_BLOCKS:
+            raise AssertionError(f"image tower: {mha_flash.launches - before} "
+                                 f"kernel launches, not {clip.IMG_BLOCKS}")
+        _tower_check("ViT-L/14 image tower (24 blocks, kernel)", got,
+                     clip.encode_image(p_cpu, torch.from_numpy(px)).numpy())
+        _tower_check("text tower (12 blocks)",
+                     clip.encode_text(p_gpu, torch.from_numpy(toks).cuda()).cpu().numpy(),
+                     clip.encode_text(p_cpu, torch.from_numpy(toks)).numpy())
+        del p_cpu
+
+        # BlazeFace filters scaled by 0.5: He-initialised random weights blow
+        # activations up to ~1e8 through 31 residual blocks; at 0.5 they stay
+        # O(1) and some scores clear the 0.85 floor
+        bp = {k: (v * 0.5 if v.ndim == 4 else v)
+              for k, v in blazeface.init_params(seed=0).items()}
+        img = rng.integers(0, 256, (256, 256, 3), np.uint8)
+        d_gpu = blazeface.detect(blazeface.params_from_jax(bp, "cuda"),
+                                 torch.from_numpy(img).cuda()).cpu().numpy()
+        d_cpu = blazeface.detect(blazeface.params_from_jax(bp, "cpu"),
+                                 torch.from_numpy(img)).numpy()
+        live = d_cpu[:, 16] > 0
+        if not np.array_equal(d_gpu[:, 16] > 0, live) or \
+                np.abs(d_gpu - d_cpu).max() > 1e-2:
+            raise AssertionError(f"BlazeFace detect GPU vs CPU: live "
+                                 f"{(d_gpu[:, 16] > 0).sum()} vs {live.sum()}, max|d| "
+                                 f"{np.abs(d_gpu - d_cpu).max()}")
+        log(f"BlazeFace detect GPU vs CPU: the same {int(live.sum())} live rows, "
+            f"max|d| {np.abs(d_gpu - d_cpu).max():.3e} px (bound 1e-2)")
+        ap = adaface.init_params(seed=0)
+        faces = torch.from_numpy(rng.integers(0, 256, (4, 112, 112, 3), np.uint8))
+        _tower_check("AdaFace IR-50 (24 blocks)",
+                     adaface.embed(adaface.params_from_jax(ap, "cuda"), faces.cuda()).cpu().numpy(),
+                     adaface.embed(adaface.params_from_jax(ap, "cpu"), faces).numpy())
+
+        for b in (1, 16, 64):
+            x = torch.from_numpy(rng.integers(0, 256, (b, 224, 224, 3), np.uint8)).cuda()
+            runs = {}
+            for flash in (False, None, None, False):
+                ms = cuda_ms(lambda: clip.encode_image(p_gpu, x, flash=flash),
+                             iters=5, warmup=2)
+                runs.setdefault(flash, []).append(ms)
+            kern, plain = (float(np.mean(runs[f])) for f in (None, False))
+            fps[b] = (b / kern * 1e3, b / plain * 1e3)
+            log(f"image tower f32 batch {b}: kernel {kern:.3f} ms = {fps[b][0]:.1f} "
+                f"img/s (runs {runs[None]}), plain attention {plain:.3f} ms = "
+                f"{fps[b][1]:.1f} img/s (runs {runs[False]})")
+            del x
+    return fps
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6",
                     help="comma-separated subset of phases to run")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
 
@@ -380,7 +621,7 @@ def main(argv=None) -> int:
         sys.exit(f"chip_smoke: run from the repository root ({e})")
 
     t0 = time.time()
-    build_s = max_err = times = fps = launches = None
+    build_s = max_err = times = fps = launches = attn_err = attn_times = clip_fps = None
     if 0 in phases:
         phase0(torch)
     if 1 in phases:
@@ -391,13 +632,23 @@ def main(argv=None) -> int:
         fps = phase3(torch)
     if 4 in phases:
         launches = phase4()
-    log(f"== done in {time.time() - t0:.1f} s; build {build_s} s; fps {fps}")
-    if phases != {0, 1, 2, 3, 4}:
+    if 5 in phases:
+        attn_err, attn_times = phase5(torch)
+    if 6 in phases:
+        clip_fps = phase6(torch)
+    log(f"== done in {time.time() - t0:.1f} s; build {build_s} s; detect fps {fps}; "
+        f"image tower img/s (kernel, plain) {clip_fps}")
+    if phases != {0, 1, 2, 3, 4, 5, 6}:
         return 0
-    print(json.dumps({"kernels": [{
-        "name": "stem", "route": "cuda", "source": STEM_SOURCE,
-        "replaces": STEM_REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": times[8][0], "plain_ms": times[8][1]}]}))
+    # the attention row: f32, the CLIP tower's dtype; times at one CROP_BATCH
+    print(json.dumps({"kernels": [
+        {"name": "stem", "route": "cuda", "source": STEM_SOURCE,
+         "replaces": STEM_REPLACES, "launches": launches["stem"],
+         "max_abs_err": max_err, "ms": times[8][0], "plain_ms": times[8][1]},
+        {"name": "vit_attention", "route": "cuda", "source": ATTN_SOURCE,
+         "replaces": ATTN_REPLACES, "launches": launches["vit_attention"],
+         "max_abs_err": attn_err["float32"], "ms": attn_times[(16, "float32")][0],
+         "plain_ms": attn_times[(16, "float32")][1]}]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

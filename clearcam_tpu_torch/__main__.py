@@ -2,15 +2,19 @@
 `python -m clearcam_tpu_torch [--port 8080] [--data DIR] [--device cuda]`.
 
 The same CLI and wiring as ``python -m clearcam_tpu``: persisted settings,
-the detector, the HTTP API + web UI, the storage manager, the daily restart
-and the NVR loop. The NVR, server, storage and restart helpers are the JAX
-package's jax-free host code, reused unchanged; only the detector is the
-port's. CLIP/face search and Qwen summaries are not ported yet: settings
-that enable them are reported and ignored.
+the detector, the object finder (CLIP object search and face search), the
+HTTP API + web UI, the storage manager, the daily restart and the NVR loop.
+The NVR, server, storage and restart helpers are the JAX package's jax-free
+host code, reused unchanged; the detector and the object finder's towers
+are the port's. Qwen summaries are not ported yet: settings that enable
+them are reported and ignored.
 
 ``--device`` defaults to ``cuda`` and fails when no GPU is usable; the CPU
 runs only with ``--device cpu``. ``CLEARCAM_DTYPE=f32|bf16`` picks the
-detector's compute dtype (default bf16).
+detector's compute dtype (default bf16); the CLIP towers compute in their
+weights' dtype (f32 for the published checkpoint and for random init). On
+CUDA, turning CLIP on builds the attention kernel library, and a failed
+build stops the server.
 """
 from __future__ import annotations
 
@@ -21,8 +25,7 @@ from pathlib import Path
 
 from clearcam_tpu.__main__ import daily_restart, lan_ip
 
-NOT_PORTED = (("use_clip", "CLIP search"), ("use_face", "face search"),
-              ("use_qwen", "Qwen summaries"))
+NOT_PORTED = (("use_qwen", "Qwen summaries"),)
 
 
 def report_not_ported(settings) -> None:
@@ -59,6 +62,20 @@ def build_detector(settings, weights_dir: Path, device: str):
     return det
 
 
+def apply_finder_settings(finder, settings) -> None:
+    """Load or drop the CLIP and face towers as the settings say; print the
+    CLIP line when CLIP comes on."""
+    if settings.use_clip and not finder.clip_enabled:
+        finder.init_clip()
+        route = f"CUDA, {finder.kernel_library}" if finder.kernel_library \
+            else "plain"
+        print(f"clip: ViT-L/14 {finder.clip_dtype} on {finder.device}; "
+              f"attention kernel {route}", flush=True)
+    elif not settings.use_clip:
+        finder.turn_off_clip()
+    (finder.init_face if settings.use_face else finder.turn_off_face)()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m clearcam_tpu_torch")
     ap.add_argument("--port", type=int, default=8080)
@@ -71,8 +88,8 @@ def main(argv=None):
     ap.add_argument("--no-detector", action="store_true",
                     help="run the server without a detector (UI/API only)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the detector: cuda (default, fails "
-                         "without a GPU), cuda:N, or cpu")
+                    help="torch device of the detector and the object finder: "
+                         "cuda (default, fails without a GPU), cuda:N, or cpu")
     args = ap.parse_args(argv)
 
     from clearcam_tpu.runtime.nvr import NVR
@@ -81,7 +98,9 @@ def main(argv=None):
     from clearcam_tpu.server.http import AppContext, serve
     from clearcam_tpu.utils.db import KVStore
 
+    from .models.objects import ObjectFinder
     from .ops.stem import stem
+    from .ops.vit_attention import mha_flash
 
     db = KVStore(args.data / "cc_cache.db")
     stored = db.run_get("global_settings", "all")
@@ -93,8 +112,14 @@ def main(argv=None):
     detector = None if args.no_detector else build_detector(
         settings, args.weights, args.device)
 
+    # always constructed (the towers load on init_*), so CLIP or faces can
+    # be turned on later through /edit_settings without a restart
+    object_finder = ObjectFinder(base_dir=args.data / "cameras",
+                                 weights_dir=args.weights, device=args.device)
+    apply_finder_settings(object_finder, settings)
+
     nvr = NVR(db, args.data, settings, detector=detector,
-              object_finder=None, qwen=None)
+              object_finder=object_finder, qwen=None)
     storage = StorageManager(args.data / "cameras")
     nvr.storage = storage
 
@@ -113,16 +138,18 @@ def main(argv=None):
         return detector.detect_many([im[..., ::-1] for im in imgs_rgb])
 
     def on_settings_change(new):
-        """/edit_settings: rebuild the detector on a size/res change."""
+        """/edit_settings: CLIP and face toggles, and the detector rebuilt on
+        a size/res change."""
         nonlocal detector
         nvr.settings = new
         report_not_ported(new)
+        apply_finder_settings(object_finder, new)
         if detector is not None and (new.model_size != detector.size
                                      or int(new.model_res) != detector.res):
             detector = build_detector(new, args.weights, args.device)
             nvr.detector = detector
 
-    ctx = AppContext(db, args.data, nvr=nvr, object_finder=None,
+    ctx = AppContext(db, args.data, nvr=nvr, object_finder=object_finder,
                      settings=settings, offload_detect=offload_detect,
                      offload_detect_many=offload_detect_many,
                      on_settings_change=on_settings_change,
@@ -156,6 +183,7 @@ def main(argv=None):
         if server:
             server.shutdown()
         print(f"stem.launches={stem.launches}", flush=True)
+        print(f"vit_attention.launches={mha_flash.launches}", flush=True)
 
 
 if __name__ == "__main__":

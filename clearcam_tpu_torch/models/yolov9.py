@@ -281,16 +281,7 @@ def params_from_jax(params: dict, device="cpu", dtype=torch.float32) -> dict:
     ``dryrun``), the dict also holds the kernel's operands under
     ``STEM_KEYS``: the same values rounded to ``dtype``, then widened to
     float32 HWIO, so no step re-packs them."""
-    dev = resolve_device(device)
-    out = {}
-    for k, v in params.items():
-        t = torch.from_numpy(np.array(v, np.float32))
-        if t.ndim == 4:
-            t = F.hwio_to_oihw(t)
-        t = t.to(device=dev, dtype=dtype)
-        if t.ndim == 4:
-            t = t.contiguous(memory_format=torch.channels_last)
-        out[k] = t
+    out = F.tensors_from_numpy(params, resolve_device(device), dtype)
     w1, w2 = params.get("model.0.conv.weight"), params.get("model.1.conv.weight")
     if (np.shape(w1), np.shape(w2)) == ((3, 3, 3, 16), (3, 3, 16, 32)):
         for k, src in STEM_KEYS.items():

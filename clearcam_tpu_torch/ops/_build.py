@@ -26,7 +26,7 @@ BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> (argtypes, restype). Pointers and the stream are
 # c_void_p: a bare Python int would be passed as a 32-bit int.
 SIGNATURES = {
@@ -34,11 +34,17 @@ SIGNATURES = {
     "stem_forward": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     # once per device, before its first stem_forward -> cudaError_t
     "stem_prepare": ([], _I),
+    # q, k, v, out, B, H, T, int64[12] strides, scale, dtype, stream
+    "vit_attention_forward": ([_P, _P, _P, _P, _I, _I, _I,
+                               ctypes.POINTER(ctypes.c_longlong), _F, _I, _P], _I),
+    # once per device, before its first vit_attention_forward
+    "vit_attention_prepare": ([], _I),
     "cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_prepared: set[tuple[str, int]] = set()     # (set-up entry point, device index)
 # what the last load did: {"path", "seconds", "cached", "log"}
 last_build: dict = {}
 
@@ -104,3 +110,25 @@ def load() -> ctypes.CDLL:
                           cached=cached, log=log)
         _lib = lib
         return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by an entry point."""
+    if err:
+        raise RuntimeError(f"{what} failed: cudaError {err} "
+                           f"({load().cuda_error_string(err).decode()})")
+
+
+def prepare(entry: str, device) -> str:
+    """Build and load the library, and run the set-up entry point ``entry``
+    (e.g. ``"stem_prepare"``) once on the CUDA ``device``; returns the
+    library's path. Raises when nvcc, the build or the device refuses."""
+    import torch
+    device = torch.device(device)
+    lib = load()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if (entry, index) not in _prepared:
+        with torch.cuda.device(index):
+            check(getattr(lib, entry)(), f"{entry} on cuda:{index}")
+        _prepared.add((entry, index))
+    return last_build["path"]

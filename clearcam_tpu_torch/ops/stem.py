@@ -27,7 +27,6 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SHAPES = {"w1": (3, 3, 3, 16), "b1": (16,), "w2": (3, 3, 16, 32), "b2": (32,)}
-_prepared: set[int] = set()     # CUDA device indices whose kernel is set up
 
 
 def out_hw(h: int, w: int) -> tuple[int, int]:
@@ -62,25 +61,12 @@ def _check(x, params):
             raise ValueError(f"stem: {name} on {t.device}, x on {x.device}")
 
 
-def _raise_on(err: int, what: str, lib) -> None:
-    if err:
-        raise RuntimeError(f"stem kernel {what} failed: cudaError {err} "
-                           f"({lib.cuda_error_string(err).decode()})")
-
-
 def prepare(device) -> str:
     """Build and load the kernel library, and set the kernel up on the CUDA
     ``device``, once; returns the library's path. Raises when nvcc, the
     build or the device refuses, so a detector fails when it is made and
     not on its first frame."""
-    device = torch.device(device)
-    lib = _build.load()
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _prepared:
-        with torch.cuda.device(index):
-            _raise_on(lib.stem_prepare(), "set-up", lib)
-        _prepared.add(index)
-    return _build.last_build["path"]
+    return _build.prepare("stem_prepare", device)
 
 
 def _f32(t):
@@ -101,15 +87,14 @@ def stem(x, w1, b1, w2, b2):
     if out.numel() == 0:
         return out
     w1, b1, w2, b2 = (_f32(t) for t in (w1, b1, w2, b2))
-    if x.device.index not in _prepared:
-        prepare(x.device)
+    prepare(x.device)
     lib = _build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.stem_forward(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                                w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
                                b, h, w, _DTYPES[x.dtype], stream)
-    _raise_on(err, "launch", lib)
+    _build.check(err, "stem kernel launch")
     stem.launches += 1
     return out
 

@@ -1,5 +1,6 @@
-"""The port on an NVIDIA GPU: the CUDA stem kernel against its plain
-version, and the model and detector running through it. Every test needs
+"""The port on an NVIDIA GPU: the CUDA stem and ViT attention kernels
+against their plain versions, and the models, the detector and the CLIP
+image tower running through them. Every test needs
 the card and skips without one. The file imports no jax, so on a GPU
 machine without jax it runs as
 
@@ -9,8 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from clearcam_tpu_torch.models import yolov9
+from clearcam_tpu_torch.models import clip, yolov9
 from clearcam_tpu_torch.ops import stem as tstem
+from clearcam_tpu_torch.ops import vit_attention as tattn
 from clearcam_tpu_torch.runtime.nvr import BatchDetector
 
 pytestmark = pytest.mark.cuda
@@ -89,3 +91,86 @@ def test_batch_detector_bf16_on_gpu(cuda):
     rows = det.detect_many(frames)
     assert tstem.stem.launches == before + 1          # one bucket of 4
     assert all(r.shape == (300, 6) and np.isfinite(r).all() for r in rows)
+
+
+# f32 bound: summation order and exp2 vs exp only (TF32 off); bf16 bound:
+# the plain version rounds the probabilities to bf16 before the PV product
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _qkv(shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda().to(dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 16, 257, 64), (1, 16, 257, 64)]
+                         + [(2, 16, t, 64) for t in (1, 7, 128, 129, 784, 1600)])
+def test_vit_attention_kernel_matches_plain(cuda, shape, dtype):
+    q, k, v = _qkv(shape, dtype, seed=shape[2])
+    before = tattn.mha_flash.launches
+    got = tattn.mha_flash(q, k, v)
+    ref = tattn.mha_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert tattn.mha_flash.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == dtype
+    assert (got.float() - ref.float()).abs().max().item() < ATTN_TOL[dtype]
+
+
+def test_vit_attention_kernel_reads_strided_heads(cuda):
+    """The heads of a fused qkv projection, read in place, with a scale."""
+    qkv = _qkv((2, 257, 3 * 1024), torch.float32, seed=5)[0]
+    q, k, v = (t.view(2, 257, 16, 64).transpose(1, 2) for t in qkv.chunk(3, -1))
+    got = tattn.mha_flash(q, k, v, sm_scale=0.1)
+    ref = tattn.mha_reference(q, k, v, sm_scale=0.1)
+    assert (got - ref).abs().max().item() < ATTN_TOL[torch.float32]
+
+
+def test_vit_attention_kernel_raises_on_bad_input(cuda):
+    q, k, v = _qkv((1, 2, 9, 64), torch.float32, seed=1)
+    with pytest.raises(TypeError):
+        tattn.mha_flash(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        tattn.mha_flash(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head dim"):
+        tattn.mha_flash(*(t[..., :32] for t in (q, k, v)))
+    with pytest.raises(ValueError, match="on cpu"):
+        tattn.mha_flash(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="strides"):
+        tattn.mha_flash(q, k.transpose(-1, -2).contiguous().transpose(-1, -2), v)
+
+
+def test_clip_image_tower_gpu_matches_cpu(cuda):
+    """Two full-width blocks: the tower through the kernel (GPU) against the
+    plain tower on the CPU."""
+    params = clip.init_params(seed=0, img_blocks=2, txt_blocks=1)
+    px = np.random.default_rng(6).integers(0, 256, (3, 224, 224, 3), np.uint8)
+    before = tattn.mha_flash.launches
+    with torch.inference_mode():
+        got = clip.encode_image(clip.params_from_jax(params, cuda),
+                                torch.from_numpy(px).to(cuda)).cpu().numpy()
+        ref = clip.encode_image(clip.params_from_jax(params, "cpu"),
+                                torch.from_numpy(px)).numpy()
+    assert tattn.mha_flash.launches == before + 2
+    cos = (got * ref).sum(-1) / np.linalg.norm(got, axis=-1) / np.linalg.norm(ref, axis=-1)
+    assert cos.min() > 1 - 1e-5, cos
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+def test_object_finder_on_gpu(cuda, tmp_path):
+    """CLIP on through the port's ObjectFinder: init_clip sets the kernel
+    up, a batch of crops goes through it (one launch per block), and the
+    embeddings match the CPU finder's."""
+    from clearcam_tpu_torch.models.objects import ObjectFinder
+    params = clip.init_params(seed=2, img_blocks=1, txt_blocks=1)
+    gpu = ObjectFinder(weights_dir=tmp_path, device="cuda")
+    gpu.init_clip(params=params)
+    assert gpu.kernel_library and gpu.clip_dtype == torch.float32
+    cpu = ObjectFinder(weights_dir=tmp_path, device="cpu")
+    cpu.init_clip(params=params)
+    crops = list(np.random.default_rng(7).integers(0, 256, (3, 150, 100, 3), np.uint8))
+    before = tattn.mha_flash.launches
+    got = gpu.embed_images(crops)
+    assert tattn.mha_flash.launches == before + 1
+    np.testing.assert_allclose(got, cpu.embed_images(crops), rtol=0, atol=1e-4)

@@ -1,5 +1,6 @@
 """The port's BatchDetector inside the shared NVR, and the port's entry point
 `python -m clearcam_tpu_torch`, on the CPU (device="cpu" given explicitly)."""
+import contextlib
 import json
 import os
 import signal
@@ -120,16 +121,14 @@ def _get_json(url):
     return json.loads(urllib.request.urlopen(url, timeout=5).read())
 
 
-def test_main_boots_on_cpu_and_detects(tmp_path):
-    """`python -m clearcam_tpu_torch --device cpu`: NVR ticks through the
-    port's detector, /yolo offload answers float32[N,6], no detect errors,
-    and the stem launch count is reported at shutdown (0 on the CPU)."""
-    db = KVStore(tmp_path / "cc_cache.db")
-    db.run_put("links", "cam1", "synthetic://96x64")
-    db.run_put("global_settings", "all", GlobalSettings(model_size="t", model_res=64))
+@contextlib.contextmanager
+def _server(tmp_path, **env_extra):
+    """`python -m clearcam_tpu_torch --device cpu` on tmp_path's data,
+    up and answering /healthz; yields (base URL, a dict whose "out" is the
+    server's output once it has shut down)."""
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONUNBUFFERED="1",
-               OMP_NUM_THREADS="2")
+               OMP_NUM_THREADS="2", **env_extra)
     proc = subprocess.Popen(
         [sys.executable, "-m", "clearcam_tpu_torch", "--port", str(port),
          "--data", str(tmp_path), "--weights", str(tmp_path / "weights"),
@@ -137,6 +136,7 @@ def test_main_boots_on_cpu_and_detects(tmp_path):
         env=env, cwd=str(tmp_path), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     base = f"http://127.0.0.1:{port}"
+    result = {}
     try:
         deadline = time.time() + 60
         while True:
@@ -148,6 +148,24 @@ def test_main_boots_on_cpu_and_detects(tmp_path):
                 assert time.time() < deadline, "server never came up"
                 time.sleep(0.3)
         assert health["ok"] is True
+        yield base, result
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            result["out"], _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            result["out"], _ = proc.communicate(timeout=10)
+
+
+def test_main_boots_on_cpu_and_detects(tmp_path):
+    """`python -m clearcam_tpu_torch --device cpu`: NVR ticks through the
+    port's detector, /yolo offload answers float32[N,6], no detect errors,
+    and the stem launch count is reported at shutdown (0 on the CPU)."""
+    db = KVStore(tmp_path / "cc_cache.db")
+    db.run_put("links", "cam1", "synthetic://96x64")
+    db.run_put("global_settings", "all", GlobalSettings(model_size="t", model_res=64))
+    with _server(tmp_path) as (base, result):
         frame = np.random.default_rng(0).integers(0, 256, (640, 640, 3), np.uint8)
         req = urllib.request.Request(f"{base}/yolo", data=frame.tobytes(),
                                      method="POST")
@@ -164,12 +182,71 @@ def test_main_boots_on_cpu_and_detects(tmp_path):
             time.sleep(0.3)
         assert not snap["counters"].get("detect_errors")
         assert not snap["counters"].get("tracker_errors")
-    finally:
-        proc.send_signal(signal.SIGTERM)
-        try:
-            out, _ = proc.communicate(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, _ = proc.communicate(timeout=10)
+    out = result["out"]
     assert "stem kernel on (plain)" in out, out
     assert "stem.launches=0" in out.splitlines(), out
+
+
+MERGES = [("h", "e"), ("l", "l"), ("he", "ll"), ("hell", "o</w>"),
+          ("w", "o"), ("r", "l"), ("wo", "rl"), ("worl", "d</w>")]
+
+
+def _small_clip_checkpoint(path):
+    """Published-format CLIP weights (patch filter OIHW) at full width, cut
+    to one block per tower and 1,024 token rows (the tiny merge table's ids
+    stay below 522), so a CPU server loads them in a second. Returns the
+    numpy params the port converts them to."""
+    from clearcam_tpu.io import safetensors as st
+    from clearcam_tpu_torch.models import clip as tclip
+    from clearcam_tpu_torch.nn import functional as F
+    p = tclip.init_params(seed=3, img_blocks=1, txt_blocks=1)
+    p["token_embedding.weight"] = p["token_embedding.weight"][:1024]
+    sd = dict(p, **{tclip.PATCH_KEY: F.hwio_to_oihw(p[tclip.PATCH_KEY])})
+    path.parent.mkdir(parents=True, exist_ok=True)
+    st.save(sd, path)
+    return tclip.convert_state_dict(st.load(path))
+
+
+def test_main_serves_clip_search_on_cpu(tmp_path):
+    """use_clip on: the entry point builds the port's ObjectFinder, loads the
+    CLIP checkpoint, and /v1/embeddings and an uploaded-image search answer
+    through it; its startup line names the dtype, device and the plain
+    attention route, and the attention launch count is 0 on the CPU."""
+    import base64
+    import gzip
+
+    import cv2
+
+    from clearcam_tpu.utils.tokenizer import CLIPTokenizer
+    from clearcam_tpu_torch.models.objects import CLIP_WEIGHTS, ObjectFinder
+
+    params = _small_clip_checkpoint(tmp_path / "weights" / CLIP_WEIGHTS)
+    vocab = tmp_path / "merges.txt.gz"
+    with gzip.open(vocab, "wt", encoding="utf-8") as f:
+        # no trailing newline: the reader takes every line after the header
+        f.write("#version: test\n" + "\n".join(" ".join(m) for m in MERGES))
+    KVStore(tmp_path / "cc_cache.db").run_put(
+        "global_settings", "all", GlobalSettings(model_res=64, use_clip=True))
+    texts = ["hello", "world"]
+    with _server(tmp_path, CLEARCAM_BPE_PATH=str(vocab)) as (base, result):
+        req = urllib.request.Request(
+            f"{base}/v1/embeddings", data=json.dumps({"input": texts}).encode(),
+            method="POST")
+        data = json.loads(urllib.request.urlopen(req, timeout=60).read())["data"]
+        crop = np.random.default_rng(1).integers(0, 256, (90, 60, 3), np.uint8)
+        jpeg = base64.b64encode(cv2.imencode(".jpg", crop)[1].tobytes()).decode()
+        req = urllib.request.Request(
+            f"{base}/event_thumbs", method="POST",
+            data=json.dumps({"uploaded_image": jpeg}).encode())
+        found = json.loads(urllib.request.urlopen(req, timeout=60).read())
+    out = result["out"]
+    embs = np.asarray([d["embedding"] for d in data], np.float32)
+    assert embs.shape == (2, 768)
+    np.testing.assert_allclose(np.linalg.norm(embs, axis=-1), 1.0, atol=1e-5)
+    ref = ObjectFinder(device="cpu")
+    ref.init_clip(params=params)
+    ref._tok = CLIPTokenizer(merges=MERGES)
+    np.testing.assert_allclose(embs, ref.embed_texts(texts), rtol=0, atol=1e-5)
+    assert found == {"images": [], "count": 0}, found     # nothing indexed yet
+    assert "clip: ViT-L/14 torch.float32 on cpu; attention kernel plain" in out, out
+    assert "vit_attention.launches=0" in out.splitlines(), out
