@@ -1,10 +1,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
 Drives clearcam_tpu_torch's paths, the NVR detect tick (YOLOv9-t, res
-640, random weights from seed 0) and the NVR's object search (CLIP
-ViT-L/14 image and text towers, BlazeFace and AdaFace IR-50, random
-weights from seed 0), and the hand-written kernels (stem, ViT attention)
-on the card. Every phase raises on failure, so the script exits non-zero:
+640, random weights from seed 0), the NVR's object search (CLIP ViT-L/14
+image and text towers, BlazeFace and AdaFace IR-50, random weights from
+seed 0) and the LLM serving daemon (Qwen3-1.7B widths, random weights
+from seed 0, int8 and int4), and the hand-written kernels (stem, ViT
+attention, quant-matmul, batched decode attention) on the card. Every
+phase raises on failure, so the script exits non-zero:
 
   0  the card: nvidia-smi name and power limit, torch, nvcc; TF32 off
   1  build csrc/*.cu with nvcc for sm_90a, timed
@@ -31,10 +33,33 @@ on the card. Every phase raises on failure, so the script exits non-zero:
      through the kernel) and the text tower (12 blocks), cosine > 1 - 1e-5
      per row; BlazeFace detect and IR-50 AdaFace embed; image-tower img/s
      at batch 1, 16, 64 with the kernel and with the plain attention
+  7  the LLM kernels vs their plain versions: int8 and int4 quant-matmul
+     at Qwen3-1.7B's five products (the LM head included) and 1, 8, 32,
+     256 rows, x f32 (max|d|/max|plain| <= 1e-5) and bf16 (<= 8e-3);
+     batched decode attention at B=8 H=16 KvH=8 S=8192 D=128, bf16 and
+     f32 caches, per-row positions and pads, f32 q (max|d| < 1e-4) and
+     bf16 q (< 2e-2); device times from CUDA-graph replays over operands
+     larger than L2, and GB/s against 3.35 TB/s
+  8  a 2-block Qwen3-1.7B-width model (vocab 151936), f32 weights, int8
+     and int4, through prefill_slot, prefill_many and teacher-forced
+     decode_all with the decode kernel: card vs CPU logprob rows and
+     decode logits max|d| < 2e-3; bf16 weights with a bf16 KV cache, on
+     the card (decode kernel, plain attention) and the CPU, against f32
+     products of the same bf16 values: logits within 5% of their range
+     and the card within 2x the CPU's gap; then the 28-block model with int4
+     weights and a bf16 KV cache in the engine, 8 concurrent requests,
+     decode tokens/s with the kernel and with the plain attention
+  9  `python -m clearcam_tpu_torch.tools.serve_llm --synthetic --int8
+     --pallas` (28 blocks, ctx 8192, 8 slots): /healthz, /v1/models,
+     /generate plain and streamed, 8 concurrent /v1/chat/completions (one
+     with response_format json_object, whose text must be a JSON prefix),
+     /v1/completions with logprobs; quant_matmul and decode_attention
+     launches reported at shutdown
 
 The line before the last is the card's name and power limit; before it, a
-JSON line with each kernel's launches on a served path (phase 4), its
-error against the plain version and both times. The last line is
+JSON line with each kernel's launches on a served path (phases 4 and 9;
+int4 from phase 8's engine run), its error against the plain version and
+both times. The last line is
 {"ok": true, "device": {...}}. Without CUDA, or outside the repository, it
 exits non-zero and prints no result.
 
@@ -79,6 +104,7 @@ ATTN_SHAPES = [(16, 16, 257, 64), (1, 16, 257, 64)] + [
     (2, 16, t, 64) for t in (1, 7, 128, 129, 784, 1600)]
 TOWER_COS = 1 - 1e-5                # towers, GPU vs CPU, cosine per row
 # BPE merges for the server's tokenizer: the real vocab is not in the repo
+ALL_PHASES = tuple(range(10))
 MERGES = [("h", "e"), ("l", "l"), ("he", "ll"), ("hell", "o</w>"),
           ("w", "o"), ("r", "l"), ("wo", "rl"), ("worl", "d</w>")]
 
@@ -605,9 +631,457 @@ def phase6(torch):
     return fps
 
 
+# ---------------------------------------------------------------------------
+# the LLM serving slice: quant-matmul and decode-attention kernels
+
+QM_SOURCE = "clearcam_tpu_torch/csrc/quant_matmul.cu"
+QM_REPLACES = {8: "clearcam_tpu/ops/quant_matmul.py:198",
+               4: "clearcam_tpu/ops/quant_matmul.py:215"}
+DEC_SOURCE = "clearcam_tpu_torch/csrc/decode_attention.cu"
+DEC_REPLACES = "clearcam_tpu/ops/decode_attention.py:200"
+# quant kernel vs plain, max |d| over max |plain|: f32 x differs by the sum
+# order only; bf16 x rounds both outputs to bf16
+QM_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+# Qwen3-1.7B's products (out, in): q/o, k/v, gate/up, down, the LM head
+QM_SHAPES = [(2048, 2048), (1024, 2048), (6144, 2048), (2048, 6144), (151936, 2048)]
+QM_ROWS = (1, 8, 32, 256)
+# decode kernel vs plain (f32 softmax over the whole cache), max |d|
+DEC_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+DEC_POS = [0, 17, 255, 256, 1000, 4095, 8191, 3000]
+QM_JSON_SHAPE = (6144, 2048, 8, "float32")     # (out, in, rows, x dtype)
+HBM = 3.35e12          # H100 SXM HBM3 bytes/s (data sheet)
+L2_FLUSH = 120_000_000  # bytes a timed run cycles through: > the H100's 50 MB L2
+# 2-block full-width model, card vs CPU, f32: max |d| of the logprob rows
+# (chosen + top 8) and of the decode step's full logits
+LLM_LP_TOL, LLM_LOGIT_TOL = 2e-3, 2e-3
+# bf16 weights and a bf16 KV cache, against the JAX package's semantics for
+# them (the bf16 values widened, f32 products): the port rounds each
+# product's input and output to bf16, ~1% of the logits' range over two
+# blocks and the LM head. Bounds: 5% of max|logit|, and the card no further
+# from the reference than 2x the port's own bf16 path on the CPU
+LLM_BF16_REL, LLM_BF16_RATIO = 0.05, 2.0
+
+
+def graph_ms(calls, reps: int = 5) -> float:
+    """Device milliseconds per call: the calls captured once in a CUDA
+    graph and replayed, so the host's launch cost is left out. Callers
+    cycle the calls' operands through more bytes than the 50 MB L2, as a
+    decode step's weights do."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # warm-up outside the capture
+        for c in calls[:3]:
+            c()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for c in calls:
+            c()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * len(calls))
+    del graph
+    return ms
+
+
+def _pair_ms(plain, kernel):
+    """plain, kernel, kernel, plain (lists of calls); mean per side."""
+    p1 = graph_ms(plain)
+    k1 = graph_ms(kernel)
+    k2 = graph_ms(kernel)
+    p2 = graph_ms(plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _copies(torch, ql, nbytes: int) -> list:
+    """ql and enough copies of it to hold more than L2_FLUSH bytes."""
+    import dataclasses
+    n = min(128, max(4, -(-L2_FLUSH // nbytes)))
+    return [ql] + [dataclasses.replace(ql, **{f.name: getattr(ql, f.name).clone()
+                                              for f in dataclasses.fields(ql)
+                                              if torch.is_tensor(getattr(ql, f.name))})
+                   for _ in range(n - 1)]
+
+
+def phase7(torch):
+    log("== phase 7: quant-matmul and decode-attention kernels vs plain on the card")
+    from clearcam_tpu_torch.ops import decode_attention as dec
+    from clearcam_tpu_torch.ops import quant_matmul as qm
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"qm_err": {8: 0.0, 4: 0.0}, "qm_ms": {}, "dec_err": 0.0, "dec_ms": {}}
+    for o, i in QM_SHAPES:
+        w = torch.randn((o, i), generator=gen, device="cuda") * 0.05
+        for bits in (8, 4):
+            ql = qm.quantize_int8(w) if bits == 8 else qm.quantize_int4(w)
+            wbytes = (ql.q if bits == 8 else ql.packed).numel() + ql.s.numel() * 4
+            qls = _copies(torch, ql, wbytes)
+            for rows in QM_ROWS:
+                for dtype in (torch.float32, torch.bfloat16):
+                    name = str(dtype)[6:]
+                    x = torch.randn((rows, i), generator=gen, device="cuda").to(dtype)
+                    got = qm.quant_linear(x, ql)
+                    ref = qm.quant_linear_reference(x, ql)
+                    torch.cuda.synchronize()
+                    rel = (got.float() - ref.float()).abs().max().item() \
+                        / ref.float().abs().max().item()
+                    if not (got.shape == ref.shape and got.dtype == dtype
+                            and rel <= QM_TOL[name]):
+                        raise AssertionError(f"quant int{bits} [{rows},{i}]x[{o},{i}] "
+                                             f"{name}: max|d|/max|plain| {rel}")
+                    if dtype == torch.float32:
+                        out["qm_err"][bits] = max(
+                            out["qm_err"][bits], (got - ref).abs().max().item())
+                    if dtype == torch.float32 or rows == 8:
+                        k, p = _pair_ms(
+                            [lambda c=c: qm.quant_linear_reference(x, c) for c in qls],
+                            [lambda c=c: qm.quant_linear(x, c) for c in qls])
+                        out["qm_ms"][(bits, o, i, rows, name)] = (k, p)
+                        log(f"quant int{bits} x[{rows},{i}] {name} . W[{o},{i}]: max|d|/max "
+                            f"{rel:.2e} (bound {QM_TOL[name]}); kernel {k:.4f} ms = "
+                            f"{wbytes / k / 1e6:.0f} GB/s ({wbytes / k / 1e9 / HBM * 1e12:.0%}"
+                            f" of HBM), plain {p:.4f} ms")
+            del ql, qls
+        del w
+    b, h, kvh, s, d = 8, 16, 8, 8192, 128
+    zeros = torch.zeros(b, dtype=torch.int32, device="cuda")
+    spread = torch.tensor(DEC_POS, dtype=torch.int32, device="cuda")
+    cases = {"spread": (spread, zeros),
+             "pads": (spread, torch.tensor([0, 5, 200, 0, 999, 1, 4000, 2500],
+                                           dtype=torch.int32, device="cuda")),
+             "pos256": (torch.full((b,), 256, dtype=torch.int32, device="cuda"), zeros),
+             "pos4096": (torch.full((b,), 4096, dtype=torch.int32, device="cuda"), zeros)}
+    for cname, cdt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        q = torch.randn((b, h, d), generator=gen, device="cuda")
+        k, v = (torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(cdt)
+                for _ in range(2))
+        for case, (pos, pads) in cases.items():
+            # q f32 (the model's residual stream); a bf16 q too, on a bf16 cache
+            for qn, qq in [("float32", q)] + ([("bfloat16", q.bfloat16())]
+                                              if cname == "bfloat16" else []):
+                got = dec.decode_attention_batch(qq, k, v, pos, pads)
+                ref = dec.decode_attention_batch_reference(qq, k, v, pos, pads)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                if not (got.dtype == qq.dtype and err < DEC_TOL[qn]):
+                    raise AssertionError(f"decode attention {case} {cname} cache, q {qn}: "
+                                         f"max|d| {err}")
+                if qn == "float32":
+                    out["dec_err"], err32 = max(out["dec_err"], err), err
+                else:
+                    log(f"decode attention {case}, bf16 q and cache: max|d| {err:.2e} "
+                        f"(bound {DEC_TOL[qn]})")
+            live = int((pos - pads + 1).sum().item()) * kvh * d * 2 * k.element_size()
+            kt, pt = _pair_ms(
+                [lambda: dec.decode_attention_batch_reference(q, k, v, pos, pads)] * 4,
+                [lambda: dec.decode_attention_batch(q, k, v, pos, pads)] * 4)
+            out["dec_ms"][(case, cname)] = (kt, pt)
+            log(f"decode attention B=8 H=16 KvH=8 S=8192 {cname} cache, {case}: max|d| "
+                f"{err32:.2e} (bound {DEC_TOL['float32']}); kernel {kt:.4f} ms = "
+                f"{live / kt / 1e6:.0f} GB/s of live K/V ({live / kt / 1e9 / HBM * 1e12:.0%} "
+                f"of HBM), plain {pt:.4f} ms (reads the whole cache)")
+        del k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def _same_bytes(torch, a, b) -> bool:
+    """Two QuantLinear (or QuantLinear4) weights hold equal tensors."""
+    names = ("packed", "s") if hasattr(a, "packed") else ("q", "s")
+    return all(torch.equal(getattr(a, n), getattr(b, n).cpu()) for n in names)
+
+
+def _llm_2block_run(torch, llm, cfg, p, dev, state_dtype, pallas, inputs=None):
+    """prefill_slot, prefill_many and 3 decode_all steps of a 2-block
+    full-width model on ``dev``, the decode steps fed ``inputs`` (teacher
+    forcing; None takes the run's own tokens); then one decode forward's
+    full logits, through the decode kernel on the card (pallas) or the
+    plain attention."""
+    from clearcam_tpu_torch.ops.decode_attention import decode_attention_batch
+    n = 4
+    prompts = np.random.default_rng(1).integers(1, cfg.vocab_size, (n, 40))
+    samp = np.zeros((n, llm.SAMP_W), np.float32)
+    samp[:, 1] = samp[:, 6] = 1.0
+    fns = llm.make_serving_fns(cfg, use_pallas_decode=pallas)
+    st = llm.init_state(cfg, n, dtype=state_dtype, device=dev)
+    ft = torch.zeros(n, dtype=torch.int32, device=dev)
+    fl = torch.zeros((n, 1 + 2 * llm.LP_K), device=dev)
+    cp = torch.zeros((n, cfg.vocab_size), dtype=torch.int32, device=dev)
+    co, bias = torch.zeros_like(cp), torch.zeros((n, cfg.vocab_size), device=dev)
+    # slot 0: two chunks through prefill_slot; slots 1-3 through prefill_many
+    for c in range(2):
+        m = min(32, 40 - 32 * c)
+        chunk = np.pad(prompts[0:1, 32 * c:32 * c + m], ((0, 0), (0, 32 - m)))
+        ft, fl, st = fns[0](p, st, ft, fl, chunk, 0, 32 * c, m, samp[0], 1, 0, cp, co, bias)
+    for c in range(2):
+        m = min(32, 40 - 32 * c)
+        toks = np.zeros((n, 32), np.int32)
+        toks[1:, :m] = prompts[1:, 32 * c:32 * c + m]
+        meta = np.zeros((4, n), np.int32)
+        meta[0], meta[1], meta[2, 1:], meta[3] = 32 * c, m, 1, np.arange(n)
+        ft, fl, st = fns[2](p, st, ft, fl, toks, meta, samp, 0, cp, co, bias)
+    rows = [fl.cpu().numpy()]
+    own = inputs is None
+    inputs = [ft.cpu().numpy()] if own else inputs
+    for step in range(3):
+        meta = np.zeros((5, n), np.int32)
+        meta[0], meta[1], meta[4] = 40 + step, 1, 40     # no inject: forced input
+        tok, st, co, lp = fns[1](p, st, torch.from_numpy(inputs[step]).to(dev), ft,
+                                 meta, samp, 0, co, cp, bias)
+        rows.append(lp.cpu().numpy())
+        if own:
+            inputs.append(tok.cpu().numpy())
+    impl = None if dev == "cpu" or not pallas else (
+        lambda q, s_, pos, pads: decode_attention_batch(
+            q[:, :, 0].contiguous(), s_["k"], s_["v"], pos, pads)[:, :, None])
+    hidden, _ = llm.forward(p, cfg, st, torch.from_numpy(inputs[3]).to(dev)[:, None],
+                            torch.full((n,), 43, device=dev), llm.freqs_for(cfg, dev),
+                            decode_attn=impl)
+    return {"inputs": inputs, "rows": np.stack(rows),
+            "logits": llm.logits_at(p, cfg, hidden, 0).float().cpu().numpy()}
+
+
+def _llm_gap(a, b, lp_k):
+    """(logprob rows max|d| over chosen + top-k, logits max|d|, top-k ids equal)."""
+    return (float(np.abs(a["rows"] - b["rows"])[..., :1 + lp_k].max()),
+            float(np.abs(a["logits"] - b["logits"]).max()),
+            bool(np.array_equal(a["rows"][..., 1 + lp_k:], b["rows"][..., 1 + lp_k:])))
+
+
+def _llm_2block_check(torch, llm, cfg, p_cpu, p_gpu, what):
+    """The f32-activation models (f32, int8, int4 weights, f32 KV): card
+    (decode kernel) vs CPU, the card teacher-forced with the CPU's tokens."""
+    ref = _llm_2block_run(torch, llm, cfg, p_cpu, "cpu", torch.float32, True)
+    got = _llm_2block_run(torch, llm, cfg, p_gpu, "cuda", torch.float32, True, ref["inputs"])
+    lp_err, logit_err, same_ids = _llm_gap(ref, got, llm.LP_K)
+    log(f"2-block Qwen3-1.7B widths, {what}, decode kernel, serving graphs, card vs CPU: "
+        f"logprob rows max|d| {lp_err:.2e} (bound {LLM_LP_TOL}), top-8 ids "
+        f"{'equal' if same_ids else 'DIFFER'}; decode logits [4,151936] max|d| "
+        f"{logit_err:.2e} (bound {LLM_LOGIT_TOL})")
+    if not (lp_err < LLM_LP_TOL and logit_err < LLM_LOGIT_TOL
+            and np.isfinite(got["logits"]).all()):
+        raise AssertionError(f"2-block model {what}: card vs CPU off")
+    return lp_err, logit_err
+
+
+def _llm_2block_bf16_check(torch, llm, cfg, p_cpu):
+    """bf16 weights and a bf16 KV cache (serve_llm's default without
+    --int8), on the card through the decode kernel and through the plain
+    attention, and the port's bf16 path on the CPU, each against the JAX
+    package's semantics for these weights: the bf16 values widened to f32
+    and f32 products over the bf16 cache (the port on the CPU with the
+    widened weights). All teacher-forced with that reference's tokens."""
+    widened = {k: v.bfloat16().float() for k, v in p_cpu.items()}
+    ref = _llm_2block_run(torch, llm, cfg, widened, "cpu", torch.bfloat16, False)
+    del widened
+    b_cpu = {k: v.bfloat16() for k, v in p_cpu.items()}
+    runs = {"CPU": _llm_2block_run(torch, llm, cfg, b_cpu, "cpu", torch.bfloat16, False,
+                                   ref["inputs"])}
+    b_gpu = {k: v.cuda() for k, v in b_cpu.items()}
+    del b_cpu
+    for pallas in (True, False):
+        runs[f"card, {'decode kernel' if pallas else 'plain attention'}"] = _llm_2block_run(
+            torch, llm, cfg, b_gpu, "cuda", torch.bfloat16, pallas, ref["inputs"])
+    del b_gpu
+    scale = float(np.abs(ref["logits"]).max())
+    gaps = {k: _llm_gap(ref, r, llm.LP_K) for k, r in runs.items()}
+    for k, (lp_err, logit_err, same_ids) in gaps.items():
+        log(f"2-block Qwen3-1.7B widths, bf16 weights, bf16 KV, {k} vs the f32-product "
+            f"reference: logprob rows max|d| {lp_err:.2e}, top-8 ids "
+            f"{'equal' if same_ids else 'DIFFER'}; decode logits max|d| {logit_err:.2e} "
+            f"({logit_err / scale:.2%} of max|logit| {scale:.3f})")
+    cpu_lp, cpu_logit, _ = gaps["CPU"]
+    for k, (lp_err, logit_err, _) in gaps.items():
+        if not (logit_err <= LLM_BF16_REL * scale and np.isfinite(runs[k]["logits"]).all()
+                and lp_err <= LLM_BF16_RATIO * cpu_lp
+                and logit_err <= LLM_BF16_RATIO * cpu_logit):
+            raise AssertionError(
+                f"2-block model bf16, {k}: off the f32-product reference by more than "
+                f"{LLM_BF16_REL:.0%} of max|logit| or {LLM_BF16_RATIO}x the CPU's gap")
+    return {k: v[:2] for k, v in gaps.items()}
+
+
+def _engine_tokens_per_s(torch, engine, prompts, max_new):
+    """Submit every prompt, step until all are decoding, then time the
+    decode to the end: (decode tokens/s, decode steps/s)."""
+    reqs = [engine.submit(list(p), max_new=max_new) for p in prompts]
+    while any(len(r.tokens) == 0 for r in reqs):
+        engine.step()
+    torch.cuda.synchronize()
+    t0, steps0 = time.perf_counter(), engine.stats["decode_steps"]
+    toks0 = sum(len(r.tokens) for r in reqs)
+    engine.run_until_idle()
+    dt = time.perf_counter() - t0
+    toks = sum(len(r.tokens) for r in reqs) - toks0
+    return toks / dt, (engine.stats["decode_steps"] - steps0) / dt, reqs
+
+
+def phase8(torch):
+    log("== phase 8: the LLM on the card vs the CPU; the 28-block int4 engine")
+    from clearcam_tpu_torch.models import llm
+    from clearcam_tpu_torch.ops import decode_attention as dec
+    from clearcam_tpu_torch.ops import quant_matmul as qm
+    from clearcam_tpu_torch.serving import ServingEngine
+    errs = {}
+    cfg = llm.qwen3_2b_cfg(2, 512)
+    p_cpu = llm.init_params(cfg, seed=0)
+    p_gpu = {k: v.cuda() for k, v in p_cpu.items()}
+    with torch.inference_mode():
+        for quant in (None, "int8", "int4"):
+            fn = getattr(llm, f"quantize_params_{quant}") if quant else dict
+            q_cpu, q_gpu = fn(p_cpu), fn(p_gpu)
+            # quantized on the card, the weights hold the CPU's bytes
+            apart = [k for k, w in q_cpu.items()
+                     if not torch.is_tensor(w) and not _same_bytes(torch, w, q_gpu[k])]
+            if apart:
+                raise AssertionError(f"{quant}: card and CPU quantized {apart} apart")
+            errs[quant or "f32"] = _llm_2block_check(
+                torch, llm, cfg, q_cpu, q_gpu, f"f32{' ' + quant if quant else ''}")
+        del p_gpu
+        errs["bf16"] = _llm_2block_bf16_check(torch, llm, cfg, p_cpu)
+    del p_cpu
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    cfg = llm.qwen3_2b_cfg(28, 8192)
+    params = llm.quantize_params_int4(
+        llm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda"))
+    torch.cuda.empty_cache()
+    log(f"28-block model, bf16 init + int4 quantization on the card: {time.time() - t0:.1f} s")
+    prompts = np.random.default_rng(2).integers(1, cfg.vocab_size, (8, 200))
+    tps = {}
+    launches = None
+    for pallas in (True, False, False, True):
+        eng = ServingEngine(params, cfg, n_slots=8, state_dtype=torch.bfloat16,
+                            use_pallas_decode=pallas)
+        _engine_tokens_per_s(torch, eng, prompts[:, :40], 4)          # warm up
+        if pallas and launches is None:
+            qm.quant_linear.launches = dec.decode_attention_batch.launches = 0
+        rate, steps, reqs = _engine_tokens_per_s(torch, eng, prompts, 48)
+        if pallas and launches is None:
+            launches = {"int4": qm.quant_linear.launches,
+                        "decode": dec.decode_attention_batch.launches}
+        tps.setdefault(pallas, []).append((rate, steps))
+        if not all(len(r.tokens) == 48 and all(0 <= t < cfg.vocab_size for t in r.tokens)
+                   for r in reqs):
+            raise AssertionError("28-block engine: a request did not finish 48 tokens")
+        log(f"28-block int4 engine, 8 slots, bf16 KV, 200-token prompts, 48 new: "
+            f"{'decode kernel' if pallas else 'plain attention'} {rate:.1f} tokens/s "
+            f"({steps:.1f} decode steps/s, {1e3 / steps:.2f} ms/step)")
+        del eng
+        torch.cuda.empty_cache()
+    if launches["int4"] < 1 or launches["decode"] < 1:
+        raise AssertionError(f"28-block int4 engine launches: {launches}")
+    log(f"launches in the int4 engine run: {launches}")
+    del params
+    torch.cuda.empty_cache()
+    return errs, {k: float(np.mean([r for r, _ in v])) for k, v in tps.items()}, launches
+
+
+def _post_json(url, body, timeout=300.0):
+    return json.loads(_post(url, json.dumps(body).encode(), timeout))
+
+
+def phase9():
+    log("== phase 9: python -m clearcam_tpu_torch.tools.serve_llm --synthetic --int8 --pallas")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_llm_"))
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONUNBUFFERED="1")
+    out_path = tmp / "server.log"
+    t0 = time.time()
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "clearcam_tpu_torch.tools.serve_llm", "--synthetic",
+             "--int8", "--pallas", "--blocks", "28", "--ctx", "8192", "--slots", "8",
+             "--port", str(port), "--data", str(tmp / "data")],
+            env=env, cwd=str(tmp), stdout=out, stderr=subprocess.STDOUT)
+    result = {}
+    try:
+        health = _wait("/healthz", lambda: json.loads(_get(f"{base}/healthz", 2)),
+                       proc, out_path, 400)
+        log(f"/healthz after {time.time() - t0:.1f} s: {health}")
+        models = json.loads(_get(f"{base}/v1/models"))
+        log(f"/v1/models: {[m['id'] for m in models['data']]}")
+        g = _post_json(f"{base}/generate", {"prompt": "hello world", "max_new": 16})
+        if g["tokens"] != 16 or not g["text"]:
+            raise AssertionError(f"/generate: {g}")
+        log(f"/generate: {g['tokens']} tokens, text {g['text']!r}")
+        t1 = time.time()
+        streamed = _post(f"{base}/generate", json.dumps(
+            {"prompt": "stream me", "max_new": 24, "stream": True}).encode(), 300).decode()
+        log(f"/generate stream: {len(streamed)} chars in {time.time() - t1:.2f} s")
+        if not streamed:
+            raise AssertionError("/generate stream gave no text")
+        import concurrent.futures as cf
+
+        def chat(i):
+            body = {"messages": [{"role": "user", "content": f"request {i}"}],
+                    "max_tokens": 32}
+            if i == 0:
+                body["response_format"] = {"type": "json_object"}
+            return _post_json(f"{base}/v1/chat/completions", body)
+        t1 = time.time()
+        with cf.ThreadPoolExecutor(8) as ex:
+            chats = list(ex.map(chat, range(8)))
+        dt = time.time() - t1
+        toks = sum(c["usage"]["completion_tokens"] for c in chats)
+        log(f"8 concurrent /v1/chat/completions: {toks} tokens in {dt:.2f} s "
+            f"({toks / dt:.1f} tokens/s through HTTP)")
+        text = chats[0]["choices"][0]["message"]["content"]
+        if not text.startswith("{") or not _json_prefix(text):
+            raise AssertionError(f"json_object reply is not a JSON prefix: {text!r}")
+        log(f"json_object reply: {text!r} (a JSON prefix)")
+        comp = _post_json(f"{base}/v1/completions", {"prompt": "score this", "max_tokens": 6,
+                                                     "logprobs": 3})
+        lp = comp["choices"][0]["logprobs"]
+        if len(lp["token_logprobs"]) != len(lp["tokens"]) or not lp["tokens"] \
+                or not all(np.isfinite(x) and x <= 0 for x in lp["token_logprobs"]):
+            raise AssertionError(f"/v1/completions logprobs: {lp}")
+        log(f"/v1/completions logprobs: {len(lp['tokens'])} tokens, token_logprobs "
+            f"{[round(x, 3) for x in lp['token_logprobs']]}")
+        result.update(http_tokens_per_s=toks / dt, json_reply=text)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    text = out_path.read_text()
+    shutil.rmtree(tmp, ignore_errors=True)
+    for line in text.splitlines()[-30:]:
+        log(f"  server| {line}")
+    launches = {}
+    for name in ("quant_matmul", "decode_attention"):
+        m = re.search(rf"^{name}\.launches=(\d+)$", text, re.M)
+        if m is None or int(m.group(1)) < 1:
+            raise AssertionError(f"the served path did not launch {name}: {m}")
+        launches[name] = int(m.group(1))
+    log(f"launches on the served path: {launches}")
+    return launches, result
+
+
+def _json_prefix(text: str) -> bool:
+    """True when ``text`` is a prefix of some JSON object."""
+    for end in ("", "}", "\"}", "\":0}", "0}", "]}", "\"]}", "}}", "\"}}", "]}}", "\"]}}"):
+        try:
+            json.loads(text + end)
+            return True
+        except ValueError:
+            pass
+    from clearcam_tpu_torch.serving import constrain
+    return constrain.run_char_dfa(constrain.json_char_dfa(4), text.encode()) >= 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6",
+    ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated subset of phases to run")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
 
@@ -622,6 +1096,7 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     build_s = max_err = times = fps = launches = attn_err = attn_times = clip_fps = None
+    kern = llm_errs = llm_tps = int4_launches = served = None
     if 0 in phases:
         phase0(torch)
     if 1 in phases:
@@ -636,11 +1111,24 @@ def main(argv=None) -> int:
         attn_err, attn_times = phase5(torch)
     if 6 in phases:
         clip_fps = phase6(torch)
+    if 7 in phases:
+        kern = phase7(torch)
+    if 8 in phases:
+        llm_errs, llm_tps, int4_launches = phase8(torch)
+    if 9 in phases:
+        served, _ = phase9()
     log(f"== done in {time.time() - t0:.1f} s; build {build_s} s; detect fps {fps}; "
-        f"image tower img/s (kernel, plain) {clip_fps}")
-    if phases != {0, 1, 2, 3, 4, 5, 6}:
+        f"image tower img/s (kernel, plain) {clip_fps}; 28-block int4 engine decode "
+        f"tokens/s (kernel: True, plain: False) {llm_tps}")
+    if phases != set(ALL_PHASES):
         return 0
-    # the attention row: f32, the CLIP tower's dtype; times at one CROP_BATCH
+    # the attention row: f32, the CLIP tower's dtype; times at one CROP_BATCH.
+    # The LLM rows: times at the served decode shapes (8 slots, f32 residual
+    # stream): x[8,2048] . W[6144,2048] for the quant kernels, the bf16 cache
+    # with spread positions for decode attention
+    qm_int8 = kern["qm_ms"][(8,) + QM_JSON_SHAPE]
+    qm_int4 = kern["qm_ms"][(4,) + QM_JSON_SHAPE]
+    dec_t = kern["dec_ms"][("spread", "bfloat16")]
     print(json.dumps({"kernels": [
         {"name": "stem", "route": "cuda", "source": STEM_SOURCE,
          "replaces": STEM_REPLACES, "launches": launches["stem"],
@@ -648,7 +1136,16 @@ def main(argv=None) -> int:
         {"name": "vit_attention", "route": "cuda", "source": ATTN_SOURCE,
          "replaces": ATTN_REPLACES, "launches": launches["vit_attention"],
          "max_abs_err": attn_err["float32"], "ms": attn_times[(16, "float32")][0],
-         "plain_ms": attn_times[(16, "float32")][1]}]}))
+         "plain_ms": attn_times[(16, "float32")][1]},
+        {"name": "quant_matmul_int8", "route": "cuda", "source": QM_SOURCE,
+         "replaces": QM_REPLACES[8], "launches": served["quant_matmul"],
+         "max_abs_err": kern["qm_err"][8], "ms": qm_int8[0], "plain_ms": qm_int8[1]},
+        {"name": "quant_matmul_int4", "route": "cuda", "source": QM_SOURCE,
+         "replaces": QM_REPLACES[4], "launches": int4_launches["int4"],
+         "max_abs_err": kern["qm_err"][4], "ms": qm_int4[0], "plain_ms": qm_int4[1]},
+        {"name": "decode_attention_batch", "route": "cuda", "source": DEC_SOURCE,
+         "replaces": DEC_REPLACES, "launches": served["decode_attention"],
+         "max_abs_err": kern["dec_err"], "ms": dec_t[0], "plain_ms": dec_t[1]}]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,957 @@
+"""The LLM runtime for dense GQA decoders (the Qwen3 family) over torch,
+the counterpart of ``clearcam_tpu.models.llm``: the model, its sampler,
+and the continuous-batching serving graphs that ``serving.engine`` drives.
+
+Covered: GQA attention blocks with qk-norm (per head or over the whole
+projection), qkv bias, the output gate and RoPE (half-split layout); the
+dense SwiGLU FFN; f32, bf16 or int8 (per-token scales) KV caches; int8 and
+int4 weight-only quantized linears (``ops.quant_matmul``); the batched
+decode-attention kernel as the decode step's attention
+(``use_pallas_decode``, ``ops.decode_attention``); penalties, logit bias,
+top-k/top-p/min-p, grammar masks and Gumbel-max sampling; echo logprob
+scoring; GGUF loading through the shared ``clearcam_tpu.io.gguf``. MoE,
+MLA and the GatedDeltaNet hybrid raise ``NotImplementedError`` (ROADMAP
+queue 1 item 9).
+
+Where the JAX package threads a functional copy of the state through a
+jitted step and donates the old one (llm.py:1321-1326), the port writes the
+preallocated caches in place: ``forward`` and the serving graphs mutate
+``state`` and return the same list. Tokens sampled on the device
+(``first_tok``, decode outputs) are fresh tensors every call, never
+updated in place, since the engine's lagged records still hold earlier
+ones.
+
+Sampling noise: the JAX package folds threefry keys from (engine seed,
+request seed, token index); the port seeds one ``torch.Generator`` per row
+from a fixed integer mix of the same three (``row_noise``), so a row's
+draws never depend on its slot or batch companions. The bits differ from
+JAX's; ``_draw`` takes its Gumbel noise as an argument so tests feed both
+packages the same noise.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..nn import functional as F
+from ..ops.quant_matmul import (QuantLinear, QuantLinear4, quantize_int4, quantize_int8,
+                                true_div)
+
+# Prefill chunk width (the JAX package's CLEARCAM_CHUNK, llm.py:39).
+CHUNK = int(os.environ.get("CLEARCAM_CHUNK", "32"))
+LP_K = 8        # top alternatives in every logprob row
+SAMP_W = 8      # packed sampling-spec row width (pack_samp columns)
+_NEG = float(np.finfo(np.float32).min)
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    conv_kernel: int
+    state_size: int
+    group_count: int
+    time_step_rank: int
+    inner_size: int
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    num_blocks: int
+    dim: int
+    hidden_dim: int
+    n_heads: int
+    n_kv_heads: int
+    norm_eps: float
+    vocab_size: int
+    head_dim: int
+    rope_theta: float
+    rope_dim: int
+    v_head_dim: int
+    max_context: int = 2048
+    qk_norm: int = 0
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    norm_topk_prob: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    shared_expert_dim: int = 0
+    full_attention_interval: int = 0
+    attn_output_gate: bool = False
+    ssm: SSMConfig | None = None
+    shared_expert_gate: bool = True
+    leading_dense_blocks: int = 0
+    dense_hidden_dim: int = 0
+    routed_scaling_factor: float = 1.0
+    qkv_bias: bool = False
+    expert_bias: bool = False
+
+
+def qwen3_2b_cfg(blocks: int = 28, ctx: int = 8192) -> TransformerConfig:
+    """Qwen/Qwen3-1.7B's published widths (its config.json): hidden 2048,
+    28 layers, 16 heads, 8 KV heads, head_dim 128, intermediate 6144,
+    vocab 151936, rope theta 1e6, RMS eps 1e-6, qk-norm per head.
+    ``blocks`` cuts the depth; ``ctx`` is the cache length."""
+    return TransformerConfig(
+        num_blocks=blocks, dim=2048, hidden_dim=6144, n_heads=16,
+        n_kv_heads=8, norm_eps=1e-6, vocab_size=151936, head_dim=128,
+        rope_theta=1e6, rope_dim=128, v_head_dim=128, max_context=ctx,
+        qk_norm=128)
+
+
+def check_supported(cfg: TransformerConfig) -> None:
+    """Raise for the block families the port does not run yet."""
+    for what, on in (("MoE feed-forward blocks", cfg.num_experts > 0),
+                     ("MLA latent-KV attention", cfg.kv_lora_rank > 0),
+                     ("GatedDeltaNet (SSM) blocks", cfg.ssm is not None)):
+        if on:
+            raise NotImplementedError(
+                f"{what} are not in clearcam_tpu_torch yet (ROADMAP queue 1 "
+                "item 9): the port runs dense GQA attention stacks")
+
+
+def precompute_freqs(dim: int, end: int, theta: float) -> np.ndarray:
+    """[end, dim] = concat(cos, sin) of position * inv_freq."""
+    inv = 1.0 / (theta ** (np.arange(0, dim, 2)[: dim // 2] / dim))
+    ang = np.arange(end)[:, None] * inv[None, :]
+    return np.concatenate([np.cos(ang), np.sin(ang)], -1).astype(np.float32)
+
+
+def freqs_for(cfg: TransformerConfig, device) -> torch.Tensor:
+    return torch.from_numpy(precompute_freqs(cfg.rope_dim, cfg.max_context,
+                                             cfg.rope_theta)).to(device)
+
+
+def apply_rope(x, freqs):
+    """Half-split RoPE on [B,H,T,D]; freqs [T,D] (cos||sin) shared across
+    rows, or [B,T,D] per row."""
+    d = x.shape[-1] // 2
+    if freqs.dim() == 3:
+        cos, sin = freqs[:, None, :, :d], freqs[:, None, :, d:]
+    else:
+        cos, sin = freqs[None, None, :, :d], freqs[None, None, :, d:]
+    x1, x2 = x[..., :d], x[..., d:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+
+
+def _is_vec(start_pos) -> bool:
+    """Per-row [B] positions (continuous batching) rather than one scalar."""
+    return isinstance(start_pos, torch.Tensor) and start_pos.dim() == 1
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _ffn(p, pre, cfg: TransformerConfig, x):
+    """Dense SwiGLU feed-forward."""
+    gate = F.linear(x, p[f"{pre}.ffn_gate.weight"])
+    up = F.linear(x, p[f"{pre}.ffn_up.weight"])
+    return F.linear(F.silu(gate) * up, p[f"{pre}.ffn_down.weight"])
+
+
+def _attn_mask(start_pos, t, ctx, pad_start=None, device=None):
+    """Additive causal mask [1|B, 1, T, ctx]: token row r (at absolute
+    position start_pos + r) sees cache columns <= start_pos + r; pad_start
+    [B] also hides columns < pad_start[b], except from a pad position's
+    own query (a fully masked row would softmax to NaN)."""
+    rows = torch.arange(t, device=device)[:, None]
+    cols = torch.arange(ctx, device=device)[None, :]
+    if _is_vec(start_pos):
+        reach = start_pos[:, None, None] + rows                     # [B,T,1]
+        m = torch.where(cols <= reach, 0.0, float("-inf"))[:, None]
+        if pad_start is not None:
+            hide = (cols[None] < pad_start[:, None, None]) & (cols != reach)
+            m = m + torch.where(hide, float("-inf"), 0.0)[:, None]
+        return m
+    m = torch.where(cols <= start_pos + rows, 0.0, float("-inf"))[None, None]
+    if pad_start is not None:
+        hide = (cols[None] < pad_start[:, None, None]) & (cols != start_pos + rows)[None]
+        m = m + torch.where(hide, float("-inf"), 0.0)[:, None]
+    return m
+
+
+def _kv_quantize(x):
+    """[B,KvH,T,D] -> (int8 values, f32 scales [B,KvH,T]): symmetric
+    per-token, per-head absmax quantization of new cache entries."""
+    x = x.float()
+    s = true_div(torch.clamp_min(x.abs().amax(-1), 1e-8), 127.0)
+    q = torch.clamp(torch.round(x / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def _row_index(write_mask, device):
+    """Row indices of a write mask (numpy/list on the host: no device sync)."""
+    if isinstance(write_mask, torch.Tensor):
+        return torch.nonzero(write_mask.to(device)).flatten()
+    rows = np.nonzero(np.asarray(write_mask, bool))[0]
+    return torch.from_numpy(rows).to(device)
+
+
+def _cache_update(cache, new, start_pos, write_mask=None):
+    """Write new [B,H,T,D] values (or [B,H,T] scales) into the cache IN
+    PLACE at start_pos: a shared scalar or a per-row [B] vector. A window
+    that would run past the cache end starts earlier instead, as JAX's
+    dynamic_update_slice clamps. write_mask [B] (host bools, or a bool
+    tensor) leaves unmasked rows' bytes untouched."""
+    s, t = cache.shape[2], new.shape[2]
+    new = new.to(cache.dtype)
+    if not _is_vec(start_pos):
+        assert write_mask is None
+        p0 = max(0, min(int(start_pos), s - t))
+        cache[:, :, p0:p0 + t] = new
+        return cache
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    if write_mask is not None:
+        rows = _row_index(write_mask, cache.device)
+        if rows.numel() == 0:
+            return cache
+        new, start_pos = new[rows], start_pos[rows]
+    idx = torch.clamp(start_pos, 0, s - t)[:, None] + torch.arange(t, device=cache.device)
+    cache[rows[:, None], :, idx] = new.movedim(2, 1)               # [R,T,H(,D)]
+    return cache
+
+
+def _product_f32(a, b):
+    """``a @ b`` ([..., M, K] by [..., K, N]) with an f32 result, for the
+    attention products, as the JAX package takes them: f32 operands in
+    f32; bf16 operands (the bf16 and int8 KV caches) with f32 accumulation
+    and an f32 output, so the scores are never rounded to bf16. On the card
+    cuBLAS's bf16 GEMM writes the f32 output itself (``bmm``'s
+    ``out_dtype``) and the cache is read as bf16; the CPU has no such GEMM,
+    so there the bf16 operands are widened (exactly) and multiplied in f32."""
+    if a.dtype == torch.float32 or not a.is_cuda:
+        return torch.matmul(a.float(), b.float())
+    out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                    out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def _attention_block(p, pre, cfg: TransformerConfig, x, state, start_pos, freqs,
+                     decode_attn=None, pad_start=None, write_mask=None):
+    """GQA attention with a KV cache written in place. decode_attn, when
+    given, replaces the T = 1 attention math (the decode kernel). A state
+    with "k_s"/"v_s" holds int8 K/V with per-token scales."""
+    b, t, _ = x.shape
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = F.linear(x, p[f"{pre}.attn_q.weight"], p.get(f"{pre}.attn_q.bias"))
+    k = F.linear(x, p[f"{pre}.attn_k.weight"], p.get(f"{pre}.attn_k.bias"))
+    v = F.linear(x, p[f"{pre}.attn_v.weight"], p.get(f"{pre}.attn_v.bias"))
+    if cfg.qk_norm and cfg.qk_norm != hd:
+        q = F.rms_norm(q, p[f"{pre}.attn_q_norm.weight"], cfg.norm_eps)
+        k = F.rms_norm(k, p[f"{pre}.attn_k_norm.weight"], cfg.norm_eps)
+    gate = None
+    if cfg.attn_output_gate:
+        qg = q.reshape(b, t, nh, 2, hd)
+        q, gate = qg[:, :, :, 0], qg[:, :, :, 1].reshape(b, t, nh * hd)
+        q = q.reshape(b, t, nh * hd)
+    q = q.reshape(b, t, nh, hd).transpose(1, 2)
+    k = k.reshape(b, t, nkv, hd).transpose(1, 2)
+    v = v.reshape(b, t, nkv, hd).transpose(1, 2)
+    if cfg.qk_norm == hd:
+        q = F.rms_norm(q, p[f"{pre}.attn_q_norm.weight"], cfg.norm_eps)
+        k = F.rms_norm(k, p[f"{pre}.attn_k_norm.weight"], cfg.norm_eps)
+    s_len = freqs.shape[0]
+    if _is_vec(start_pos):
+        # per-row rope rows; junk rows parked near the table end clamp
+        idx = torch.clamp(start_pos[:, None] + torch.arange(t, device=x.device),
+                          max=s_len - 1)
+        fr = freqs[idx]                                              # [B,T,D]
+    else:
+        p0 = max(0, min(int(start_pos), s_len - t))
+        fr = freqs[p0:p0 + t]
+    rd = cfg.rope_dim
+    q = torch.cat([apply_rope(q[..., :rd], fr), q[..., rd:]], -1)
+    k = torch.cat([apply_rope(k[..., :rd], fr), k[..., rd:]], -1)
+
+    if "k_s" in state:
+        kq, ks = _kv_quantize(k)
+        vq, vs = _kv_quantize(v)
+        for name, val in (("k", kq), ("v", vq), ("k_s", ks), ("v_s", vs)):
+            _cache_update(state[name], val, start_pos, write_mask)
+        ck_a = (state["k"].float() * state["k_s"][..., None]).to(torch.bfloat16)
+        cv_a = (state["v"].float() * state["v_s"][..., None]).to(torch.bfloat16)
+    else:
+        _cache_update(state["k"], k, start_pos, write_mask)
+        _cache_update(state["v"], v, start_pos, write_mask)
+        ck_a, cv_a = state["k"], state["v"]
+    if decode_attn is not None and t == 1:
+        out = decode_attn(q, state, start_pos, pad_start)
+    else:
+        # grouped-query products, no repeat of the cache
+        rep = nh // nkv
+        qg = (q.float() * cfg.head_dim ** -0.5).reshape(b, nkv, rep * t, hd) \
+            .to(ck_a.dtype)
+        scores = _product_f32(qg, ck_a.transpose(-1, -2)) \
+            .reshape(b, nkv, rep, t, -1)
+        mask = _attn_mask(start_pos, t, cfg.max_context, pad_start, x.device)
+        probs = torch.softmax(scores + mask[:, :, None], -1)
+        out = _product_f32(probs.reshape(b, nkv, rep * t, -1).to(cv_a.dtype), cv_a)
+        out = out.reshape(b, nh, t, hd)
+    out = out.transpose(1, 2).reshape(b, t, nh * hd).to(x.dtype)
+    if gate is not None:
+        out = out * torch.sigmoid(gate)
+    return F.linear(out, p[f"{pre}.attn_output.weight"]), state
+
+
+# ---------------------------------------------------------------------------
+# full model step
+# ---------------------------------------------------------------------------
+
+def init_state(cfg: TransformerConfig, batch: int = 1, dtype=torch.float32,
+               kv_quant: bool = False, device="cpu") -> list:
+    """Preallocated [B,KvH,S,D] K/V caches per block, zero-filled: f32, bf16,
+    or int8 with f32 per-token scales [B,KvH,S] (kv_quant)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (batch, cfg.n_kv_heads, cfg.max_context, cfg.head_dim)
+    state = []
+    for _ in range(cfg.num_blocks):
+        if kv_quant:
+            state.append({"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                          "k_s": torch.zeros(shape[:3], device=dev),
+                          "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                          "v_s": torch.zeros(shape[:3], device=dev)})
+        else:
+            state.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
+                          "v": torch.zeros(shape, dtype=dtype, device=dev)})
+    return state
+
+
+def forward(p: dict, cfg: TransformerConfig, state: list, tokens, start_pos,
+            freqs, decode_attn=None, pad_start=None, write_mask=None):
+    """Embeds -> blocks -> final hidden states [B,T,D] (f32), and ``state``
+    written in place. start_pos: an int, or a [B] tensor of per-row
+    positions; write_mask [B] keeps masked rows' caches untouched (batched
+    multi-slot prefill)."""
+    check_supported(cfg)
+    x = F.embedding(p["token_embd.weight"], tokens).float()
+    for i in range(cfg.num_blocks):
+        pre = f"blk.{i}"
+        h = F.rms_norm(x, p[f"{pre}.attn_norm.weight"], cfg.norm_eps)
+        attn_out, _ = _attention_block(p, pre, cfg, h, state[i], start_pos, freqs,
+                                       decode_attn=decode_attn, pad_start=pad_start,
+                                       write_mask=write_mask)
+        x = x + attn_out
+        x = x + _ffn(p, pre, cfg, F.rms_norm(x, p[f"{pre}.ffn_norm.weight"],
+                                             cfg.norm_eps))
+    return x, state
+
+
+def logits_at(p: dict, cfg: TransformerConfig, hidden, index: int):
+    h = F.rms_norm(hidden[:, index], p["output_norm.weight"], cfg.norm_eps)
+    return F.linear(h, p["output.weight"])
+
+
+def make_score_fn(cfg: TransformerConfig):
+    """Chunked teacher-forcing scorer (the OpenAI completions ``echo``
+    surface): ``score(params, tokens) -> [N-1] rows`` where row i-1 is
+    (chosen_lp, [(alt_id, alt_lp) x LP_K]) scoring tokens[i] given
+    tokens[:i]."""
+    check_supported(cfg)
+    kk = min(LP_K, cfg.vocab_size)
+    sc = 128 if cfg.max_context % 128 == 0 else CHUNK
+
+    @torch.inference_mode()
+    def score(params, tokens):
+        toks = [int(t) for t in tokens]
+        n = len(toks)
+        n_chunks = -(-n // sc)
+        assert n >= 1 and n_chunks * sc <= cfg.max_context, \
+            "prompt (chunk-padded) must fit max_context"
+        dev = params["output_norm.weight"].device
+        freqs = freqs_for(cfg, dev)
+        state = init_state(cfg, 1, device=dev)
+        padded = toks + [0] * (n_chunks * sc - n)
+        rows = []
+        for c in range(n_chunks):
+            lo = c * sc
+            tgt = torch.tensor([(padded + [0])[lo + 1:lo + 1 + sc]], device=dev)
+            hidden, _ = forward(params, cfg, state,
+                                torch.tensor([padded[lo:lo + sc]], device=dev),
+                                lo, freqs)
+            h = F.rms_norm(hidden, params["output_norm.weight"], cfg.norm_eps)
+            lp = torch.log_softmax(F.linear(h, params["output.weight"]).float(), -1)
+            chosen = lp.gather(-1, tgt[..., None])[..., 0]
+            top_lp, top_id = torch.topk(lp, kk)
+            rows.append((chosen[0], top_lp[0], top_id[0]))
+        rows = [tuple(a.cpu().numpy() for a in r) for r in rows]
+        out = []
+        for i in range(1, n):
+            c, o = divmod(i - 1, sc)
+            ch, tl, ti = rows[c]
+            out.append((float(ch[o]), list(zip(ti[o].astype(np.int64).tolist(),
+                                               tl[o].tolist()))))
+        return out
+
+    return score
+
+
+# ---------------------------------------------------------------------------
+# sampling
+# ---------------------------------------------------------------------------
+
+def pack_samp(temperature=0.0, top_p=1.0, top_k=0, min_p=0.0, presence=0.0,
+              frequency=0.0, repetition=1.0, bias_active=0.0) -> torch.Tensor:
+    """The [8] f32 sampling row: (temperature, top_p, top_k, min_p,
+    presence, frequency, repetition, bias_active); everything off is
+    (t, 1, 0, 0, 0, 0, 1, 0)."""
+    return torch.tensor([temperature, top_p, float(top_k), min_p, presence,
+                         frequency, repetition, bias_active], dtype=torch.float32)
+
+
+def _samp_of(t) -> torch.Tensor:
+    """A packed spec as f32: an [8] or [B, 8] row (pack_samp's layout)."""
+    t = torch.as_tensor(t, dtype=torch.float32)
+    if t.dim() not in (1, 2) or t.shape[-1] != SAMP_W:
+        raise ValueError(f"a sampling spec is an [{SAMP_W}] or [B, {SAMP_W}] row "
+                         f"(pack_samp), got shape {tuple(t.shape)}")
+    return t
+
+
+def samp_flags(samp) -> tuple[bool, bool, bool]:
+    """(penalties on, logit bias on, filters on) for a packed spec, read on
+    the host: the serving graphs pass their host copy, so no step waits on
+    the card to decide."""
+    s = np.asarray(samp.cpu() if isinstance(samp, torch.Tensor) else samp,
+                   np.float32).reshape(-1, SAMP_W)
+    pen = bool(np.any((s[:, 4] != 0) | (s[:, 5] != 0) | (s[:, 6] != 1)))
+    return pen, bool(np.any(s[:, 7] != 0)), \
+        bool(np.any((s[:, 1] < 1) | (s[:, 2] > 0.5) | (s[:, 3] > 0)))
+
+
+def _col(x, lg):
+    """A per-row scalar aligned against logits' last (vocab) axis."""
+    return x[..., None] if x.dim() == lg.dim() - 1 else x
+
+
+def _processed_logits(logits, samp, counts_p=None, counts_o=None, bias=None,
+                      cmask=None, flags=None):
+    """Penalties, logit bias and the grammar mask applied, in f32: the
+    distribution logprobs report over (before temperature and filters).
+    samp is a normalized [8] or [B,8] row on logits' device."""
+    pen_on, bias_on, _ = samp_flags(samp) if flags is None else flags
+    lg = logits.float()
+    if counts_o is not None and pen_on:
+        pres, freq, rep = (_col(samp[..., i], lg) for i in (4, 5, 6))
+        c_o = counts_o.float()
+        c_all = c_o if counts_p is None else c_o + counts_p.float()
+        lg = torch.where(c_all > 0, torch.where(lg > 0, lg / rep, lg * rep), lg)
+        lg = lg - freq * c_o - pres * (c_o > 0).float()
+    if bias is not None and bias_on:
+        has = _col(samp[..., 7], lg)
+        lg = lg + torch.where(has != 0, bias, 0.0)
+    if cmask is not None:
+        lg = torch.where(cmask, _NEG, lg)
+    return lg
+
+
+def gumbel(u):
+    """Gumbel noise from uniforms in [0, 1), floored at f32's tiny as
+    ``jax.random.gumbel`` draws them."""
+    return -torch.log(-torch.log(torch.clamp_min(u, _TINY)))
+
+
+def _mix(*vals) -> int:
+    """A fixed 63-bit integer mix (splitmix64 steps) of the given ints."""
+    h = 0x9E3779B97F4A7C15
+    for v in vals:
+        h = (h ^ (int(v) & 0xFFFFFFFFFFFFFFFF)) & 0xFFFFFFFFFFFFFFFF
+        h = (h + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+        h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+        h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+        h ^= h >> 31
+    return h >> 1
+
+
+def row_noise(base_seed: int, seeds, idx, vocab: int, device) -> torch.Tensor:
+    """[B, vocab] Gumbel noise, row b from its own generator seeded by
+    (base_seed, seeds[b], idx[b]) only: a seeded request redraws the same
+    noise on any slot, beside any companions (the port's form of the JAX
+    package's serving_row_keys contract)."""
+    rows = []
+    for s, i in zip(np.asarray(seeds).tolist(), np.asarray(idx).tolist()):
+        g = torch.Generator(device=device)
+        g.manual_seed(_mix(base_seed, s, i))
+        rows.append(torch.rand(vocab, generator=g, device=device))
+    return gumbel(torch.stack(rows))
+
+
+def _draw(lg, samp, noise, flags=None):
+    """Temperature scale -> top-k/top-p/min-p filters -> Gumbel-max with
+    the given noise (same shape as lg)."""
+    _, _, filt_on = samp_flags(samp) if flags is None else flags
+    t, top_p, top_k, min_p = (_col(samp[..., i], lg) for i in range(4))
+    scaled = lg / torch.clamp_min(t, 1e-12)
+    if filt_on:
+        s = torch.sort(scaled, -1, descending=True).values
+        v = s.shape[-1]
+        k = torch.clamp(top_k.to(torch.int32) - 1, 0, v - 1).long()
+        kth = s.gather(-1, k.expand(*s.shape[:-1], 1))
+        thr_k = torch.where(top_k > 0.5, kth, _NEG)
+        pr = torch.softmax(s, -1)
+        before = torch.cumsum(pr, -1) - pr
+        keep = before < top_p
+        keep[..., 0] = True
+        n_keep = keep.sum(-1, keepdim=True)
+        thr_p = s.gather(-1, n_keep - 1)
+        thr_m = torch.where(min_p > 0.0,
+                            s[..., :1] + torch.log(torch.clamp_min(min_p, 1e-12)), _NEG)
+        thr = torch.maximum(torch.maximum(thr_k, thr_p), thr_m)
+        scaled = torch.where(scaled >= thr, scaled, _NEG)
+    return torch.argmax(scaled + noise, -1)
+
+
+def sample_filtered(logits, samp, noise, counts_p=None, counts_o=None, bias=None,
+                    cmask=None, flags=None):
+    """Gumbel-max sampling with penalties, logit bias, the grammar mask and
+    top-p/k/min-p filters (the JAX package's sample_filtered, with the
+    noise given). Greedy rows (temperature 0) take the argmax."""
+    samp = _samp_of(samp).to(logits.device)
+    flags = samp_flags(samp) if flags is None else flags
+    lg = _processed_logits(logits, samp, counts_p, counts_o, bias, cmask, flags)
+    return _draw(lg, samp, noise, flags)
+
+
+def sample_filtered_lp(logits, samp, noise, counts_p=None, counts_o=None,
+                       bias=None, k: int = LP_K, cmask=None, flags=None):
+    """sample_filtered and a packed logprob row per sample, [chosen_lp,
+    top-k lps (desc), top-k ids (as f32)] -> [..., 1 + 2k], over the
+    post-penalty/bias, pre-temperature distribution."""
+    samp = _samp_of(samp).to(logits.device)
+    flags = samp_flags(samp) if flags is None else flags
+    lg = _processed_logits(logits, samp, counts_p, counts_o, bias, cmask, flags)
+    tok = _draw(lg, samp, noise, flags)
+    lp = torch.log_softmax(lg, -1)
+    kk = min(k, logits.shape[-1])
+    top_lp, top_id = torch.topk(lp, kk)
+    if kk < k:              # pad to the fixed [1+2k] row
+        shp = top_lp.shape[:-1] + (k - kk,)
+        top_lp = torch.cat([top_lp, top_lp.new_full(shp, _NEG)], -1)
+        top_id = torch.cat([top_id, top_id.new_zeros(shp)], -1)
+    chosen = lp.gather(-1, tok[..., None])
+    return tok, torch.cat([chosen, top_lp, top_id.float()], -1)
+
+
+# ---------------------------------------------------------------------------
+# continuous-batching serving graphs
+# ---------------------------------------------------------------------------
+
+def upload(a, device) -> torch.Tensor:
+    """A host array on ``device``. CUDA uploads go through pinned memory
+    without blocking, so a step never waits for the card's queue to drain."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone()
+
+
+def make_serving_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
+                     constraints: bool = False):
+    """The serving graphs ``serving.engine.ServingEngine`` drives (the
+    non-speculative ones of clearcam_tpu.models.llm.make_serving_fns; the
+    speculative graphs are ROADMAP queue 1 item 9). Host inputs (tokens,
+    meta rows, sampling specs) arrive as numpy and are uploaded once per
+    call; device buffers (state, first_tok, counts, bias, the constraint
+    table and states) stay on the card.
+
+    prefill_slot(params, state, first_tok[B], first_lp[B,1+2K],
+                 tokens[1,CHUNK], slot, start_pos, n_real, samp[8], seed,
+                 base_seed, cnt_p, cnt_o, bias) -> (first_tok', first_lp', state)
+        advances one slot's prompt by a chunk, on the slot's view of the
+        state in place; the chunk's sampled token lands in a NEW first_tok
+        tensor at ``slot``.
+    decode_all(params, state, prev_tok[B], first_tok[B], meta[5,B],
+               samp[B,8], base_seed, cnt_o, cnt_p, bias)
+        -> (token [B], state, cnt_o, lp [B,1+2K])
+        one token for every slot; meta rows are [pos, live, inject, seed,
+        plen]. Row b consumes first_tok[b] where inject, prev_tok[b]
+        otherwise, writes its K/V at pos[b] and attends cols <= pos[b];
+        its noise is keyed by (seed, pos - plen + 1). cnt_o is updated in
+        place with each live row's consumed token.
+    prefill_many(params, state, first_tok, first_lp, tokens[B,CHUNK],
+                 meta[4,B] [start_pos, n_real, valid, seed], samp[B,8],
+                 base_seed, cnt_p, cnt_o, bias) -> (first_tok', first_lp', state)
+        advances every valid row by a chunk in one weight sweep; invalid
+        rows' caches stay bit-identical (write_mask).
+
+    constraints=True: the graphs also take (ctab [S,V] int16, cinit [B],
+    cstate [B]) — decode_all only (ctab, cstate) — mask disallowed tokens
+    and return the advanced grammar states last (serving/constrain.py).
+
+    use_pallas_decode routes decode_all's attention through the batched
+    decode kernel (``ops.decode_attention``; its plain version on the CPU).
+    """
+    check_supported(cfg)
+    from ..ops.decode_attention import decode_attention_batch
+    kk = LP_K
+    freqs_cache: dict = {}
+
+    def _freqs(dev):
+        if dev not in freqs_cache:
+            freqs_cache[dev] = freqs_for(cfg, dev)
+        return freqs_cache[dev]
+
+    def _con_mask(ctab, cst, extra_live=None):
+        crow = ctab[torch.clamp_min(cst, 0).long()]
+        con = cst >= 0
+        if extra_live is not None:
+            con = con & extra_live
+        return con[:, None] & (crow < 0), con, crow
+
+    def _con_advance(con, crow, tok, cst):
+        nxt = crow.gather(-1, tok[:, None].long())[:, 0].to(torch.int32)
+        return torch.where(con & (nxt >= 0), nxt, cst)
+
+    attn_impl = None
+    if use_pallas_decode:
+        def attn_impl(q, st, pos_vec, pads):              # [B,H,1,D] -> [B,H,1,D]
+            if "k_s" in st:
+                raise ValueError(
+                    "use_pallas_decode with an int8 KV cache: the batched decode "
+                    "kernel reads bf16/f32 caches, and the int8 form (the JAX "
+                    "package's decode_attention_batch_q8) is not ported yet")
+            return decode_attention_batch(q[:, :, 0].contiguous(), st["k"], st["v"],
+                                          pos_vec, pads)[:, :, None]
+
+    @torch.inference_mode()
+    def prefill_slot_c(params, state, first_tok, first_lp, tokens, slot, start_pos,
+                       n_real, samp, seed, base_seed, cnt_p, cnt_o, bias, ctab,
+                       cinit, cstate):
+        dev = first_tok.device
+        st_b = [{k: v[slot:slot + 1] for k, v in s.items()} for s in state]
+        hidden, _ = forward(params, cfg, st_b, upload(np.asarray(tokens, np.int64), dev),
+                            int(start_pos), _freqs(dev))
+        h = F.rms_norm(hidden[:, int(n_real) - 1], params["output_norm.weight"],
+                       cfg.norm_eps)
+        # constraint context from the admission state: every chunk re-derives
+        # "state after the first generated token", so the final chunk lands it
+        ci = cinit[slot:slot + 1]
+        cmask, con, crow = _con_mask(ctab, ci)
+        samp_np = np.asarray(samp, np.float32).reshape(1, SAMP_W)
+        tok, lp = sample_filtered_lp(
+            F.linear(h, params["output.weight"]), upload(samp_np, dev),
+            row_noise(base_seed, [seed], [0], cfg.vocab_size, dev),
+            cnt_p[slot:slot + 1], cnt_o[slot:slot + 1], bias[slot:slot + 1],
+            cmask=cmask, flags=samp_flags(samp_np))
+        cstate = cstate.clone()
+        cstate[slot:slot + 1] = _con_advance(con, crow, tok, ci)
+        first_tok = first_tok.clone()
+        first_tok[slot:slot + 1] = tok.to(first_tok.dtype)
+        first_lp = first_lp.clone()
+        first_lp[slot:slot + 1] = lp
+        return first_tok, first_lp, state, cstate
+
+    @torch.inference_mode()
+    def decode_all_c(params, state, prev_tok, first_tok, meta, samp, base_seed,
+                     cnt_o, cnt_p, bias, ctab, cstate):
+        dev = first_tok.device
+        meta = np.asarray(meta, np.int32)
+        m = upload(meta, dev)
+        pos, live = m[0], m[1] != 0
+        token = torch.where(m[2] != 0, first_tok, prev_tok)[:, None]
+        # the consumed token joins its row's output histogram before sampling
+        b_n = token.shape[0]
+        cnt_o.index_put_((torch.arange(b_n, device=dev), token[:, 0].long()),
+                         live.to(cnt_o.dtype), accumulate=True)
+        hidden, _ = forward(params, cfg, state, token, pos, _freqs(dev),
+                            decode_attn=attn_impl)
+        logits = logits_at(params, cfg, hidden, 0)
+        cmask, con, crow = _con_mask(ctab, cstate, live)
+        samp_np = np.asarray(samp, np.float32).reshape(-1, SAMP_W)
+        tok, lp = sample_filtered_lp(
+            logits, upload(samp_np, dev),
+            row_noise(base_seed, meta[3], meta[0] - meta[4] + 1, cfg.vocab_size, dev),
+            cnt_p, cnt_o, bias, cmask=cmask, flags=samp_flags(samp_np))
+        return tok.to(torch.int32), state, cnt_o, lp, _con_advance(con, crow, tok, cstate)
+
+    @torch.inference_mode()
+    def prefill_many_c(params, state, first_tok, first_lp, tokens, meta, samp,
+                       base_seed, cnt_p, cnt_o, bias, ctab, cinit, cstate):
+        dev = first_tok.device
+        meta = np.asarray(meta, np.int32)
+        valid_np = meta[2] != 0
+        m = upload(meta, dev)
+        starts, n_real, valid = m[0], m[1], m[2] != 0
+        hidden, _ = forward(params, cfg, state, upload(np.asarray(tokens, np.int64), dev),
+                            starts, _freqs(dev), write_mask=valid_np)
+        h = hidden.gather(1, torch.clamp_min(n_real - 1, 0).long()[:, None, None]
+                          .expand(-1, 1, hidden.shape[-1]))[:, 0]
+        h = F.rms_norm(h, params["output_norm.weight"], cfg.norm_eps)
+        cmask, con, crow = _con_mask(ctab, cinit, valid)
+        samp_np = np.asarray(samp, np.float32).reshape(-1, SAMP_W)
+        tok, lp = sample_filtered_lp(
+            F.linear(h, params["output.weight"]), upload(samp_np, dev),
+            row_noise(base_seed, meta[3], np.zeros_like(meta[3]), cfg.vocab_size, dev),
+            cnt_p, cnt_o, bias, cmask=cmask, flags=samp_flags(samp_np))
+        # a reused slot whose new occupant is unconstrained must not keep
+        # the retired request's state; invalid rows keep theirs
+        cstate = torch.where(valid, _con_advance(con, crow, tok, cinit), cstate)
+        first_tok = torch.where(valid, tok.to(first_tok.dtype), first_tok)
+        first_lp = torch.where(valid[:, None], lp, first_lp)
+        return first_tok, first_lp, state, cstate
+
+    if constraints:
+        return prefill_slot_c, decode_all_c, prefill_many_c
+
+    inert: dict = {}
+
+    def _inert(first_tok):
+        key = (first_tok.device, first_tok.shape[0])
+        if key not in inert:
+            inert[key] = (torch.zeros((1, cfg.vocab_size), dtype=torch.int16,
+                                      device=first_tok.device),
+                          torch.full((first_tok.shape[0],), -1, dtype=torch.int32,
+                                     device=first_tok.device))
+        return inert[key]
+
+    def prefill_slot(params, state, first_tok, first_lp, tokens, slot, start_pos,
+                     n_real, samp, seed, base_seed, cnt_p, cnt_o, bias):
+        tab, u = _inert(first_tok)
+        return prefill_slot_c(params, state, first_tok, first_lp, tokens, slot,
+                              start_pos, n_real, samp, seed, base_seed, cnt_p, cnt_o,
+                              bias, tab, u, u)[:3]
+
+    def decode_all(params, state, prev_tok, first_tok, meta, samp, base_seed,
+                   cnt_o, cnt_p, bias):
+        tab, u = _inert(first_tok)
+        return decode_all_c(params, state, prev_tok, first_tok, meta, samp,
+                            base_seed, cnt_o, cnt_p, bias, tab, u)[:4]
+
+    def prefill_many(params, state, first_tok, first_lp, tokens, meta, samp,
+                     base_seed, cnt_p, cnt_o, bias):
+        tab, u = _inert(first_tok)
+        return prefill_many_c(params, state, first_tok, first_lp, tokens, meta, samp,
+                              base_seed, cnt_p, cnt_o, bias, tab, u, u)[:3]
+
+    return prefill_slot, decode_all, prefill_many
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: TransformerConfig, seed: int = 0, dtype=torch.float32,
+                device="cpu") -> dict:
+    """Random GGUF-named params: the JAX package's init_params, the same
+    numpy draws in the same order, uploaded tensor by tensor so the host
+    holds one tensor at a time (values pass through f32 on the way to
+    ``dtype``)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    p: dict[str, torch.Tensor] = {}
+
+    def t(key, *shape, scale=0.05):
+        a = rng.normal(0, scale, shape).astype(np.float32)
+        p[key] = torch.from_numpy(a).to(dev).to(dtype)
+
+    def ones(key, *shape):
+        p[key] = torch.ones(shape, dtype=dtype, device=dev)
+
+    t("token_embd.weight", cfg.vocab_size, cfg.dim)
+    ones("output_norm.weight", cfg.dim)
+    t("output.weight", cfg.vocab_size, cfg.dim)
+    for i in range(cfg.num_blocks):
+        pre = f"blk.{i}"
+        ones(pre + ".attn_norm.weight", cfg.dim)
+        ones(pre + ".ffn_norm.weight", cfg.dim)
+        qd = cfg.head_dim * cfg.n_heads * (2 if cfg.attn_output_gate else 1)
+        t(pre + ".attn_q.weight", qd, cfg.dim)
+        t(pre + ".attn_k.weight", cfg.head_dim * cfg.n_kv_heads, cfg.dim)
+        t(pre + ".attn_v.weight", cfg.head_dim * cfg.n_kv_heads, cfg.dim)
+        t(pre + ".attn_output.weight", cfg.dim, cfg.head_dim * cfg.n_heads)
+        if cfg.qkv_bias:
+            for n in ("q", "k", "v"):
+                d = qd if n == "q" else cfg.head_dim * cfg.n_kv_heads
+                p[f"{pre}.attn_{n}.bias"] = torch.zeros((d,), dtype=dtype, device=dev)
+        if cfg.qk_norm:
+            ones(pre + ".attn_q_norm.weight", cfg.qk_norm)
+            ones(pre + ".attn_k_norm.weight", cfg.qk_norm)
+        t(pre + ".ffn_gate.weight", cfg.hidden_dim, cfg.dim)
+        t(pre + ".ffn_up.weight", cfg.hidden_dim, cfg.dim)
+        t(pre + ".ffn_down.weight", cfg.dim, cfg.hidden_dim)
+    return p
+
+
+def quantize_params_int8(p: dict, min_dim: int = 256) -> dict:
+    """Weight-only int8 of every large dense matmul weight (2-D ``*.weight``
+    with both dims >= min_dim, except ``token_embd.weight``, which is
+    gathered): the JAX package's skip rules, on each tensor's device."""
+    out = {}
+    for k, v in p.items():
+        if k.endswith("_exps.weight"):
+            raise NotImplementedError("MoE expert stacks are not in "
+                                      "clearcam_tpu_torch yet (ROADMAP queue 1 item 9)")
+        if (k.endswith(".weight") and k != "token_embd.weight"
+                and isinstance(v, torch.Tensor) and v.dim() == 2
+                and min(v.shape) >= min_dim):
+            out[k] = quantize_int8(v)
+        else:
+            out[k] = v
+    return out
+
+
+def quantize_params_int4(p: dict, min_dim: int = 256) -> dict:
+    """Packed int4 (group-128 scales) in place of each int8 choice of
+    quantize_params_int8."""
+    out = quantize_params_int8(p, min_dim)
+    return {k: (quantize_int4(p[k]) if isinstance(v, QuantLinear) else v)
+            for k, v in out.items()}
+
+
+def _to_torch(a) -> torch.Tensor:
+    """A numpy or JAX array as a CPU tensor of the same dtype (bf16 too)."""
+    a = np.array(a)                    # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_jax(params: dict, device="cpu", dtype=None) -> dict:
+    """The JAX package's params (arrays, QuantLinear, QuantLinear4) as the
+    port's: dense tensors on ``device`` (cast to ``dtype`` when given),
+    quantized weights carried across byte for byte."""
+    dev = resolve_device(device)
+    out = {}
+    for k, v in params.items():
+        kind = type(v).__name__
+        if kind == "QuantLinear":
+            out[k] = QuantLinear(_to_torch(v.q), _to_torch(v.s),
+                                 v.out_features, v.in_features).to(dev)
+        elif kind == "QuantLinear4":
+            out[k] = QuantLinear4(_to_torch(v.packed), _to_torch(v.s),
+                                  v.out_features, v.in_features).to(dev)
+        elif kind == "QuantExpert":
+            raise NotImplementedError("MoE expert stacks are not in "
+                                      "clearcam_tpu_torch yet (ROADMAP queue 1 item 9)")
+        else:
+            t = _to_torch(v).to(dev)
+            out[k] = t.to(dtype) if dtype is not None and t.is_floating_point() else t
+    return out
+
+
+# ---------------------------------------------------------------------------
+# GGUF
+# ---------------------------------------------------------------------------
+
+def config_from_gguf(kv: dict, state_dict: dict,
+                     max_context: int | None = None) -> TransformerConfig:
+    """llama.cpp metadata conventions -> TransformerConfig (the JAX
+    package's config_from_gguf, field for field)."""
+    arch = kv["general.architecture"]
+    mc = kv.get(f"{arch}.context_length", 4096)
+    max_context = min(max_context, mc) if max_context else mc
+    # chunk-aligned, rounded down (never past the trained context)
+    max_context = max(CHUNK, max_context // CHUNK * CHUNK)
+    n_heads = kv[f"{arch}.attention.head_count"]
+    n_kv = kv[f"{arch}.attention.head_count_kv"]
+    if isinstance(n_kv, list):
+        n_kv = max(n_kv)
+    kv_lora = kv.get(f"{arch}.attention.kv_lora_rank", 0)
+    head_dim = kv.get(f"{arch}.attention.key_length_mla",
+                      kv.get(f"{arch}.attention.key_length",
+                             kv[f"{arch}.embedding_length"] // n_heads))
+    rope_dim = kv.get(f"{arch}.rope.dimension_count", head_dim)
+    ssm = None
+    if arch in ("qwen35", "qwen35moe"):
+        ssm = SSMConfig(**{k: kv[f"{arch}.ssm.{k}"] for k in
+                           ("conv_kernel", "state_size", "group_count",
+                            "time_step_rank", "inner_size")})
+    lead = kv.get(f"{arch}.leading_dense_block_count", 0)
+    return TransformerConfig(
+        num_blocks=kv[f"{arch}.block_count"] - kv.get(f"{arch}.nextn_predict_layers", 0),
+        dim=kv[f"{arch}.embedding_length"],
+        hidden_dim=kv.get(f"{arch}.expert_feed_forward_length",
+                          kv.get(f"{arch}.feed_forward_length", 0)),
+        n_heads=n_heads, n_kv_heads=n_kv,
+        norm_eps=kv[f"{arch}.attention.layer_norm_rms_epsilon"],
+        vocab_size=len(kv["tokenizer.ggml.tokens"]),
+        head_dim=head_dim, rope_theta=kv[f"{arch}.rope.freq_base"],
+        rope_dim=rope_dim,
+        v_head_dim=kv.get(f"{arch}.attention.value_length_mla",
+                          kv.get(f"{arch}.attention.value_length", head_dim)),
+        max_context=max_context,
+        qk_norm=(head_dim if ssm else
+                 (state_dict["blk.0.attn_q_norm.weight"].shape[0]
+                  if "blk.0.attn_q_norm.weight" in state_dict else 0)),
+        num_experts=kv.get(f"{arch}.expert_count", 0),
+        num_experts_per_tok=kv.get(f"{arch}.expert_used_count", 0),
+        norm_topk_prob=kv.get(f"{arch}.expert_weights_norm",
+                              arch in ("qwen3moe", "qwen35moe")),
+        kv_lora_rank=kv_lora, q_lora_rank=kv.get(f"{arch}.attention.q_lora_rank", 0),
+        leading_dense_blocks=lead,
+        shared_expert_dim=kv.get(
+            f"{arch}.expert_shared_feed_forward_length",
+            kv.get(f"{arch}.expert_shared_count", 0)
+            * kv.get(f"{arch}.expert_feed_forward_length", 0)),
+        shared_expert_gate=f"blk.{lead}.ffn_gate_inp_shexp.weight" in state_dict,
+        dense_hidden_dim=kv.get(f"{arch}.feed_forward_length", 0) if lead else 0,
+        routed_scaling_factor=kv.get(f"{arch}.expert_weights_scale", 1.0),
+        attn_output_gate=arch in ("qwen35", "qwen35moe"),
+        ssm=ssm, full_attention_interval=kv.get(f"{arch}.full_attention_interval", 0),
+        qkv_bias="blk.0.attn_q.bias" in state_dict,
+        expert_bias=f"blk.{lead}.exp_probs_b.bias" in state_dict)
+
+
+def convert_state_dict(sd: dict, kv: dict, dtype=torch.bfloat16, device="cpu") -> dict:
+    """GGUF tensors (numpy) -> params on ``device``: the llama/MLA RoPE
+    repack (interleaved -> half-split) and the post_attention_norm ->
+    ffn_norm rename of the JAX package's convert_state_dict."""
+    dev = resolve_device(device)
+    arch = kv["general.architecture"]
+    n_heads = kv[f"{arch}.attention.head_count"]
+    n_kv = kv[f"{arch}.attention.head_count_kv"]
+    kv_lora = kv.get(f"{arch}.attention.kv_lora_rank", 0)
+    head_dim = kv.get(f"{arch}.attention.key_length_mla",
+                      kv.get(f"{arch}.attention.key_length",
+                             kv[f"{arch}.embedding_length"] // n_heads))
+    rope_dim = kv.get(f"{arch}.rope.dimension_count", head_dim)
+
+    sd = dict(sd)
+    if arch in ("qwen35", "qwen35moe", "glm4moe"):
+        sd = {k.replace("post_attention_norm", "ffn_norm"): v for k, v in sd.items()}
+    if "output.weight" not in sd and "token_embd.weight" in sd:
+        sd["output.weight"] = sd["token_embd.weight"]
+
+    def half_split(w, n):
+        w = w.reshape(n, w.shape[0] // n, -1)
+        prefix = head_dim - rope_dim
+        head = w[:, :prefix]
+        tail = w[:, prefix:].reshape(n, -1, 2, w.shape[-1]) \
+            .transpose(0, 2, 1, 3).reshape(n, -1, w.shape[-1])
+        return np.concatenate([head, tail], 1).reshape(-1, w.shape[-1])
+
+    out = {}
+    for name, arr in sd.items():
+        arr = np.asarray(arr)
+        if (("attn_q.weight" in name or "attn_q_b.weight" in name)
+                and (arch == "llama" or kv_lora)):
+            arr = half_split(arr, n_heads)
+        elif arch == "llama" and "attn_k.weight" in name:
+            w = arr.reshape(n_kv, arr.shape[0] // n_kv, -1)
+            arr = w.reshape(n_kv, -1, 2, w.shape[-1]).transpose(0, 2, 1, 3) \
+                .reshape(arr.shape)
+        elif kv_lora and "attn_kv_a_mqa.weight" in name:
+            head = arr[:kv_lora]
+            tail = arr[kv_lora:].reshape(-1, 2, arr.shape[-1]) \
+                .transpose(1, 0, 2).reshape(-1, arr.shape[-1])
+            arr = np.concatenate([head, tail], 0)
+        t = torch.from_numpy(np.array(arr))
+        out[name] = t.to(dev) if arr.dtype == np.int32 else \
+            t.to(dev, torch.float32).to(dtype)
+    return out
+
+
+def load_gguf(path, max_context: int | None = None, dtype=torch.bfloat16,
+              device="cpu"):
+    """(cfg, params, kv) from a GGUF file, through the shared jax-free
+    ``clearcam_tpu.io.gguf`` reader."""
+    from clearcam_tpu.io import gguf
+    kv, sd = gguf.load(path)
+    cfg = config_from_gguf(kv, sd, max_context)
+    check_supported(cfg)
+    return cfg, convert_state_dict(sd, kv, dtype, device), kv

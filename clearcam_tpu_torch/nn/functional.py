@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as tF
 
+from ..ops.quant_matmul import QuantLinear, QuantLinear4, quant_linear
+
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
@@ -83,10 +85,19 @@ def prelu(x, weight):
 
 
 def linear(x, w, b=None):
-    """``x @ w.T + b`` with a torch-style (out, in) weight. The product
-    accumulates in f32 (cuBLAS and torch's CPU kernels do so for bf16 too)
-    and comes back in x's dtype; in bf16 torch may add the bias after
-    that rounding, one rounding more than the JAX package's f32 bias add."""
+    """``x @ w.T + b`` with a torch-style (out, in) weight, or a
+    ``QuantLinear``/``QuantLinear4`` (``ops.quant_matmul.quant_linear``:
+    the hand-written kernel on the card). The product accumulates in f32
+    (cuBLAS and torch's CPU kernels do so for bf16 too) and comes back in
+    x's dtype; in bf16 torch may add the bias after that rounding, one
+    rounding more than the JAX package's f32 bias add. A dense weight of
+    another dtype than x (bf16 weights under the LLM's f32 residual
+    stream) multiplies x rounded to the weight's dtype, where the JAX
+    package promotes the weight to f32."""
+    if isinstance(w, (QuantLinear, QuantLinear4)):
+        return quant_linear(x, w, b)
+    if x.dtype != w.dtype:
+        return tF.linear(x.to(w.dtype), w, b).to(x.dtype)
     return tF.linear(x, w, b)
 
 
@@ -101,6 +112,13 @@ def layer_norm(x, weight=None, bias=None, eps=1e-5):
 
 def layer_norm_p(p: dict, prefix: str, x, eps=1e-5):
     return layer_norm(x, p.get(prefix + ".weight"), p.get(prefix + ".bias"), eps)
+
+
+def rms_norm(x, weight, eps=1e-5):
+    """RMS norm over the last axis, taken in f32, back in x's dtype."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (y * weight).to(x.dtype)
 
 
 def batch_norm_inference(x, weight, bias, mean, var, eps=1e-5):

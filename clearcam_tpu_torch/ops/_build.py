@@ -39,6 +39,14 @@ SIGNATURES = {
                                ctypes.POINTER(ctypes.c_longlong), _F, _I, _P], _I),
     # once per device, before its first vit_attention_forward
     "vit_attention_prepare": ([], _I),
+    # x, q, s, bias, out, N, K, K_pad, O, O_pad, int4, dtype, stream
+    "quant_matmul_forward": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    # once per device, before its first quant_matmul_forward
+    "quant_matmul_prepare": ([], _I),
+    # q, k, v, out, pos, pads, B, H, KvH, S, scale, q/out dtype, cache
+    # dtype, stream
+    "decode_attention_forward": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _F, _I, _I, _P], _I),
     "cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -73,17 +81,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libclearcam_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; raise with the log of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs, failed = [], []
+    for cmd, p in zip(cmds, procs):
+        text = p.communicate(timeout=900)[0]
+        logs.append(text)
+        if p.returncode != 0:
+            failed.append(f"nvcc failed (rc {p.returncode}):\n{' '.join(cmd)}\n{text}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
 def _compile(out: Path) -> str:
+    """One nvcc per source, all at once, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    cu = [s for s in sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in cu]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    try:
+        log = _run([[nvcc_path(), *compile_flags, "-c", "-o", str(o), str(s)]
+                    for s, o in zip(cu, objs)])
+        log += _run([[nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]])
+    except BaseException:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+        raise
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)    # atomic: a concurrent process never loads half a file
     out.with_suffix(".log").write_text(log)
     return log

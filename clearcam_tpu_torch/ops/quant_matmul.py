@@ -1,0 +1,223 @@
+"""Weight-only quantized linear layers (int8 W8A16 and packed int4 W4A16)
+as one hand-written CUDA kernel (csrc/quant_matmul.cu), the counterpart of
+``clearcam_tpu.ops.quant_matmul``.
+
+``quant_linear`` is the wrapper: a CPU tensor goes to
+``quant_linear_reference``, a CUDA tensor launches the kernel or raises
+(wrong dtype, shape, contiguity or device, failed build or launch).
+Nothing falls back. ``quant_linear.launches`` counts kernel launches, so a
+run can show that its path went through the kernel.
+
+Formats, byte for byte the JAX package's, so one quantized checkpoint
+serves both packages and ``models.llm.params_from_jax`` carries the
+tensors across unchanged:
+
+  QuantLinear   q [O_pad, I_pad] int8, s [1, O_pad] f32; W = q * s
+  QuantLinear4  packed [O_pad, I_pad/2] int8: in each 1024-wide K tile,
+                byte j holds element j (low nibble) and j + 512 (high
+                nibble); s [I_pad/128, O_pad] f32, group-major; W = q * s
+                per (group of 128 inputs, output)
+
+O is padded to 256 and I to 1024 at quantization time; symmetric scales
+(amax/127, amax/7), values rounded half to even. Semantics of
+``quant_linear(x, w, b)`` (quant_matmul.py:282-303 of the JAX package):
+any leading dims, the product in f32 with the scale applied after the K
+sum (int4: to each group's partial sum), the bias added in f32, the result
+cast to x's dtype.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from . import _build
+
+TO = 256        # output padding (the JAX layout's output tile)
+TI = 1024       # input padding (its contraction tile)
+GROUP = 128     # int4 scale group along the input
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclass
+class QuantLinear:
+    """int8 weight + per-output scale, standing in for a dense (out, in)
+    weight in a params dict."""
+    q: torch.Tensor      # [O_pad, I_pad] int8
+    s: torch.Tensor      # [1, O_pad] f32
+    out_features: int
+    in_features: int
+
+    @property
+    def shape(self):
+        return (self.out_features, self.in_features)
+
+    def dequantize(self) -> torch.Tensor:
+        """Dense f32 (out, in) weight."""
+        return (self.q.float() * self.s.T)[:self.out_features, :self.in_features]
+
+    def to(self, device) -> "QuantLinear":
+        return QuantLinear(self.q.to(device), self.s.to(device),
+                           self.out_features, self.in_features)
+
+
+@dataclass
+class QuantLinear4:
+    """Packed int4 weight + per-(group of 128, output) scales."""
+    packed: torch.Tensor  # [O_pad, I_pad // 2] int8
+    s: torch.Tensor       # [I_pad // GROUP, O_pad] f32
+    out_features: int
+    in_features: int
+
+    @property
+    def shape(self):
+        return (self.out_features, self.in_features)
+
+    def unpack(self) -> torch.Tensor:
+        """The int4 values as int32 [O_pad, I_pad], sign-extended."""
+        opad = self.packed.shape[0]
+        p32 = self.packed.to(torch.int32).reshape(opad, -1, TI // 2)
+        lo = (p32 << 28) >> 28
+        hi = p32 >> 4
+        return torch.cat([lo, hi], -1).reshape(opad, -1)
+
+    def dequantize(self) -> torch.Tensor:
+        w = self.unpack().float()
+        opad, ipad = w.shape
+        w = w.reshape(opad, ipad // GROUP, GROUP) * self.s.T[:, :, None]
+        return w.reshape(opad, ipad)[:self.out_features, :self.in_features]
+
+    def to(self, device) -> "QuantLinear4":
+        return QuantLinear4(self.packed.to(device), self.s.to(device),
+                            self.out_features, self.in_features)
+
+
+def _pad_to(x: torch.Tensor, m: int, dim: int) -> torch.Tensor:
+    pad = (-x.shape[dim]) % m
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim)
+
+
+def true_div(a: torch.Tensor, d: float) -> torch.Tensor:
+    """``a / d`` correctly rounded on any device. CUDA divides by a Python
+    float as a product with its reciprocal, one bit off at times, and one
+    bit of a scale moves values across a rounding edge: the quantized
+    bytes would then depend on the device they were made on."""
+    return a / a.new_tensor(d)
+
+
+def quantize_int8(w: torch.Tensor) -> QuantLinear:
+    """Symmetric per-output int8 of an (out, in) weight, on w's device."""
+    w = w.float()
+    o, i = w.shape
+    amax = w.abs().amax(1, keepdim=True)
+    s = torch.where(amax > 0, true_div(amax, 127.0), torch.ones_like(amax))
+    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    q = _pad_to(_pad_to(q, TO, 0), TI, 1).contiguous()
+    s = _pad_to(s, TO, 0).reshape(1, -1).contiguous()
+    return QuantLinear(q, s, o, i)
+
+
+def quantize_int4(w: torch.Tensor) -> QuantLinear4:
+    """Symmetric per-(output, group of 128) int4 of an (out, in) weight,
+    packed two to a byte, on w's device."""
+    o, i = w.shape
+    w = _pad_to(_pad_to(w.float(), TO, 0), TI, 1)
+    o_pad, i_pad = w.shape
+    g = w.reshape(o_pad, i_pad // GROUP, GROUP)
+    amax = g.abs().amax(2, keepdim=True)
+    s = torch.where(amax > 0, true_div(amax, 7.0), torch.ones_like(amax))
+    q = torch.clamp(torch.round(g / s), -8, 7).to(torch.int32) \
+        .reshape(o_pad, i_pad // TI, TI)
+    lo, hi = q[..., :TI // 2], q[..., TI // 2:]
+    packed = ((hi << 4) | (lo & 0xF)).to(torch.int8).reshape(o_pad, i_pad // 2)
+    return QuantLinear4(packed.contiguous(), s[..., 0].T.contiguous(), o, i)
+
+
+def quant_linear_reference(x, w, b=None):
+    """Plain version: dequantize, multiply in f32, scale (int8: after the
+    product), add the bias in f32, cast to x's dtype. It is the XLA
+    expression the TPU kernel replaced."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    if isinstance(w, QuantLinear4):
+        y = x2 @ w.dequantize().T
+    else:
+        q = w.q[:w.out_features, :w.in_features].float()
+        y = (x2 @ q.T) * w.s[:, :w.out_features]
+    if b is not None:
+        y = y + b.float()
+    return y.reshape(*lead, w.out_features).to(x.dtype)
+
+
+def prepare(device) -> str:
+    """Build and load the kernel library and set the kernel up on the CUDA
+    ``device``, once; returns the library's path."""
+    return _build.prepare("quant_matmul_prepare", device)
+
+
+def _check(x, w, b):
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"quant_linear: x dtype {x.dtype} not in {list(_DTYPES)}")
+    int4 = isinstance(w, QuantLinear4)
+    qw = w.packed if int4 else w.q
+    if x.shape[-1] != w.in_features:
+        raise ValueError(f"quant_linear: x has {x.shape[-1]} features, the "
+                         f"weight takes {w.in_features}")
+    o_pad, k_cols = qw.shape
+    k_pad = k_cols * 2 if int4 else k_cols
+    if qw.dtype != torch.int8 or w.s.dtype != torch.float32:
+        raise TypeError(f"quant_linear: weight {qw.dtype}, scales {w.s.dtype}; "
+                        "want int8 and float32")
+    want_s = (k_pad // GROUP, o_pad) if int4 else (1, o_pad)
+    if (o_pad % TO or k_pad % TI or tuple(w.s.shape) != want_s
+            or w.out_features > o_pad or w.in_features > k_pad):
+        raise ValueError(f"quant_linear: weight {tuple(qw.shape)} / scales "
+                         f"{tuple(w.s.shape)} are not a quantize_int8/int4 layout")
+    for name, t in (("weight", qw), ("scales", w.s)) + \
+            ((("bias", b),) if b is not None else ()):
+        if t.device != x.device:
+            raise ValueError(f"quant_linear: {name} on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"quant_linear: {name} is not contiguous")
+    if b is not None and tuple(b.shape) != (w.out_features,):
+        raise ValueError(f"quant_linear: bias {tuple(b.shape)} != ({w.out_features},)")
+    if qw.data_ptr() % 16:
+        raise ValueError("quant_linear: weight not 16-byte aligned")
+    return int4, o_pad, k_pad
+
+
+def quant_linear(x, w, b=None):
+    """``x @ W.T + b`` for a QuantLinear / QuantLinear4 ``w``."""
+    if x.device.type == "cpu":
+        return quant_linear_reference(x, w, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"quant_linear: unsupported device {x.device}")
+    int4, o_pad, k_pad = _check(x, w, b)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if not x2.is_contiguous():
+        raise ValueError("quant_linear: x is not contiguous in its last dims")
+    n = x2.shape[0]
+    out = torch.empty((n, w.out_features), dtype=x.dtype, device=x.device)
+    if n == 0:
+        return out.reshape(*lead, w.out_features)
+    bias = None if b is None else b.float().contiguous()
+    prepare(x.device)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.quant_matmul_forward(
+            x2.data_ptr(), (w.packed if int4 else w.q).data_ptr(), w.s.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            n, w.in_features, k_pad, w.out_features, o_pad, int(int4),
+            _DTYPES[x.dtype], stream)
+    _build.check(err, "quant_matmul kernel launch")
+    quant_linear.launches += 1
+    return out.reshape(*lead, w.out_features)
+
+
+quant_linear.launches = 0

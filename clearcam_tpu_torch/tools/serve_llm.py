@@ -1,0 +1,162 @@
+"""Standalone LLM serving daemon on the port: POST /generate and the
+OpenAI surface (/v1/chat/completions, /v1/completions, /v1/models) over
+the continuous-batching engine, with no NVR attached. The counterpart of
+``python -m clearcam_tpu.tools.serve_llm``, with its flags and defaults:
+
+    python -m clearcam_tpu_torch.tools.serve_llm --synthetic --int8 --pallas \\
+        [--blocks 28] [--ctx 8192] [--slots 8] [--port 8081] [--device cuda]
+
+    curl -N -X POST localhost:8081/generate \\
+        -d '{"prompt": "hello", "max_new": 64, "stream": true}'
+
+``--synthetic`` serves random weights (seed 0) at Qwen/Qwen3-1.7B's
+published widths (``models.llm.qwen3_2b_cfg``) with a byte-level stand-in
+tokenizer; ``--gguf`` loads a checkpoint with the shared GGUF reader and
+tokenizer. ``--int8`` quantizes the weights (the quant-matmul kernel),
+``--pallas`` runs the decode step's attention through the batched
+decode-attention kernel. The HTTP server is the JAX package's jax-free
+one, reached through ``serving.bind_shared_server``. On SIGTERM or SIGINT
+it stops and prints each kernel's launch count.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import threading
+from pathlib import Path
+
+import torch
+
+from clearcam_tpu.tools.serve_llm import _AsciiTok
+
+from ..device import resolve_device
+
+
+def build_engine(args):
+    from ..models import llm
+    from ..serving import ServingEngine, TextServing
+
+    dev = resolve_device(args.device)
+    if args.synthetic:
+        cfg = llm.qwen3_2b_cfg(args.blocks, args.ctx)
+        params = llm.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+        tok = _AsciiTok(cfg.vocab_size)
+    else:
+        from clearcam_tpu.utils.llm_tokenizer import LLMTokenizer
+        cfg, params, kv = llm.load_gguf(args.gguf, max_context=args.ctx, device=dev)
+        tok = LLMTokenizer.from_gguf_kv(kv)
+    if args.int8:
+        params = llm.quantize_params_int8(params)
+    constraints = None
+    if args.json_depth > 0:
+        # the JSON grammar (response_format json_object): one [S, V] int16
+        # table on the card
+        import time
+        from ..serving.constrain import json_char_dfa, json_token_constraint, token_table
+        t0 = time.monotonic()
+        if hasattr(tok, "normal"):
+            tc = json_token_constraint(tok, cfg.vocab_size, max_depth=args.json_depth)
+        else:                                  # synthetic ASCII tokenizer
+            tc = token_table(json_char_dfa(args.json_depth), tok.vocab_bytes(),
+                             [tok.eos_id], n_vocab=cfg.vocab_size)
+        constraints = {"json": tc}
+        print(f"json constraint: {tc.trans.shape[0]} states x {tc.trans.shape[1]} "
+              f"vocab ({tc.trans.nbytes / 1e6:.0f} MB, built in "
+              f"{time.monotonic() - t0:.1f}s)", flush=True)
+    eng = ServingEngine(params, cfg, n_slots=args.slots, state_dtype=torch.bfloat16,
+                        kv_quant=args.kv_quant, use_pallas_decode=args.pallas,
+                        sync_lag=args.sync_lag, fetch_every=args.fetch_every,
+                        max_waiting=args.max_waiting, max_restarts=args.max_restarts,
+                        constraints=constraints, constraint_rows=args.constraint_rows,
+                        device=dev)
+    return TextServing(eng, tok)
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--gguf", type=Path, default=None)
+    ap.add_argument("--synthetic", action="store_true",
+                    help="serve a random-weight Qwen3-1.7B-shaped model (no GGUF "
+                         "needed; ASCII stand-in tokenizer)")
+    ap.add_argument("--blocks", type=int, default=28)
+    ap.add_argument("--ctx", type=int, default=8192)
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--port", type=int, default=8081)
+    ap.add_argument("--data", type=Path, default=Path("data"))
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; fails without a GPU) or cpu")
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 weight-only serving (the quant-matmul kernel)")
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="int8 KV cache (not with --pallas)")
+    ap.add_argument("--pallas", action="store_true",
+                    help="decode attention through the batched decode kernel")
+    ap.add_argument("--spec", type=int, default=0,
+                    help="speculative decoding: not ported yet")
+    ap.add_argument("--sync-lag", type=int, default=4, dest="sync_lag",
+                    help="decode steps tokens materialize late (pipeline depth)")
+    ap.add_argument("--fetch-every", type=int, default=4, dest="fetch_every",
+                    help="decode steps per batched [k,B] token readback")
+    ap.add_argument("--max-waiting", type=int, default=64, dest="max_waiting",
+                    help="admission queue bound; overload gets HTTP 503")
+    ap.add_argument("--max-restarts", type=int, dest="max_restarts",
+                    default=int(os.environ.get("CLEARCAM_SERVING_RESTARTS", "3")),
+                    help="scheduler crash recoveries allowed per 10-min window")
+    ap.add_argument("--json-depth", type=int, default=4, dest="json_depth",
+                    help="max JSON nesting for response_format json_object "
+                         "(0 disables; saves the [S, V] table)")
+    ap.add_argument("--constraint-rows", type=int, default=512, dest="constraint_rows",
+                    help="table rows reserved for grammars registered at runtime")
+    ap.add_argument("--api-token", default=None)
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="multi-device serving: not ported yet")
+    args = ap.parse_args(argv)
+    if args.gguf is None and not args.synthetic:
+        ap.error("--gguf PATH or --synthetic required")
+    if args.spec:
+        raise SystemExit("--spec: speculative serving is not in clearcam_tpu_torch "
+                         "yet (ROADMAP queue 1 item 9)")
+    if args.mesh > 1:
+        raise SystemExit("--mesh: multi-device serving is not in clearcam_tpu_torch "
+                         "yet (ROADMAP queue 1 item 13)")
+    from ..serving.engine import check_decode_route
+    check_decode_route(args.kv_quant, args.pallas)     # before the model is built
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    from ..ops.decode_attention import decode_attention_batch
+    from ..ops.quant_matmul import quant_linear
+    from ..serving import bind_shared_server
+
+    gen = build_engine(args)
+    gen.engine.start()                       # own scheduler thread
+    bind_shared_server()
+    from clearcam_tpu.server.http import AppContext, serve
+    from clearcam_tpu.utils.db import KVStore
+    ctx = AppContext(KVStore(args.data / "cc_cache.db"), args.data, gen=gen,
+                     api_token=args.api_token,
+                     served_model=(args.gguf.stem if args.gguf else "clearcam-synthetic"))
+    server = serve(ctx, port=args.port)
+    if server is None:
+        gen.engine.close()
+        raise SystemExit(f"port {args.port} in use")
+    print(f"LLM serving on :{args.port} ({args.slots} slots, ctx {args.ctx}, "
+          f"device {gen.engine.device})", flush=True)
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda signum, frame: stop.set())
+    try:
+        while not stop.wait(0.5):
+            pass
+    finally:
+        server.shutdown()
+        gen.engine.close()
+        print(f"quant_matmul.launches={quant_linear.launches}", flush=True)
+        print(f"decode_attention.launches={decode_attention_batch.launches}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from clearcam_tpu_torch.models import clip, yolov9
+from clearcam_tpu_torch.models import llm as tllm
 from clearcam_tpu_torch.ops import stem as tstem
 from clearcam_tpu_torch.ops import vit_attention as tattn
 from clearcam_tpu_torch.runtime.nvr import BatchDetector
@@ -174,3 +175,187 @@ def test_object_finder_on_gpu(cuda, tmp_path):
     got = gpu.embed_images(crops)
     assert tattn.mha_flash.launches == before + 1
     np.testing.assert_allclose(got, cpu.embed_images(crops), rtol=0, atol=1e-4)
+
+
+# quant-matmul kernel vs plain, relative to the output's magnitude: f32 x
+# differs by summation order only; bf16 x rounds both outputs to bf16
+QM_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 2, 3, 5, 16, 17, 130])
+@pytest.mark.parametrize("oi", [(300, 700), (1024, 2048)])
+def test_quant_matmul_kernel_matches_plain(cuda, bits, dtype, rows, oi):
+    from clearcam_tpu_torch.ops import quant_matmul as tqm
+    rng = np.random.default_rng(rows)
+    w = torch.from_numpy(rng.normal(0, 0.05, oi).astype(np.float32)).to(cuda)
+    ql = tqm.quantize_int8(w) if bits == 8 else tqm.quantize_int4(w)
+    x = torch.from_numpy(rng.standard_normal((rows, oi[1]), np.float32)).to(cuda, dtype)
+    b = torch.from_numpy(rng.normal(0, 0.1, oi[0]).astype(np.float32)).to(cuda)
+    before = tqm.quant_linear.launches
+    got = tqm.quant_linear(x, ql, b)
+    ref = tqm.quant_linear_reference(x, ql, b)
+    torch.cuda.synchronize()
+    assert tqm.quant_linear.launches == before + 1
+    assert got.shape == ref.shape == (rows, oi[0]) and got.dtype == dtype
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= QM_TOL[dtype] * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_on_the_card_gives_the_cpu_bytes(cuda, bits):
+    from clearcam_tpu_torch.ops import quant_matmul as tqm
+    fn = tqm.quantize_int8 if bits == 8 else tqm.quantize_int4
+    w = torch.from_numpy(np.random.default_rng(bits).normal(0, 0.05, (2048, 2100))
+                         .astype(np.float32))
+    cpu, gpu = fn(w), fn(w.to(cuda))
+    for name in ("q", "s") if bits == 8 else ("packed", "s"):
+        assert torch.equal(getattr(cpu, name), getattr(gpu, name).cpu()), name
+
+
+def test_quant_matmul_leading_dims_and_raises(cuda):
+    from clearcam_tpu_torch.ops import quant_matmul as tqm
+    w = torch.randn(256, 1024, device=cuda) * 0.05
+    ql = tqm.quantize_int8(w)
+    x = torch.randn(2, 3, 1024, device=cuda)
+    got = tqm.quant_linear(x, ql)
+    assert got.shape == (2, 3, 256)
+    ref = tqm.quant_linear_reference(x, ql)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    with pytest.raises(TypeError):
+        tqm.quant_linear(x.half(), ql)
+    with pytest.raises(ValueError, match="features"):
+        tqm.quant_linear(x[..., :512], ql)
+    with pytest.raises(ValueError, match="on cpu"):
+        tqm.quant_linear(x, ql.to("cpu"))
+
+
+# decode-attention kernel vs plain (f32 softmax over the whole cache):
+# summation order only in f32; a bf16 q rounds both outputs to bf16
+DEC_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("qdt,cdt", [(torch.float32, torch.float32),
+                                     (torch.float32, torch.bfloat16),
+                                     (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("h,kvh", [(8, 4), (16, 8), (16, 2)])
+def test_decode_attention_kernel_matches_plain(cuda, qdt, cdt, h, kvh):
+    from clearcam_tpu_torch.ops import decode_attention as tdec
+    rng = np.random.default_rng(h * kvh)
+    b, s, d = 4, 517, 128
+    q = torch.from_numpy(rng.standard_normal((b, h, d), np.float32)).to(cuda, qdt)
+    k, v = (torch.from_numpy(rng.standard_normal((b, kvh, s, d), np.float32)).to(cuda, cdt)
+            for _ in range(2))
+    for pos, pads in ((torch.tensor([0, 63, 300, 516], dtype=torch.int32), None),
+                      (torch.tensor([64, 300, 300, 516], dtype=torch.int32),
+                       torch.tensor([64, 0, 299, 37], dtype=torch.int32)),
+                      (200, None)):
+        pos = pos.to(cuda) if isinstance(pos, torch.Tensor) else pos
+        pads = pads.to(cuda) if pads is not None else None
+        before = tdec.decode_attention_batch.launches
+        got = tdec.decode_attention_batch(q, k, v, pos, pads)
+        ref = tdec.decode_attention_batch_reference(q, k, v, pos, pads)
+        torch.cuda.synchronize()
+        assert tdec.decode_attention_batch.launches == before + 1
+        assert got.shape == q.shape and got.dtype == qdt
+        assert (got.float() - ref.float()).abs().max().item() < DEC_TOL[qdt]
+
+
+def test_decode_attention_kernel_raises_on_bad_input(cuda):
+    from clearcam_tpu_torch.ops import decode_attention as tdec
+    q = torch.randn(2, 8, 128, device=cuda)
+    k = torch.randn(2, 4, 64, 128, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tdec.decode_attention_batch(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                                    k[..., :64].contiguous(), 3)
+    with pytest.raises(TypeError):
+        tdec.decode_attention_batch(q, k, k.bfloat16(), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tdec.decode_attention_batch(q, k.transpose(2, 3).contiguous().transpose(2, 3), k, 3)
+    with pytest.raises(ValueError, match="H / KvH"):
+        tdec.decode_attention_batch(torch.randn(2, 40, 128, device=cuda), k[:, :4], k[:, :4], 3)
+
+
+def _small_llm_cfg():
+    return tllm.TransformerConfig(
+        num_blocks=2, dim=256, hidden_dim=512, n_heads=4, n_kv_heads=2,
+        norm_eps=1e-6, vocab_size=512, head_dim=128, rope_theta=1e6,
+        rope_dim=128, v_head_dim=128, max_context=256, qk_norm=128)
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+def test_engine_gpu_matches_cpu(cuda, quant):
+    """Two blocks, greedy: the engine on the card (quant-matmul and decode
+    kernels) gives the CPU engine's tokens (plain versions)."""
+    from clearcam_tpu_torch.ops import decode_attention as tdec
+    from clearcam_tpu_torch.ops import quant_matmul as tqm
+    from clearcam_tpu_torch.serving import ServingEngine
+    cfg = _small_llm_cfg()
+    prompts = [[1, 2, 3, 4, 5], list(range(10, 50)), [7, 7, 7]]
+    outs = {}
+    before = (tqm.quant_linear.launches, tdec.decode_attention_batch.launches)
+    for dev in ("cpu", "cuda"):
+        p = tllm.init_params(cfg, seed=5, device=dev)
+        if quant != "none":
+            p = getattr(tllm, f"quantize_params_{quant}")(p)
+        eng = ServingEngine(p, cfg, n_slots=2, use_pallas_decode=True)
+        reqs = [eng.submit(pr, max_new=6) for pr in prompts]
+        eng.run_until_idle()
+        outs[dev] = [r.wait(1) for r in reqs]
+    assert outs["cpu"] == outs["cuda"]
+    assert tdec.decode_attention_batch.launches > before[1]
+    assert (tqm.quant_linear.launches > before[0]) == (quant != "none")
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 128, 8192), (16, 8192, 128), (64, 128, 300)])
+def test_attention_products_keep_f32_scores_on_the_card(cuda, m, k, n):
+    """bf16 operands (the bf16 KV cache) multiply with an f32 output on the
+    card, as the CPU's widened product does: no bf16 rounding of the scores.
+    The key cache comes in as a transposed view, as the attention block
+    passes it."""
+    g = torch.Generator().manual_seed(3)
+    a = torch.randn(2, 8, m, k, generator=g).bfloat16()
+    b = torch.randn(2, 8, n, k, generator=g).bfloat16().transpose(-1, -2)
+    ref = tllm._product_f32(a, b)
+    got = tllm._product_f32(a.to(cuda), b.to(cuda))
+    got = got.cpu()
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    # f32 sums in another order (up to 8192 terms): far below the 2^-9
+    # relative error of rounding the scores to bf16 ...
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-4 * ref.abs().max().item(), err
+    # ... and the outputs are not bf16 values
+    assert (got != got.bfloat16().float()).float().mean().item() > 0.9
+
+
+# bf16 weights and KV cache at dim 256 (logits ~1): bf16 outputs one ulp
+# apart where cuBLAS and the CPU sum in other orders
+LLM_BF16_TOL = 3e-2
+
+
+@pytest.mark.parametrize("pallas", [True, False])
+def test_bf16_model_gpu_matches_cpu(cuda, pallas):
+    """bf16 weights and a bf16 KV cache (serve_llm's default without
+    --int8): a prefill chunk then a decode step at per-row positions, card
+    vs CPU logits, through the decode kernel or the plain attention."""
+    from clearcam_tpu_torch.ops import decode_attention as tdec
+    cfg = _small_llm_cfg()
+    toks = np.random.default_rng(4).integers(1, cfg.vocab_size, (2, 32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.bfloat16() for k, v in tllm.init_params(cfg, seed=5, device=dev).items()}
+        st = tllm.init_state(cfg, 2, dtype=torch.bfloat16, device=dev)
+        fr = tllm.freqs_for(cfg, dev)
+        impl = None if dev == "cpu" or not pallas else (
+            lambda q, s_, pos, pads: tdec.decode_attention_batch(
+                q[:, :, 0].contiguous(), s_["k"], s_["v"], pos, pads)[:, :, None])
+        with torch.inference_mode():
+            h, _ = tllm.forward(p, cfg, st, torch.from_numpy(toks).to(dev), 0, fr)
+            first = tllm.logits_at(p, cfg, h, 31)
+            h, _ = tllm.forward(p, cfg, st, torch.from_numpy(toks[:, :1]).to(dev),
+                                torch.tensor([32, 20], device=dev), fr, decode_attn=impl)
+            out[dev] = [first.float().cpu(), tllm.logits_at(p, cfg, h, 0).float().cpu()]
+    for ref, got in zip(out["cpu"], out["cuda"]):
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max().item() < LLM_BF16_TOL
