@@ -3,10 +3,12 @@
 Drives clearcam_tpu_torch's paths, the NVR detect tick (YOLOv9-t, res
 640, random weights from seed 0), the NVR's object search (CLIP ViT-L/14
 image and text towers, BlazeFace and AdaFace IR-50, random weights from
-seed 0) and the LLM serving daemon (Qwen3-1.7B widths, random weights
-from seed 0, int8 and int4), and the hand-written kernels (stem, ViT
-attention, quant-matmul, batched decode attention) on the card. Every
-phase raises on failure, so the script exits non-zero:
+seed 0), the LLM serving daemon (Qwen3-1.7B widths, random weights from
+seed 0, int8 and int4) and the NVR's Qwen3-VL alert summaries (Qwen3-VL-2B
+widths, random weights from seed 0), and the hand-written kernels (stem,
+ViT attention, quant-matmul, and decode attention in its batched,
+single-stream and int8-cache forms) on the card. Every phase raises on
+failure, so the script exits non-zero:
 
   0  the card: nvidia-smi name and power limit, torch, nvcc; TF32 off
   1  build csrc/*.cu with nvcc for sm_90a, timed
@@ -55,11 +57,32 @@ phase raises on failure, so the script exits non-zero:
      with response_format json_object, whose text must be a JSON prefix),
      /v1/completions with logprobs; quant_matmul and decode_attention
      launches reported at shutdown
+ 10  decode_attention and decode_attention_q8 (B=1) and
+     decode_attention_batch_q8 (B=8, spread positions, pads, a row with no
+     live column) vs their plain versions, H=16 KvH=8 D=128, S 2048 and
+     8192: f32 q max|d| < 1e-4 (the int8 forms on the same int8 bytes and
+     scales), bf16 q < 2e-2; times at the summary path's shapes as CUDA-graph
+     replays over more than L2, GB/s of live K/V against 3.35 TB/s
+ 11  a 2-block Qwen3-VL-2B-width model (2 language + 2 vision blocks, the
+     deepstack at vision block 1), f32, card vs CPU: vision embeds and the
+     deepstack feature (cosine > 1 - 1e-5 per row), then an image prefill
+     and 8 greedy tokens through Transformer.generate on the plain, kernel
+     and int8-KV + kernel routes: equal tokens, the last step's logits
+     within 2e-3 (2e-2 with the int8 cache)
+ 12  the 28 + 24-block model, int8 weights, in the port's NVR in-process
+     with a synthetic camera and a key-colour stand-in detector: seconds
+     from the alert to the AI Summary notification (cooperative, bf16 and
+     int8 KV), 4 concurrent alerts through VLMServingEngine (4 slots), and
+     generate_batch B=8 with the int8 cache and its decode tokens/s; every
+     decode-attention form, quant_matmul and vit_attention must launch
 
 The line before the last is the card's name and power limit; before it, a
-JSON line with each kernel's launches on a served path (phases 4 and 9;
-int4 from phase 8's engine run), its error against the plain version and
-both times. The last line is
+JSON line with each kernel's launches on a served path (phases 4, 9 and
+12; int4 from phase 8's engine run), its error against the plain version,
+its time, the plain version's, the bound (the larger of its bytes over
+3.35 TB/s and its operations over the data sheet's peak for their type)
+and the time of one PyTorch call computing the same function where there
+is one (scaled_dot_product_attention, torch._weight_int8pack_mm). The last line is
 {"ok": true, "device": {...}}. Without CUDA, or outside the repository, it
 exits non-zero and prints no result.
 
@@ -99,12 +122,12 @@ ATTN_REPLACES = "clearcam_tpu/ops/vit_attention.py:54"
 # bf16 before the PV product
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # one CROP_BATCH of crops, one crop, and ragged lengths up to the Qwen3-VL
-# vision tower's 784 and 1600
+# vision tower's 2040 (a 544x960 frame)
 ATTN_SHAPES = [(16, 16, 257, 64), (1, 16, 257, 64)] + [
-    (2, 16, t, 64) for t in (1, 7, 128, 129, 784, 1600)]
+    (2, 16, t, 64) for t in (1, 7, 128, 129, 784, 1600)] + [(1, 16, 2040, 64)]
 TOWER_COS = 1 - 1e-5                # towers, GPU vs CPU, cosine per row
 # BPE merges for the server's tokenizer: the real vocab is not in the repo
-ALL_PHASES = tuple(range(10))
+ALL_PHASES = tuple(range(13))
 MERGES = [("h", "e"), ("l", "l"), ("he", "ll"), ("hell", "o</w>"),
           ("w", "o"), ("r", "l"), ("wo", "rl"), ("worl", "d</w>")]
 
@@ -228,6 +251,11 @@ def phase2(torch):
         k2 = cuda_ms(lambda: stem(*args))
         p2 = cuda_ms(plain)
         times[b] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        h2, w2 = out_hw(384, 640)
+        h1, w1 = (384 + 1) // 2, (640 + 1) // 2
+        nbytes = sum(t.numel() * t.element_size() for t in args) + b * h2 * w2 * 32 * 2
+        ops = 2 * b * (h1 * w1 * 16 * 27 + h2 * w2 * 32 * 144)
+        times[b] += bound(nbytes, ops, PEAK["bfloat16"])
         log(f"stem [{b},384,640,3] bf16: kernel {times[b][0]:.4f} ms "
             f"(runs {k1:.4f}, {k2:.4f}), plain {times[b][1]:.4f} ms "
             f"(runs {p1:.4f}, {p2:.4f}), {b / times[b][0] * 1e3:.0f} vs "
@@ -542,11 +570,19 @@ def phase5(torch):
         k2 = cuda_ms(lambda: mha_flash(q, k, v))
         p2 = cuda_ms(lambda: mha_reference(q, k, v))
         key = (b, str(dtype)[6:])
-        times[key] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_err = (sdpa(q, k, v).float() - mha_flash(q, k, v).float()).abs().max().item()
+        if not lib_err < ATTN_TOL[key[1]]:
+            raise AssertionError(f"SDPA yardstick off the kernel by {lib_err}")
+        lib = _yardstick(lambda: cuda_ms(lambda: sdpa(q, k, v)))
         flop = 4 * b * 16 * 257 * 257 * 64
+        times[key] = ((k1 + k2) / 2, (p1 + p2) / 2, lib) + bound(
+            4 * q.numel() * q.element_size(), flop, PEAK[key[1]])
         log(f"attention [{b},16,257,64] {key[1]}: kernel {times[key][0]:.4f} ms "
             f"(runs {k1:.4f}, {k2:.4f}) = {flop / times[key][0] / 1e9:.1f} TFLOP/s, "
-            f"plain {times[key][1]:.4f} ms (runs {p1:.4f}, {p2:.4f})")
+            f"plain {times[key][1]:.4f} ms (runs {p1:.4f}, {p2:.4f}), one "
+            f"scaled_dot_product_attention call {lib} ms, bound {times[key][3]:.4f} ms "
+            f"({times[key][4]})")
     return max_err, times
 
 
@@ -650,6 +686,9 @@ DEC_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DEC_POS = [0, 17, 255, 256, 1000, 4095, 8191, 3000]
 QM_JSON_SHAPE = (6144, 2048, 8, "float32")     # (out, in, rows, x dtype)
 HBM = 3.35e12          # H100 SXM HBM3 bytes/s (data sheet)
+# H100 SXM dense peaks (data sheet): f32 outside the tensor cores; bf16 and
+# int8 in them
+PEAK = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 L2_FLUSH = 120_000_000  # bytes a timed run cycles through: > the H100's 50 MB L2
 # 2-block full-width model, card vs CPU, f32: max |d| of the logprob rows
 # (chosen + top 8) and of the decode step's full logits
@@ -660,6 +699,14 @@ LLM_LP_TOL, LLM_LOGIT_TOL = 2e-3, 2e-3
 # blocks and the LM head. Bounds: 5% of max|logit|, and the card no further
 # from the reference than 2x the port's own bf16 path on the CPU
 LLM_BF16_REL, LLM_BF16_RATIO = 0.05, 2.0
+
+
+def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
+    """(the least milliseconds the card could take, which of bytes or
+    operations sets it): bytes moved over HBM's rate against operations
+    over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def graph_ms(calls, reps: int = 5) -> float:
@@ -742,7 +789,11 @@ def phase7(torch):
                         k, p = _pair_ms(
                             [lambda c=c: qm.quant_linear_reference(x, c) for c in qls],
                             [lambda c=c: qm.quant_linear(x, c) for c in qls])
-                        out["qm_ms"][(bits, o, i, rows, name)] = (k, p)
+                        lib = _int8pack_ms(torch, qls, x, ref) if (
+                            bits == 8 and (o, i, rows, name) == QM_JSON_SHAPE) else None
+                        nb = wbytes + x.numel() * x.element_size() + rows * o * x.element_size()
+                        out["qm_ms"][(bits, o, i, rows, name)] = (k, p, lib) + bound(
+                            nb, 2 * rows * i * o, PEAK[name])
                         log(f"quant int{bits} x[{rows},{i}] {name} . W[{o},{i}]: max|d|/max "
                             f"{rel:.2e} (bound {QM_TOL[name]}); kernel {k:.4f} ms = "
                             f"{wbytes / k / 1e6:.0f} GB/s ({wbytes / k / 1e9 / HBM * 1e12:.0%}"
@@ -781,7 +832,10 @@ def phase7(torch):
             kt, pt = _pair_ms(
                 [lambda: dec.decode_attention_batch_reference(q, k, v, pos, pads)] * 4,
                 [lambda: dec.decode_attention_batch(q, k, v, pos, pads)] * 4)
-            out["dec_ms"][(case, cname)] = (kt, pt)
+            lib = _sdpa_decode_ms(torch, q, k, v, pos, pads) if cname == "bfloat16" else None
+            nb = live + 2 * q.numel() * q.element_size()
+            ops = 4 * int((pos - pads + 1).sum().item()) * h * d
+            out["dec_ms"][(case, cname)] = (kt, pt, lib) + bound(nb, ops, PEAK["float32"])
             log(f"decode attention B=8 H=16 KvH=8 S=8192 {cname} cache, {case}: max|d| "
                 f"{err32:.2e} (bound {DEC_TOL['float32']}); kernel {kt:.4f} ms = "
                 f"{live / kt / 1e6:.0f} GB/s of live K/V ({live / kt / 1e9 / HBM * 1e12:.0%} "
@@ -789,6 +843,48 @@ def phase7(torch):
         del k, v
     torch.cuda.empty_cache()
     return out
+
+
+def _int8pack_ms(torch, qls, x, ref):
+    """One ``torch._weight_int8pack_mm`` call on the same int8 weight and
+    scales, where the card's PyTorch has it and it computes the kernel's
+    function; else None."""
+    try:
+        got = torch._weight_int8pack_mm(x, qls[0].q, qls[0].s.reshape(-1))
+        torch.cuda.synchronize()
+    except (RuntimeError, AttributeError, NotImplementedError) as e:
+        log(f"torch._weight_int8pack_mm on the card: {str(e).splitlines()[0][:160]}")
+        return None
+    rel = (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+    if not rel <= QM_TOL["float32"] * 10:
+        log(f"torch._weight_int8pack_mm differs from the plain version ({rel:.2e})")
+        return None
+    return graph_ms([lambda c=c: torch._weight_int8pack_mm(x, c.q, c.s.reshape(-1))
+                     for c in qls])
+
+
+def _sdpa_decode_ms(torch, q, k, v, pos, pads):
+    """One ``scaled_dot_product_attention`` call computing the decode step
+    over a float cache: q [B,H,D] as [B,H,1,D] in the cache's dtype, the
+    live window as a boolean mask, grouped-query heads (``enable_gqa``)."""
+    b, h, d = q.shape
+    s = k.shape[2]
+    cols = torch.arange(s, device=q.device)
+    mask = ((cols[None] >= pads[:, None]) & (cols[None] <= pos[:, None]))[:, None, None]
+    qq = q.to(k.dtype)[:, :, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return _yardstick(lambda: graph_ms(
+        [lambda: sdpa(qq, k, v, attn_mask=mask, enable_gqa=True)] * 4))
+
+
+def _yardstick(timed):
+    """A one-call yardstick's time, or None (logged) where this PyTorch
+    cannot run or capture that call."""
+    try:
+        return timed()
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        log(f"yardstick not timed: {str(e).splitlines()[0][:160]}")
+        return None
 
 
 def _same_bytes(torch, a, b) -> bool:
@@ -983,6 +1079,373 @@ def phase8(torch):
     return errs, {k: float(np.mean([r for r, _ in v])) for k, v in tps.items()}, launches
 
 
+# ---------------------------------------------------------------------------
+# the Qwen3-VL summary slice: the single-stream and int8 decode kernels
+
+DEC1_REPLACES = "clearcam_tpu/ops/decode_attention.py:67"      # _chunked_kernel
+DEC1Q8_REPLACES = "clearcam_tpu/ops/decode_attention.py:481"   # _chunked_kernel_q8
+DECBQ8_REPLACES = "clearcam_tpu/ops/decode_attention.py:336"   # _batch_kernel_q8
+# the int8 forms against their plain versions on the same int8 bytes and
+# scales: f32 arithmetic on both sides, summation order only
+DEC_Q8_TOL = 1e-4
+# 2-block full-width Qwen3-VL, card vs CPU: the last decode step's logits,
+# max |d|; the int8 cache may quantize a K/V element one step apart where
+# the card's and the CPU's f32 values straddle a rounding boundary
+VL_LOGIT_TOL = {"plain": 2e-3, "kernel": 2e-3, "int8 KV + kernel": 2e-2}
+SUMMARY_RES = (544, 960)            # the NVR's Qwen frame size (__main__.py)
+
+
+def _smoke_tok():
+    """Qwen's chat specials at their Qwen3 ids over a byte-level vocabulary;
+    decode maps any id to a printable character (random weights give
+    arbitrary ids)."""
+    from clearcam_tpu_torch.utils.llm_tokenizer import LLMTokenizer
+    from clearcam_tpu_torch.utils.tokenizer import byte_encoder
+
+    class SmokeTok(LLMTokenizer):
+        def decode(self, ids):
+            return "".join(chr(33 + int(i) % 94) for i in ids)
+    be = byte_encoder()
+    return SmokeTok({be[b]: b for b in range(256)},
+                    {"<|im_start|>": 151644, "<|im_end|>": 151645,
+                     "<|vision_start|>": 151652, "<|vision_end|>": 151653},
+                    preset="qwen2", bos_id=None, eos_id=151645)
+
+
+def _q8_operands(torch, gen, b, kvh, s):
+    kq, vq = (torch.randint(-127, 128, (b, kvh, s, 128), generator=gen, device="cuda",
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((b, kvh, s), generator=gen, device="cuda") * 0.02 + 0.002
+              for _ in range(2))
+    return kq, ks, vq, vs
+
+
+def phase10(torch):
+    log("== phase 10: decode_attention, decode_attention_q8, decode_attention_batch_q8 "
+        "vs plain on the card")
+    from clearcam_tpu_torch.ops import decode_attention as dec
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    h, kvh, d = 16, 8, 128
+    out = {"err": {}, "ms": {}}
+
+    def check(name, got, ref, tol):
+        """Raise past ``tol``; the JSON's error is the f32-q cases' max."""
+        err = (got.float() - ref.float()).abs().max().item()
+        if got.dtype == torch.float32:
+            out["err"][name] = max(out["err"].get(name, 0.0), err)
+        if not (torch.isfinite(got).all() and err < tol):
+            raise AssertionError(f"{name}: max|d| {err} >= {tol}")
+        return err
+
+    for s in (2048, 8192):
+        q = torch.randn((8, h, d), generator=gen, device="cuda")
+        kf, vf = (torch.randn((8, kvh, s, d), generator=gen, device="cuda") for _ in range(2))
+        kq, ks, vq, vs = _q8_operands(torch, gen, 8, kvh, s)
+        positions = [p for p in (0, 256, 4096, s - 1) if p < s]
+        for p in positions:
+            for cname, cdt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                for qn, qq in (("float32", q[0]), ("bfloat16", q[0].bfloat16())):
+                    if cname == "float32" and qn == "bfloat16":
+                        continue
+                    k1, v1 = kf[0].to(cdt), vf[0].to(cdt)
+                    err = check("decode_attention", dec.decode_attention(qq, k1, v1, p),
+                                dec.decode_attention_reference(qq, k1, v1, p), DEC_TOL[qn])
+                    if qn == "float32":
+                        err32 = err
+            err8 = check("decode_attention_q8",
+                         dec.decode_attention_q8(q[0], kq[0], ks[0], vq[0], vs[0], p),
+                         dec.decode_attention_q8_reference(q[0], kq[0], ks[0], vq[0], vs[0], p),
+                         DEC_Q8_TOL)
+            log(f"B=1 S={s} pos {p}: decode_attention f32 q max|d| {err32:.2e} (bound "
+                f"{DEC_TOL['float32']}), bf16 q and cache {err:.2e} (bound "
+                f"{DEC_TOL['bfloat16']}); decode_attention_q8 max|d| {err8:.2e} (bound "
+                f"{DEC_Q8_TOL})")
+        spread = torch.tensor([0, 17, 255, 256, 1000, 2047, s - 1, 600], dtype=torch.int32,
+                              device="cuda")
+        pads = torch.tensor([0, 5, 200, 0, 999, 1, s // 2, 700], dtype=torch.int32,
+                            device="cuda")        # the last row has no live column
+        for case, (pos, pd) in {"spread": (spread, torch.zeros_like(spread)),
+                                "pads": (spread, pads),
+                                "pos256": (torch.full_like(spread, 256), None)}.items():
+            for qn, qq in (("float32", q), ("bfloat16", q.bfloat16())):
+                got = dec.decode_attention_batch_q8(qq, kq, ks, vq, vs, pos, pd)
+                err = check("decode_attention_batch_q8", got,
+                            dec.decode_attention_batch_q8_reference(qq, kq, ks, vq, vs, pos, pd),
+                            DEC_Q8_TOL if qn == "float32" else DEC_TOL[qn])
+                if case == "pads" and got[7].any():
+                    raise AssertionError("the row with no live column is not zeros")
+            log(f"B=8 S={s} int8 cache, {case}: max|d| {err:.2e} (bf16 q, bound "
+                f"{DEC_TOL['bfloat16']}); f32 q within {DEC_Q8_TOL}")
+        del kf, vf, kq, ks, vq, vs
+    torch.cuda.empty_cache()
+
+    # times at the summary path's shapes, as CUDA-graph replays over enough
+    # cache copies to pass the 50 MB L2: one stream at the cooperative
+    # summary's depth (two images, a prompt and 60 tokens: ~1100 positions)
+    # over a bf16 or int8 cache of 2048; generate_batch's 8 rows at ~256
+    s, p1, n = 2048, 1100, 16
+    q = torch.randn((h, d), generator=gen, device="cuda")
+    live1 = (p1 + 1) * kvh
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kv = [tuple(torch.randn((kvh, s, d), generator=gen, device="cuda").bfloat16()
+                for _ in range(2)) for _ in range(n)]
+    kt, pt = _pair_ms([lambda c=c: dec.decode_attention_reference(q, *c, p1) for c in kv],
+                      [lambda c=c: dec.decode_attention(q, *c, p1) for c in kv])
+    mask = (torch.arange(s, device="cuda") <= p1)[None, None, None]
+    qq = q.bfloat16()[None, :, None]
+    lib = _yardstick(lambda: graph_ms([lambda c=c: sdpa(qq, c[0][None], c[1][None],
+                                                        attn_mask=mask, enable_gqa=True)
+                                       for c in kv]))
+    nb = live1 * d * 2 * 2 + 2 * q.numel() * 4
+    out["ms"]["decode_attention"] = (kt, pt, lib) + bound(nb, 4 * live1 * (h // kvh) * d,
+                                                          PEAK["float32"])
+    del kv
+    q8 = [tuple(t[0] for t in _q8_operands(torch, gen, 1, kvh, s)) for _ in range(2 * n)]
+    kt, pt = _pair_ms(
+        [lambda c=c: dec.decode_attention_q8_reference(q, *c, p1) for c in q8],
+        [lambda c=c: dec.decode_attention_q8(q, *c, p1) for c in q8])
+    nb = live1 * (d * 2 + 8) + 2 * q.numel() * 4
+    out["ms"]["decode_attention_q8"] = (kt, pt, None) + bound(
+        nb, 4 * live1 * (h // kvh) * d, PEAK["float32"])
+    del q8
+    qb = torch.randn((8, h, d), generator=gen, device="cuda")
+    pos = torch.full((8,), 256, dtype=torch.int32, device="cuda")
+    qb8 = [_q8_operands(torch, gen, 8, kvh, s) for _ in range(4)]
+    kt, pt = _pair_ms(
+        [lambda c=c: dec.decode_attention_batch_q8_reference(qb, *c, pos) for c in qb8],
+        [lambda c=c: dec.decode_attention_batch_q8(qb, *c, pos) for c in qb8])
+    liveb = 8 * 257 * kvh
+    nb = liveb * (d * 2 + 8) + 2 * qb.numel() * 4
+    out["ms"]["decode_attention_batch_q8"] = (kt, pt, None) + bound(
+        nb, 4 * liveb * (h // kvh) * d, PEAK["float32"])
+    del qb8
+    for name, (kt, pt, lib, bms, by) in out["ms"].items():
+        live = liveb if name.startswith("decode_attention_batch") else live1
+        per = d * 2 * (2 if name == "decode_attention" else 1) + (0 if name == "decode_attention" else 8)
+        log(f"{name} at the summary path's shape: kernel {kt:.4f} ms = "
+            f"{live * per / kt / 1e6:.0f} GB/s of live K/V ({live * per / kt / 1e9 / HBM * 1e12:.0%}"
+            f" of HBM), plain {pt:.4f} ms, one PyTorch call "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bms:.4f} ms ({by})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase11(torch):
+    log("== phase 11: Qwen3-VL-2B widths, 2 language + 2 vision blocks, card vs CPU (f32)")
+    from clearcam_tpu_torch.models import llm
+    from clearcam_tpu_torch.models import qwen3vl as qvl
+    from clearcam_tpu_torch.ops import decode_attention as dec
+    from clearcam_tpu_torch.ops.vit_attention import mha_flash
+    t0 = time.time()
+    cfg = qvl.qwen3vl_2b_cfg(2, 2048)
+    p_cpu = llm.init_params(cfg, seed=0)
+    p_gpu = {k: v.cuda() for k, v in p_cpu.items()}
+    vkv, vp = qvl.vision_2b_random(blocks=2, deepstack=(1,))
+    towers = {"cpu": qvl.VisionTower(vkv, vp, device="cpu"),
+              "cuda": qvl.VisionTower(vkv, vp, device="cuda")}
+    log(f"init (numpy draws, upload): {time.time() - t0:.1f} s")
+    img = np.random.default_rng(11).integers(0, 256, (*SUMMARY_RES, 3), np.uint8)
+    before = mha_flash.launches
+    e_gpu, d_gpu = towers["cuda"](torch.from_numpy(img).cuda().float())
+    if mha_flash.launches - before != 2:
+        raise AssertionError(f"vision tower: {mha_flash.launches - before} vit_attention "
+                             "launches, not 2")
+    e_cpu, d_cpu = towers["cpu"](torch.from_numpy(img).float())
+    if tuple(e_gpu.shape) != (510, 2048) or len(d_gpu) != 1:
+        raise AssertionError(f"vision tower: embeds {tuple(e_gpu.shape)}, "
+                             f"{len(d_gpu)} deepstack features")
+    _tower_check("Qwen3-VL vision embeds [510,2048] (2 blocks, kernel)",
+                 e_gpu.cpu().numpy(), e_cpu.numpy())
+    _tower_check("deepstack feature of vision block 1", d_gpu[0].cpu().numpy(),
+                 d_cpu[0].numpy())
+    tok = _smoke_tok()
+    prompt = tok.encode("<|im_start|>user\nWhat has been detected on my CCTV camera? "
+                        "Write in one short sentence<|im_end|>\n<|im_start|>assistant\n")
+    out = {}
+    for route, q8, pallas in (("plain", False, False), ("kernel", False, True),
+                              ("int8 KV + kernel", True, True)):
+        runs = {}
+        for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+            lang = llm.Transformer(p, cfg, kv_quant=q8, use_pallas_decode=pallas)
+            vlm = qvl.Qwen3VL(res=SUMMARY_RES, lang=lang, tok=tok, vision=towers[dev])
+            counts = (dec.decode_attention.launches, dec.decode_attention_q8.launches)
+            vlm.feed_image(img, reset=True)
+            toks = list(lang.generate(prompt, temperature=0.0, cache_offset=vlm.start_pos,
+                                      max_new=8))
+            impl = llm.decode_attn_impl(False, q8) if pallas else None
+            with torch.inference_mode():
+                hidden, _ = llm.forward(
+                    p, cfg, lang.state, torch.tensor([[toks[-1]]], device=dev),
+                    vlm.start_pos + len(prompt) + 7, vlm._freqs, decode_attn=impl)
+                logits = llm.logits_at(p, cfg, hidden, 0).float().cpu().numpy()
+            launched = (dec.decode_attention.launches - counts[0],
+                        dec.decode_attention_q8.launches - counts[1])
+            runs[dev] = (toks, logits, launched)
+        err = float(np.abs(runs["cuda"][1] - runs["cpu"][1]).max())
+        # the card's decode steps: 7 in generate and the one above, each
+        # through every block's decode kernel
+        n = 8 * cfg.num_blocks
+        want = (0, 0) if not pallas else ((0, n) if q8 else (n, 0))
+        log(f"image prefill + 8 greedy tokens, {route}: card {runs['cuda'][0]}, CPU "
+            f"{runs['cpu'][0]}; last step's logits max|d| {err:.2e} (bound "
+            f"{VL_LOGIT_TOL[route]}); card launches (decode_attention, _q8) "
+            f"{runs['cuda'][2]}")
+        if runs["cuda"][0] != runs["cpu"][0] or not err < VL_LOGIT_TOL[route] \
+                or runs["cuda"][2] != want or runs["cpu"][2] != (0, 0):
+            raise AssertionError(f"Qwen3-VL 2-block {route}: card vs CPU off")
+        out[route] = err
+    del p_cpu, p_gpu, towers
+    torch.cuda.empty_cache()
+    return out
+
+
+class KeyColourDetector:
+    """Finds the synthetic source's (40,180,240) box by colour and gives one
+    class-0 detection per frame: a stand-in detector that makes the NVR
+    raise its alert without a trained model."""
+
+    def detect_many(self, frames):
+        out = []
+        for f in frames:
+            mask = np.abs(f.astype(np.int16) - np.array([40, 180, 240], np.int16)).sum(-1) < 30
+            ys, xs = np.where(mask)
+            out.append(np.zeros((0, 6), np.float32) if len(xs) == 0 else np.array(
+                [[xs.min(), ys.min(), xs.max() + 1, ys.max() + 1, 0.9, 0.0]], np.float32))
+        return out
+
+
+def _nvr_summaries(qwen, n_cams: int, slots: int, seconds: float = 300.0) -> dict:
+    """The port's NVR in-process, ``n_cams`` synthetic cameras, the
+    key-colour detector: run ticks until every camera's alert has an "AI
+    Summary" notification. -> {camera: (seconds from its alert to its
+    summary, summary text)}."""
+    import torch
+
+    from clearcam_tpu_torch.runtime.nvr import NVR
+    from clearcam_tpu_torch.runtime.settings import GlobalSettings
+    from clearcam_tpu_torch.utils.db import KVStore
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_nvr_"))
+    db = KVStore(tmp / "kv.db")
+    for i in range(n_cams):
+        db.run_put("links", f"cam{i}", "synthetic://640x360")
+    notes = []
+    nvr = NVR(db, tmp / "data", GlobalSettings(userID="smoke", key="k", use_qwen=True),
+              detector=KeyColourDetector(), qwen=qwen,
+              notifier=lambda *a: notes.append((time.perf_counter(), a)),
+              uploader=lambda **kw: True, summary_slots=slots, use_native_ingest=False)
+    try:
+        for i in range(n_cams):
+            nvr.init_cam(f"cam{i}", "synthetic://640x360")
+        deadline = time.time() + seconds
+
+        def by_kind(kind):
+            found = {}
+            for t, (_, title, body) in notes:
+                if title.startswith(kind):
+                    cam = title[title.index("(") + 1:title.index(")")]
+                    found.setdefault(cam, (t, body))
+            return found
+        while len(by_kind("AI Summary")) < n_cams:
+            if time.time() > deadline:
+                raise AssertionError(f"summaries within {seconds} s: "
+                                     f"{[n[1][1] for n in notes]}")
+            nvr.tick()
+        torch.cuda.synchronize()
+    finally:
+        nvr.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    alerts, sums = by_kind("Event Detected"), by_kind("AI Summary")
+    return {cam: (sums[cam][0] - alerts[cam][0], sums[cam][1]) for cam in sums}
+
+
+def phase12(torch):
+    log("== phase 12: Qwen3-VL-2B alert summaries at full depth (28 + 24 blocks) in the "
+        "port's NVR")
+    from clearcam_tpu_torch.models import llm
+    from clearcam_tpu_torch.models import qwen3vl as qvl
+    from clearcam_tpu_torch.ops import decode_attention as dec
+    from clearcam_tpu_torch.ops import quant_matmul as qm
+    from clearcam_tpu_torch.ops.vit_attention import mha_flash
+    t0 = time.time()
+    cfg = qvl.qwen3vl_2b_cfg(28, 2048)
+    params = llm.quantize_params_int8(
+        llm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda"))
+    torch.cuda.empty_cache()
+    tower = qvl.VisionTower(*qvl.vision_2b_random(), device="cuda")
+    log(f"28-block language model (int8 weights) and 24-block vision tower (f32), "
+        f"random from seed 0: {time.time() - t0:.1f} s")
+    tok = _smoke_tok()
+    langs = {"bf16 KV": llm.Transformer(params, cfg, state_dtype=torch.bfloat16,
+                                        use_pallas_decode=True),
+             "int8 KV": llm.Transformer(params, cfg, kv_quant=True, use_pallas_decode=True)}
+    qwen = qvl.Qwen3VL(res=SUMMARY_RES, lang=langs["int8 KV"], tok=tok, vision=tower)
+    qwen.prewarm()
+    counters = {"decode_attention": dec.decode_attention,
+                "decode_attention_q8": dec.decode_attention_q8,
+                "decode_attention_batch": dec.decode_attention_batch,
+                "decode_attention_batch_q8": dec.decode_attention_batch_q8,
+                "quant_matmul": qm.quant_linear, "vit_attention": mha_flash}
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        r = fn()
+        torch.cuda.synchronize()
+        return r, {k: c.launches for k, c in counters.items()}
+    out = {"launches": {}, "summary_s": {}}
+    for name in ("bf16 KV", "int8 KV"):
+        qwen.lang = langs[name]
+        res, launches = counted(lambda: _nvr_summaries(qwen, 1, 0))
+        (sec, text), = res.values()
+        log(f"cooperative summary, {name}, int8 weights: {sec:.2f} s from the alert to "
+            f"the notification; text {text!r}; launches {launches}")
+        if not text:
+            raise AssertionError(f"cooperative summary {name}: empty text")
+        out["summary_s"][f"cooperative, {name}"] = sec
+        out["launches"][name] = launches
+    qwen.lang = langs["bf16 KV"]
+    res, launches = counted(lambda: _nvr_summaries(qwen, 4, 4))
+    secs = sorted(v[0] for v in res.values())
+    log(f"4 concurrent alerts through VLMServingEngine (4 slots, bf16 KV): seconds from "
+        f"each alert to its notification {[round(x, 2) for x in secs]}; texts "
+        f"{[v[1][:16] for v in res.values()]}; launches {launches}")
+    if len(res) != 4 or not all(v[1] for v in res.values()):
+        raise AssertionError(f"engine summaries: {res}")
+    out["summary_s"]["engine, 4 alerts, slowest"] = secs[-1]
+    out["launches"]["engine"] = launches
+    prompts = [list(r) for r in np.random.default_rng(12).integers(1, 150000, (8, 200))]
+    kw = dict(kv_quant=True, use_pallas_decode=True)
+    llm.generate_batch(params, cfg, [p[:40] for p in prompts], max_new=2, **kw)   # warm up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    llm.generate_batch(params, cfg, prompts, max_new=1, **kw)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rows, launches = counted(lambda: llm.generate_batch(params, cfg, prompts, max_new=48, **kw))
+    t_all = time.perf_counter() - t1
+    tps = 8 * 47 / (t_all - t_prefill)
+    log(f"generate_batch B=8, 200-token prompts, 48 new, int8 weights, int8 KV + kernel: "
+        f"{t_all:.2f} s ({t_prefill:.2f} s prefill and first token), decode {tps:.1f} "
+        f"tokens/s; launches {launches}")
+    if not all(len(r) == 48 for r in rows):
+        raise AssertionError("generate_batch: a row did not give 48 tokens")
+    out["launches"]["generate_batch"] = launches
+    out["generate_batch_tps"] = tps
+    need = {"bf16 KV": ("decode_attention", "quant_matmul", "vit_attention"),
+            "int8 KV": ("decode_attention_q8", "quant_matmul", "vit_attention"),
+            "engine": ("decode_attention_batch", "quant_matmul", "vit_attention"),
+            "generate_batch": ("decode_attention_batch_q8", "quant_matmul")}
+    for run, names in need.items():
+        for n in names:
+            if out["launches"][run][n] < 1:
+                raise AssertionError(f"{run}: the {n} kernel was never launched")
+    del langs, qwen, tower, params
+    torch.cuda.empty_cache()
+    return out
+
+
+
 def _post_json(url, body, timeout=300.0):
     return json.loads(_post(url, json.dumps(body).encode(), timeout))
 
@@ -1096,56 +1559,81 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     build_s = max_err = times = fps = launches = attn_err = attn_times = clip_fps = None
-    kern = llm_errs = llm_tps = int4_launches = served = None
+    kern = llm_errs = llm_tps = int4_launches = served = k10 = vl_errs = vlm = None
+    phase_s = {}
+
+    def run(n, fn, *a):
+        t = time.time()
+        r = fn(*a)
+        phase_s[n] = round(time.time() - t, 1)
+        return r
     if 0 in phases:
-        phase0(torch)
+        run(0, phase0, torch)
     if 1 in phases:
-        build_s = phase1()
+        build_s = run(1, phase1)
     if 2 in phases:
-        max_err, times = phase2(torch)
+        max_err, times = run(2, phase2, torch)
     if 3 in phases:
-        fps = phase3(torch)
+        fps = run(3, phase3, torch)
     if 4 in phases:
-        launches = phase4()
+        launches = run(4, phase4)
     if 5 in phases:
-        attn_err, attn_times = phase5(torch)
+        attn_err, attn_times = run(5, phase5, torch)
     if 6 in phases:
-        clip_fps = phase6(torch)
+        clip_fps = run(6, phase6, torch)
     if 7 in phases:
-        kern = phase7(torch)
+        kern = run(7, phase7, torch)
     if 8 in phases:
-        llm_errs, llm_tps, int4_launches = phase8(torch)
+        llm_errs, llm_tps, int4_launches = run(8, phase8, torch)
     if 9 in phases:
-        served, _ = phase9()
-    log(f"== done in {time.time() - t0:.1f} s; build {build_s} s; detect fps {fps}; "
-        f"image tower img/s (kernel, plain) {clip_fps}; 28-block int4 engine decode "
-        f"tokens/s (kernel: True, plain: False) {llm_tps}")
+        served, _ = run(9, phase9)
+    if 10 in phases:
+        k10 = run(10, phase10, torch)
+    if 11 in phases:
+        vl_errs = run(11, phase11, torch)
+    if 12 in phases:
+        vlm = run(12, phase12, torch)
+    log(f"== done in {time.time() - t0:.1f} s (phases {phase_s}); build {build_s} s; detect "
+        f"fps {fps}; image tower img/s (kernel, plain) {clip_fps}; 28-block int4 engine "
+        f"decode tokens/s (kernel: True, plain: False) {llm_tps}; summaries "
+        f"{None if vlm is None else vlm['summary_s']}")
     if phases != set(ALL_PHASES):
         return 0
     # the attention row: f32, the CLIP tower's dtype; times at one CROP_BATCH.
     # The LLM rows: times at the served decode shapes (8 slots, f32 residual
     # stream): x[8,2048] . W[6144,2048] for the quant kernels, the bf16 cache
-    # with spread positions for decode attention
-    qm_int8 = kern["qm_ms"][(8,) + QM_JSON_SHAPE]
-    qm_int4 = kern["qm_ms"][(4,) + QM_JSON_SHAPE]
-    dec_t = kern["dec_ms"][("spread", "bfloat16")]
+    # with spread positions for decode attention; the summary slice's rows
+    # at phase 10's summary shapes, launches from phase 12's runs
+    def row(name, source, replaces, n, err, t):
+        ms, plain, lib, bms, by = t
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bms, "bound_by": by, "library_ms": lib}
+    st = times[8]
+    at = attn_times[(16, "float32")]
+    vl = vlm["launches"]
     print(json.dumps({"kernels": [
-        {"name": "stem", "route": "cuda", "source": STEM_SOURCE,
-         "replaces": STEM_REPLACES, "launches": launches["stem"],
-         "max_abs_err": max_err, "ms": times[8][0], "plain_ms": times[8][1]},
-        {"name": "vit_attention", "route": "cuda", "source": ATTN_SOURCE,
-         "replaces": ATTN_REPLACES, "launches": launches["vit_attention"],
-         "max_abs_err": attn_err["float32"], "ms": attn_times[(16, "float32")][0],
-         "plain_ms": attn_times[(16, "float32")][1]},
-        {"name": "quant_matmul_int8", "route": "cuda", "source": QM_SOURCE,
-         "replaces": QM_REPLACES[8], "launches": served["quant_matmul"],
-         "max_abs_err": kern["qm_err"][8], "ms": qm_int8[0], "plain_ms": qm_int8[1]},
-        {"name": "quant_matmul_int4", "route": "cuda", "source": QM_SOURCE,
-         "replaces": QM_REPLACES[4], "launches": int4_launches["int4"],
-         "max_abs_err": kern["qm_err"][4], "ms": qm_int4[0], "plain_ms": qm_int4[1]},
-        {"name": "decode_attention_batch", "route": "cuda", "source": DEC_SOURCE,
-         "replaces": DEC_REPLACES, "launches": served["decode_attention"],
-         "max_abs_err": kern["dec_err"], "ms": dec_t[0], "plain_ms": dec_t[1]}]}))
+        row("stem", STEM_SOURCE, STEM_REPLACES, launches["stem"], max_err,
+            (st[0], st[1], None, st[2], st[3])),
+        row("vit_attention", ATTN_SOURCE, ATTN_REPLACES, launches["vit_attention"],
+            attn_err["float32"], (at[0], at[1], at[2], at[3], at[4])),
+        row("quant_matmul_int8", QM_SOURCE, QM_REPLACES[8], served["quant_matmul"],
+            kern["qm_err"][8], kern["qm_ms"][(8,) + QM_JSON_SHAPE]),
+        row("quant_matmul_int4", QM_SOURCE, QM_REPLACES[4], int4_launches["int4"],
+            kern["qm_err"][4], kern["qm_ms"][(4,) + QM_JSON_SHAPE]),
+        row("decode_attention_batch", DEC_SOURCE, DEC_REPLACES,
+            served["decode_attention"], kern["dec_err"],
+            kern["dec_ms"][("spread", "bfloat16")]),
+        row("decode_attention", DEC_SOURCE, DEC1_REPLACES,
+            vl["bf16 KV"]["decode_attention"], k10["err"]["decode_attention"],
+            k10["ms"]["decode_attention"]),
+        row("decode_attention_q8", DEC_SOURCE, DEC1Q8_REPLACES,
+            vl["int8 KV"]["decode_attention_q8"], k10["err"]["decode_attention_q8"],
+            k10["ms"]["decode_attention_q8"]),
+        row("decode_attention_batch_q8", DEC_SOURCE, DECBQ8_REPLACES,
+            vl["generate_batch"]["decode_attention_batch_q8"],
+            k10["err"]["decode_attention_batch_q8"], k10["ms"]["decode_attention_batch_q8"]),
+    ]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

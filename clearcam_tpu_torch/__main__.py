@@ -3,11 +3,12 @@
 
 The same CLI and wiring as ``python -m clearcam_tpu``: persisted settings,
 the detector, the object finder (CLIP object search and face search), the
-HTTP API + web UI, the storage manager, the daily restart and the NVR loop.
-The NVR, server, storage and restart helpers are the JAX package's jax-free
-host code, reused unchanged; the detector and the object finder's towers
-are the port's. Qwen summaries are not ported yet: settings that enable
-them are reported and ignored.
+Qwen3-VL alert summaries (``use_qwen`` with a ``key``; the GGUF pair
+``Qwen3VL-{2,4,8}B-Instruct-F16.gguf`` and its mmproj in ``--weights``),
+the HTTP API + web UI (POST /generate shares the summary engine's slots
+when ``CLEARCAM_SUMMARY_SLOTS`` > 0), the storage manager, the daily restart
+and the NVR loop. The host code (NVR, server, storage) is the port's copy
+of the JAX package's; the models run on ``--device``.
 
 ``--device`` defaults to ``cuda`` and fails when no GPU is usable; the CPU
 runs only with ``--device cpu``. ``CLEARCAM_DTYPE=f32|bf16`` picks the
@@ -20,19 +21,47 @@ from __future__ import annotations
 
 import argparse
 import os
+import socket
 import threading
+import time
+from datetime import datetime
 from pathlib import Path
 
-from clearcam_tpu.__main__ import daily_restart, lan_ip
 
-NOT_PORTED = (("use_qwen", "Qwen summaries"),)
+def lan_ip() -> str:
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        s.connect(("8.8.8.8", 80))
+        return s.getsockname()[0]
+    except Exception:
+        return "127.0.0.1"
+    finally:
+        s.close()
 
 
-def report_not_ported(settings) -> None:
-    for attr, what in NOT_PORTED:
-        if getattr(settings, attr, False):
-            print(f"{what} is not ported to clearcam_tpu_torch yet: "
-                  f"{attr}=True is ignored")
+def restart_all_cams(nvr) -> None:
+    """Re-open every stream so recordings roll into a new day folder."""
+    for name in list(nvr.cams):
+        cam = nvr.cams[name]
+        src = cam.src
+        nvr.remove_cam(name)
+        try:
+            nvr.init_cam(name, src)
+        except Exception as e:  # noqa: BLE001
+            print(f"daily restart {name}: {e}")
+
+
+def daily_restart(nvr, at=(0, 0)):
+    """Re-open every stream at midnight so recordings roll into a new day
+    folder (reference schedule_daily_restart, clearcam.py:1162-1176)."""
+    while True:
+        now = datetime.now()
+        target = now.replace(hour=at[0], minute=at[1], second=0, microsecond=0)
+        delta = (target - now).total_seconds()
+        if delta <= 0:
+            delta += 24 * 3600
+        time.sleep(delta)
+        restart_all_cams(nvr)
 
 
 def build_detector(settings, weights_dir: Path, device: str):
@@ -44,7 +73,7 @@ def build_detector(settings, weights_dir: Path, device: str):
     path = weights_dir / f"yolov9-{settings.model_size}.safetensors"
     params = None
     if path.exists():
-        from clearcam_tpu.io import safetensors as st
+        from .io import safetensors as st
         params = yolov9.convert_state_dict(st.load(path))
         print(f"loaded {path}")
     else:
@@ -92,22 +121,20 @@ def main(argv=None):
                          "cuda (default, fails without a GPU), cuda:N, or cpu")
     args = ap.parse_args(argv)
 
-    from clearcam_tpu.runtime.nvr import NVR
-    from clearcam_tpu.runtime.settings import GlobalSettings
-    from clearcam_tpu.runtime.storage import StorageManager
-    from clearcam_tpu.server.http import AppContext, serve
-    from clearcam_tpu.utils.db import KVStore
-
     from .models.objects import ObjectFinder
     from .ops.stem import stem
     from .ops.vit_attention import mha_flash
+    from .runtime.nvr import NVR
+    from .runtime.settings import GlobalSettings
+    from .runtime.storage import StorageManager
+    from .server.http import AppContext, serve
+    from .utils.db import KVStore
 
     db = KVStore(args.data / "cc_cache.db")
     stored = db.run_get("global_settings", "all")
     settings = stored if isinstance(stored, GlobalSettings) else GlobalSettings()
     if not isinstance(stored, GlobalSettings):
         db.run_put("global_settings", "all", settings)
-    report_not_ported(settings)
 
     detector = None if args.no_detector else build_detector(
         settings, args.weights, args.device)
@@ -118,8 +145,25 @@ def main(argv=None):
                                  weights_dir=args.weights, device=args.device)
     apply_finder_settings(object_finder, settings)
 
+    def build_qwen(s):
+        """Qwen3-VL at the NVR's frame size from the GGUF pair in
+        --weights; without it, "qwen unavailable" and no summaries."""
+        try:
+            from .models.qwen3vl import Qwen3VL
+            q = Qwen3VL(size=f"{s.qwen_size}B", res=(544, 960),
+                        weights_dir=args.weights, device=args.device)
+            print("prewarming Qwen", flush=True)
+            q.prewarm()
+            print("DONE", flush=True)
+            return q
+        except Exception as e:  # noqa: BLE001
+            print(f"qwen unavailable: {e}", flush=True)
+            return None
+
+    qwen = build_qwen(settings) if settings.use_qwen and settings.key else None
+
     nvr = NVR(db, args.data, settings, detector=detector,
-              object_finder=object_finder, qwen=None)
+              object_finder=object_finder, qwen=qwen)
     storage = StorageManager(args.data / "cameras")
     nvr.storage = storage
 
@@ -138,22 +182,35 @@ def main(argv=None):
         return detector.detect_many([im[..., ::-1] for im in imgs_rgb])
 
     def on_settings_change(new):
-        """/edit_settings: CLIP and face toggles, and the detector rebuilt on
-        a size/res change."""
+        """/edit_settings: CLIP and face toggles, the detector rebuilt on a
+        size/res change, and the Qwen summary model on/off or size change."""
         nonlocal detector
+        old = nvr.settings
         nvr.settings = new
-        report_not_ported(new)
         apply_finder_settings(object_finder, new)
         if detector is not None and (new.model_size != detector.size
                                      or int(new.model_res) != detector.res):
             detector = build_detector(new, args.weights, args.device)
             nvr.detector = detector
+        want_qwen = new.use_qwen and new.key
+        if want_qwen and (nvr.qwen is None or new.qwen_size != old.qwen_size):
+            nvr.qwen = build_qwen(new)
+        elif not want_qwen:
+            nvr.qwen = None
+
+    def make_gen():
+        """POST /generate backend: text requests share the Qwen summary
+        engine's slots (needs CLEARCAM_SUMMARY_SLOTS>0 and use_qwen)."""
+        if nvr.qwen is None or nvr.summary_slots <= 0:
+            return None
+        from .serving import TextServing
+        return TextServing(nvr.summary_engine(), nvr.qwen.tok)
 
     ctx = AppContext(db, args.data, nvr=nvr, object_finder=object_finder,
                      settings=settings, offload_detect=offload_detect,
                      offload_detect_many=offload_detect_many,
                      on_settings_change=on_settings_change,
-                     api_token=args.api_token)
+                     api_token=args.api_token, gen=make_gen)
     storage.max_gb = ctx.max_gb
     storage.start()
     server = serve(ctx, port=args.port)

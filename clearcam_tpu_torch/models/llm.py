@@ -9,7 +9,7 @@ int4 weight-only quantized linears (``ops.quant_matmul``); the batched
 decode-attention kernel as the decode step's attention
 (``use_pallas_decode``, ``ops.decode_attention``); penalties, logit bias,
 top-k/top-p/min-p, grammar masks and Gumbel-max sampling; echo logprob
-scoring; GGUF loading through the shared ``clearcam_tpu.io.gguf``. MoE,
+scoring; GGUF loading through the port's copy of ``io.gguf``. MoE,
 MLA and the GatedDeltaNet hybrid raise ``NotImplementedError`` (ROADMAP
 queue 1 item 9).
 
@@ -123,6 +123,17 @@ def precompute_freqs(dim: int, end: int, theta: float) -> np.ndarray:
 def freqs_for(cfg: TransformerConfig, device) -> torch.Tensor:
     return torch.from_numpy(precompute_freqs(cfg.rope_dim, cfg.max_context,
                                              cfg.rope_theta)).to(device)
+
+
+def _freqs_per_device(cfg: TransformerConfig):
+    """freqs_for(cfg, device), built once per device a graph runs on."""
+    cache: dict = {}
+
+    def get(dev):
+        if dev not in cache:
+            cache[dev] = freqs_for(cfg, dev)
+        return cache[dev]
+    return get
 
 
 def apply_rope(x, freqs):
@@ -272,15 +283,19 @@ def _attention_block(p, pre, cfg: TransformerConfig, x, state, start_pos, freqs,
         vq, vs = _kv_quantize(v)
         for name, val in (("k", kq), ("v", vq), ("k_s", ks), ("v_s", vs)):
             _cache_update(state[name], val, start_pos, write_mask)
-        ck_a = (state["k"].float() * state["k_s"][..., None]).to(torch.bfloat16)
-        cv_a = (state["v"].float() * state["v_s"][..., None]).to(torch.bfloat16)
     else:
         _cache_update(state["k"], k, start_pos, write_mask)
         _cache_update(state["v"], v, start_pos, write_mask)
-        ck_a, cv_a = state["k"], state["v"]
     if decode_attn is not None and t == 1:
         out = decode_attn(q, state, start_pos, pad_start)
     else:
+        if "k_s" in state:
+            # the plain route's dequantized bf16 copy of the whole cache
+            # (the decode kernels read the int8 bytes and their scales)
+            ck_a = (state["k"].float() * state["k_s"][..., None]).to(torch.bfloat16)
+            cv_a = (state["v"].float() * state["v_s"][..., None]).to(torch.bfloat16)
+        else:
+            ck_a, cv_a = state["k"], state["v"]
         # grouped-query products, no repeat of the cache
         rep = nh // nkv
         qg = (q.float() * cfg.head_dim ** -0.5).reshape(b, nkv, rep * t, hd) \
@@ -321,14 +336,26 @@ def init_state(cfg: TransformerConfig, batch: int = 1, dtype=torch.float32,
     return state
 
 
+def reset_recurrent(cfg: TransformerConfig, state: list) -> list:
+    """Zero the recurrent (SSM) states after a prefix-cache divergence: the
+    port runs attention stacks only, whose caches need no reset."""
+    check_supported(cfg)
+    return state
+
+
 def forward(p: dict, cfg: TransformerConfig, state: list, tokens, start_pos,
-            freqs, decode_attn=None, pad_start=None, write_mask=None):
+            freqs, hidden_override=None, deepstack=None, decode_attn=None,
+            pad_start=None, write_mask=None):
     """Embeds -> blocks -> final hidden states [B,T,D] (f32), and ``state``
     written in place. start_pos: an int, or a [B] tensor of per-row
     positions; write_mask [B] keeps masked rows' caches untouched (batched
-    multi-slot prefill)."""
+    multi-slot prefill). hidden_override [B,T,D] replaces the token
+    embeddings (the VLM image splice); deepstack {block index: [B,T,D]} is
+    added to the residual after that block (qwen3vl's deepstack features,
+    as the JAX package's forward adds them)."""
     check_supported(cfg)
-    x = F.embedding(p["token_embd.weight"], tokens).float()
+    x = hidden_override if hidden_override is not None else \
+        F.embedding(p["token_embd.weight"], tokens).float()
     for i in range(cfg.num_blocks):
         pre = f"blk.{i}"
         h = F.rms_norm(x, p[f"{pre}.attn_norm.weight"], cfg.norm_eps)
@@ -338,6 +365,8 @@ def forward(p: dict, cfg: TransformerConfig, state: list, tokens, start_pos,
         x = x + attn_out
         x = x + _ffn(p, pre, cfg, F.rms_norm(x, p[f"{pre}.ffn_norm.weight"],
                                              cfg.norm_eps))
+        if deepstack is not None and i in deepstack:
+            x = x + deepstack[i]
     return x, state
 
 
@@ -588,12 +617,7 @@ def make_serving_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
     check_supported(cfg)
     from ..ops.decode_attention import decode_attention_batch
     kk = LP_K
-    freqs_cache: dict = {}
-
-    def _freqs(dev):
-        if dev not in freqs_cache:
-            freqs_cache[dev] = freqs_for(cfg, dev)
-        return freqs_cache[dev]
+    _freqs = _freqs_per_device(cfg)
 
     def _con_mask(ctab, cst, extra_live=None):
         crow = ctab[torch.clamp_min(cst, 0).long()]
@@ -611,9 +635,11 @@ def make_serving_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
         def attn_impl(q, st, pos_vec, pads):              # [B,H,1,D] -> [B,H,1,D]
             if "k_s" in st:
                 raise ValueError(
-                    "use_pallas_decode with an int8 KV cache: the batched decode "
-                    "kernel reads bf16/f32 caches, and the int8 form (the JAX "
-                    "package's decode_attention_batch_q8) is not ported yet")
+                    "use_pallas_decode with an int8 KV cache in the serving graphs: "
+                    "the JAX package's graphs run this pair without the cache's "
+                    "scales, so the port's refuse it (serving.engine."
+                    "check_decode_route); generate_batch and Transformer run the "
+                    "int8 decode kernel")
             return decode_attention_batch(q[:, :, 0].contiguous(), st["k"], st["v"],
                                           pos_vec, pads)[:, :, None]
 
@@ -948,10 +974,374 @@ def convert_state_dict(sd: dict, kv: dict, dtype=torch.bfloat16, device="cpu") -
 
 def load_gguf(path, max_context: int | None = None, dtype=torch.bfloat16,
               device="cpu"):
-    """(cfg, params, kv) from a GGUF file, through the shared jax-free
-    ``clearcam_tpu.io.gguf`` reader."""
-    from clearcam_tpu.io import gguf
+    """(cfg, params, kv) from a GGUF file, through the port's GGUF reader
+    (``io.gguf``)."""
+    from ..io import gguf
     kv, sd = gguf.load(path)
     cfg = config_from_gguf(kv, sd, max_context)
     check_supported(cfg)
     return cfg, convert_state_dict(sd, kv, dtype, device), kv
+
+
+# ---------------------------------------------------------------------------
+# single-stream and batched generation
+# ---------------------------------------------------------------------------
+
+def _gumbel_like(logits, gen) -> torch.Tensor:
+    """Gumbel noise of logits' shape from the torch.Generator ``gen``."""
+    return gumbel(torch.rand(logits.shape, generator=gen, device=logits.device))
+
+
+def decode_attn_impl(batched: bool, kv_quant: bool):
+    """The decode step's attention through the port's decode kernels (their
+    plain versions on the CPU): one stream (``decode_attention``,
+    ``decode_attention_q8``, q [1,H,1,D]) or a batch with per-row pads
+    (``decode_attention_batch``, ``decode_attention_batch_q8``)."""
+    from ..ops import decode_attention as dec
+
+    def impl(q, st, start_pos, pads=None):           # [B,H,1,D] -> [B,H,1,D]
+        qq = q[:, :, 0].contiguous()
+        if batched:
+            if kv_quant:
+                out = dec.decode_attention_batch_q8(qq, st["k"], st["k_s"], st["v"],
+                                                    st["v_s"], start_pos, pads)
+            else:
+                out = dec.decode_attention_batch(qq, st["k"], st["v"], start_pos, pads)
+            return out[:, :, None]
+        if kv_quant:
+            out = dec.decode_attention_q8(qq[0], st["k"][0], st["k_s"][0], st["v"][0],
+                                          st["v_s"][0], start_pos)
+        else:
+            out = dec.decode_attention(qq[0], st["k"][0], st["v"][0], start_pos)
+        return out[None, :, None]
+    return impl
+
+
+def make_step_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
+                  kv_quant: bool = False):
+    """-> (prefill, decode), the single-stream steps of ``Transformer``
+    (the JAX package's make_step_fns, llm.py:905-961), taking params
+    explicitly and writing ``state`` in place.
+
+    prefill(params, state, tokens[B,CHUNK], start_pos, n_real, samp, gen)
+        -> (token [B], state)   (logits taken at n_real-1)
+    decode(params, state, token[B,1], start_pos, samp, gen) -> (token, state)
+
+    ``samp`` is a packed pack_samp() row; ``gen`` the torch.Generator the
+    Gumbel noise is drawn from. use_pallas_decode runs the decode step's
+    attention through the single-stream decode kernel (``decode_attention``,
+    or ``decode_attention_q8`` on an int8 cache with kv_quant), whose reads
+    scale with the live context; B = 1."""
+    check_supported(cfg)
+    _freqs = _freqs_per_device(cfg)
+    attn_impl = decode_attn_impl(False, kv_quant) if use_pallas_decode else None
+
+    @torch.inference_mode()
+    def prefill(params, state, tokens, start_pos, n_real, samp, gen):
+        tokens = torch.as_tensor(tokens).to(params["output_norm.weight"].device)
+        hidden, state = forward(params, cfg, state, tokens, int(start_pos),
+                                _freqs(tokens.device))
+        logits = logits_at(params, cfg, hidden, int(n_real) - 1)
+        return sample_filtered(logits, samp, _gumbel_like(logits, gen)), state
+
+    @torch.inference_mode()
+    def decode(params, state, token, start_pos, samp, gen):
+        token = torch.as_tensor(token).to(params["output_norm.weight"].device)
+        hidden, state = forward(params, cfg, state, token, int(start_pos),
+                                _freqs(token.device), decode_attn=attn_impl)
+        logits = logits_at(params, cfg, hidden, 0)
+        return sample_filtered(logits, samp, _gumbel_like(logits, gen)), state
+
+    return prefill, decode
+
+
+def make_verify_fn(cfg: TransformerConfig):
+    """Speculative-decoding verifier (llm.py:1767-1783): feed G candidate
+    tokens in one pass and return the greedy token after each position
+    ([B,G] int32). The cache is written for all G positions; entries past
+    the accepted prefix are junk the caller's position bookkeeping never
+    attends to (the causal mask is position-based) and later steps
+    overwrite."""
+    check_supported(cfg)
+    _freqs = _freqs_per_device(cfg)
+
+    @torch.inference_mode()
+    def verify(params, state, tokens, start_pos):
+        tokens = torch.as_tensor(tokens).to(params["output_norm.weight"].device)
+        hidden, state = forward(params, cfg, state, tokens, int(start_pos),
+                                _freqs(tokens.device))
+        h = F.rms_norm(hidden, params["output_norm.weight"], cfg.norm_eps)
+        logits = F.linear(h, params["output.weight"])              # [B,G,V]
+        return torch.argmax(logits.float(), -1).to(torch.int32), state
+
+    return verify
+
+
+def make_slot_transform(fn):
+    """Lift a B=1 state transform ``fn(state_b, *args) -> state_b`` onto one
+    slot of a batched serving state (the serving engine's custom prefill,
+    llm.py:1747-1764). The port's state is written in place, so the slot is
+    a ``[slot:slot+1]`` view of each cache: ``fn``'s writes land in the
+    batched state and nothing is scattered back. Other slots' bytes stay
+    untouched."""
+    def wrapped(state, slot, *args):
+        slot = int(slot)
+        fn([{k: v[slot:slot + 1] for k, v in s.items()} for s in state], *args)
+        return state
+    return wrapped
+
+
+@torch.inference_mode()
+def generate_batch(params, cfg: TransformerConfig, prompts: list, max_new: int,
+                   temperature: float = 0.0, seed: int = 0,
+                   eos_id: int | None = None, state_dtype=torch.float32,
+                   kv_quant: bool = False, use_pallas_decode: bool = False,
+                   top_p: float = 1.0, top_k: int = 0, min_p: float = 0.0,
+                   presence_penalty: float = 0.0, frequency_penalty: float = 0.0,
+                   repetition_penalty: float = 1.0, logit_bias: dict | None = None,
+                   seeds: list | None = None) -> list:
+    """Batched generation, B prompts in one cache (llm.py:964-1150).
+
+    Prompts are right-aligned (left-padded to the longest) and each row's
+    pad region is masked out of attention; RoPE scores depend only on
+    relative position, so every output equals that prompt's solo
+    generation. use_pallas_decode runs the decode step's attention through
+    the batched decode kernel with per-row pads (``decode_attention_batch``,
+    or ``decode_attention_batch_q8`` on the int8 cache of kv_quant).
+
+    Noise: with ``seeds`` ([B] ints), row b's noise at generated-token
+    index i is ``row_noise(seed, seeds[b], i)``, the serving engine's draw
+    for a request submitted with seed=seeds[b] to an engine of seed
+    ``seed``, so a seeded row equals that engine request at equal batch
+    width. Without, a torch.Generator seeded with ``seed`` draws it.
+
+    Returns [B] lists of up to max_new token ids (truncated at eos_id)."""
+    check_supported(cfg)
+    b_n = len(prompts)
+    if min(len(p) for p in prompts) < 1:
+        raise ValueError("empty prompt row: its first sample would come from a "
+                         "pad position")
+    if cfg.max_context % CHUNK:
+        raise ValueError("max_context must be CHUNK-aligned")
+    longest = max(len(p) for p in prompts)
+    if longest + max_new > cfg.max_context:
+        raise ValueError("prompts + max_new overflow max_context")
+    if seeds is not None and len(seeds) != b_n:
+        raise ValueError("seeds must give one seed per prompt")
+    dev = params["output_norm.weight"].device
+    pad = [longest - len(p) for p in prompts]
+    rows = [[0] * d + list(p) for d, p in zip(pad, prompts)]
+    pads = torch.tensor(pad, dtype=torch.int32, device=dev)
+    freqs = freqs_for(cfg, dev)
+    attn_impl = decode_attn_impl(True, kv_quant) if use_pallas_decode else None
+    samp_np = np.asarray(pack_samp(temperature, top_p, top_k, min_p, presence_penalty,
+                                   frequency_penalty, repetition_penalty,
+                                   1.0 if logit_bias else 0.0))
+    samp = torch.from_numpy(samp_np).to(dev)
+    flags = samp_flags(samp_np)
+    cnt_p = cnt_o = bias = None
+    if flags[0] or flags[1]:
+        cnt_p = torch.from_numpy(np.stack([np.bincount(
+            np.asarray(p, np.int64), minlength=cfg.vocab_size) for p in prompts])
+            .astype(np.int32)).to(dev)
+        cnt_o = torch.zeros((b_n, cfg.vocab_size), dtype=torch.int32, device=dev)
+        brow = np.zeros(cfg.vocab_size, np.float32)
+        for t, v in (logit_bias or {}).items():
+            brow[int(t)] = float(v)
+        bias = torch.from_numpy(brow).to(dev).expand(b_n, -1)
+    gen = None
+    if seeds is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+
+    def sample(logits, gi):
+        noise = _gumbel_like(logits, gen) if seeds is None else \
+            row_noise(seed, seeds, [gi] * b_n, cfg.vocab_size, dev)
+        return sample_filtered(logits, samp, noise, cnt_p, cnt_o, bias, flags=flags)
+
+    state = init_state(cfg, b_n, dtype=state_dtype, kv_quant=kv_quant, device=dev)
+    pos = 0
+    tok = None
+    while pos < longest:
+        n = min(CHUNK, longest - pos)
+        chunk = [r[pos:pos + n] + [0] * (CHUNK - n) for r in rows]
+        hidden, _ = forward(params, cfg, state, torch.tensor(chunk, device=dev), pos,
+                            freqs, pad_start=pads)
+        tok = sample(logits_at(params, cfg, hidden, n - 1), 0)
+        pos += n
+    out: list = [[] for _ in range(b_n)]
+    done = [False] * b_n
+    cur = tok.cpu().numpy()
+    gi = 1                              # the next decode gives token index 1
+    for _ in range(max_new):
+        for b in range(b_n):
+            if not done[b]:
+                out[b].append(int(cur[b]))
+                if eos_id is not None and int(cur[b]) == eos_id:
+                    done[b] = True
+        if all(done) or pos >= cfg.max_context - 1:
+            break
+        token = torch.from_numpy(cur[:, None].astype(np.int64)).to(dev)
+        if cnt_o is not None:           # the consumed token joins the histogram
+            cnt_o[torch.arange(b_n, device=dev), token[:, 0]] += 1
+        hidden, _ = forward(params, cfg, state, token, pos, freqs,
+                            decode_attn=attn_impl, pad_start=pads)
+        tok = sample(logits_at(params, cfg, hidden, 0), gi)
+        pos += 1
+        gi += 1
+        cur = tok.cpu().numpy()
+    return out
+
+
+class Transformer:
+    """Stateful single-stream generator (llm.py:2020-2179): chunked prefill,
+    a decode loop, prefix-cache reuse and prompt-lookup speculative decoding
+    (``spec_lookup``), over ``make_step_fns``.
+
+    The state keeps the format the instance was built with: ``state_dtype``
+    (f32 or bf16 caches) or ``kv_quant`` (int8 caches with per-token
+    scales); ``reset_state()`` rebuilds it in that format. Sampling noise
+    comes from a torch.Generator seeded with ``seed`` on the params'
+    device."""
+
+    def __init__(self, params: dict, cfg: TransformerConfig, seed: int = 0,
+                 state_dtype=torch.float32, kv_quant: bool = False,
+                 use_pallas_decode: bool = False, spec_lookup: int = 0):
+        check_supported(cfg)
+        if cfg.max_context % CHUNK:
+            raise ValueError("max_context must be CHUNK-aligned")
+        self.params = params
+        self.cfg = cfg
+        self.state_dtype, self.kv_quant = state_dtype, kv_quant
+        self.use_pallas_decode = use_pallas_decode
+        self.device = params["output_norm.weight"].device
+        self.prefill_fn, self.decode_fn = make_step_fns(
+            cfg, use_pallas_decode=use_pallas_decode, kv_quant=kv_quant)
+        self.spec_lookup = int(spec_lookup)
+        self.verify_fn = make_verify_fn(cfg) if self.spec_lookup else None
+        self.chunk = CHUNK
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(seed))
+        self.reset_state()
+
+    def reset_state(self) -> None:
+        """A zeroed cache in this instance's format, and no reusable prefix."""
+        self.state = init_state(self.cfg, 1, dtype=self.state_dtype,
+                                kv_quant=self.kv_quant, device=self.device)
+        self._cached_tokens: list[int] = []
+
+    @classmethod
+    def from_gguf(cls, path, max_context: int | None = None, dtype=torch.bfloat16,
+                  seed: int = 0, quantize: bool = False, kv_quant: bool = False,
+                  spec_lookup: int = 0, use_pallas_decode: bool = False,
+                  device="cuda"):
+        """(Transformer, GGUF metadata) from a checkpoint: quantize=True
+        re-quantizes the dense matmul weights to int8 (quantize_params_int8)
+        after the GGUF dequant."""
+        cfg, params, kv = load_gguf(path, max_context, dtype, device)
+        if quantize:
+            params = quantize_params_int8(params)
+        return cls(params, cfg, seed, kv_quant=kv_quant,
+                   use_pallas_decode=use_pallas_decode, spec_lookup=spec_lookup), kv
+
+    def quantize_int8(self):
+        """Switch this instance to the int8 weight-only path."""
+        self.params = quantize_params_int8(self.params)
+        return self
+
+    @staticmethod
+    def _lookup_draft(tokens: list[int], gamma: int, max_ngram: int = 3) -> list | None:
+        """Prompt-lookup draft: the gamma tokens that followed the most
+        recent earlier occurrence of the current tail n-gram (longest n
+        first)."""
+        for n in range(max_ngram, 1, -1):
+            if len(tokens) <= n:
+                continue
+            tail = tokens[-n:]
+            for i in range(len(tokens) - n - 1, -1, -1):
+                if tokens[i:i + n] == tail:
+                    cont = tokens[i + n:i + n + gamma]
+                    if cont:
+                        return cont + [cont[-1]] * (gamma - len(cont))
+        return None
+
+    def reusable_prefix(self, tokens: list[int]) -> int:
+        n = 0
+        for a, b in zip(tokens[:-1], self._cached_tokens):
+            if a != b:
+                break
+            n += 1
+        return n
+
+    def generate(self, tokens: list[int], temperature: float = 0.0,
+                 cache_offset: int = 0, max_new: int | None = None,
+                 top_p: float = 1.0, top_k: int = 0, min_p: float = 0.0):
+        """Yields sampled token ids until max_context (the caller checks eos).
+
+        cache_offset: the absolute cache position where the prompt begins,
+        nonzero when earlier context (e.g. VLM image embeddings) already
+        occupies the cache; prefix-cache reuse applies only at offset 0.
+        top_p/top_k/min_p filter the temperature-scaled distribution."""
+        cfg = self.cfg
+        pos = 0                       # tokens of the prompt already consumed
+        if cache_offset == 0:
+            pos = self.reusable_prefix(tokens)
+            if pos < len(self._cached_tokens):
+                self.state = reset_recurrent(cfg, self.state)
+        tokens = list(tokens)
+        prompt_len = len(tokens)
+        samp = pack_samp(temperature, top_p, top_k, min_p).to(self.device)
+        dev = self.device
+        out_tok = None
+        produced = 0
+        while cache_offset + len(tokens) < cfg.max_context:
+            if pos < prompt_len:      # (chunked) prefill
+                n = min(self.chunk, prompt_len - pos)
+                chunk = tokens[pos:pos + n] + [0] * (self.chunk - n)
+                out_tok, self.state = self.prefill_fn(
+                    self.params, self.state, torch.tensor([chunk], device=dev),
+                    cache_offset + pos, n, samp, self._gen)
+                pos += n
+                if pos < prompt_len:
+                    continue
+            else:
+                g = self.spec_lookup
+                draft = None
+                if (g and temperature == 0.0
+                        and cache_offset + pos + g + 1 < cfg.max_context):
+                    draft = self._lookup_draft(tokens, g)
+                if draft is not None:
+                    # one verify pass over [current, d1..dG]: greedy_out[i] is
+                    # the model's token after consuming position pos+i
+                    feed = torch.tensor([[tokens[-1]] + draft], device=dev)
+                    toks, self.state = self.verify_fn(self.params, self.state, feed,
+                                                      cache_offset + pos)
+                    greedy_out = toks[0].cpu().numpy()
+                    a = 0
+                    while a < g and int(greedy_out[a]) == draft[a]:
+                        a += 1
+                    new_toks = draft[:a] + [int(greedy_out[a])]
+                    pos += a + 1
+                else:
+                    out_tok, self.state = self.decode_fn(
+                        self.params, self.state, torch.tensor([[tokens[-1]]], device=dev),
+                        cache_offset + pos, samp, self._gen)
+                    pos += 1
+                    new_toks = [int(out_tok[0])]
+                for nxt in new_toks:
+                    tokens.append(nxt)
+                    if cache_offset == 0:
+                        self._cached_tokens = tokens[:-1]
+                    produced += 1
+                    yield nxt
+                    if max_new is not None and produced >= max_new:
+                        return
+                continue
+            nxt = int(out_tok[0])
+            tokens.append(nxt)
+            if cache_offset == 0:
+                self._cached_tokens = tokens[:-1]
+            produced += 1
+            yield nxt
+            if max_new is not None and produced >= max_new:
+                return

@@ -156,16 +156,18 @@ _FREE, _PREFILL, _LIVE = 0, 1, 2
 
 
 def check_decode_route(kv_quant: bool, use_pallas_decode: bool) -> None:
-    """Refuse an int8 KV cache under the batched decode kernel. The JAX
-    engine accepts the pair, and its decode attention then runs on the raw
-    int8 values without their k_s/v_s scales (clearcam_tpu/models/
-    llm.py:1316-1318)."""
+    """Refuse an int8 KV cache under the batched decode kernel in the
+    engine. The port has the int8 kernel (``decode_attention_batch_q8``,
+    which ``generate_batch`` runs), but the JAX engine runs this pair
+    without the k_s/v_s scales (clearcam_tpu/models/llm.py:1316-1318), so
+    the engine refuses it rather than serve a route the reference gets
+    wrong."""
     if kv_quant and use_pallas_decode:
         raise ValueError(
-            "kv_quant with use_pallas_decode: the batched decode kernel "
-            "reads bf16/f32 caches; the int8 KV kernel (decode_attention_"
-            "batch_q8) is not ported yet, and running the bf16 kernel on "
-            "int8 values without their scales gives wrong attention")
+            "kv_quant with use_pallas_decode in the serving engine: the JAX "
+            "engine runs this pair without the int8 cache's scales, so the "
+            "port's engine refuses it (generate_batch and Transformer run the "
+            "int8 decode kernel)")
 
 
 class ServingEngine:
@@ -696,7 +698,7 @@ class ServingEngine:
 
     def _publish_metrics(self) -> None:
         """Mirror engine state into the shared metrics registry (/metrics)."""
-        from clearcam_tpu.runtime import metrics
+        from ..runtime import metrics
         live = sum(1 for p in self.phase if p == _LIVE)
         pref = sum(1 for p in self.phase if p == _PREFILL)
         metrics.gauge("serving.slots_live", live)

@@ -15,8 +15,8 @@ tokenizer; ``--gguf`` loads a checkpoint with the shared GGUF reader and
 tokenizer. ``--int8`` quantizes the weights (the quant-matmul kernel),
 ``--pallas`` runs the decode step's attention through the batched
 decode-attention kernel. The HTTP server is the JAX package's jax-free
-one, reached through ``serving.bind_shared_server``. On SIGTERM or SIGINT
-it stops and prints each kernel's launch count.
+one, copied into the port (``server.http``). On SIGTERM or SIGINT it stops
+and prints each kernel's launch count.
 """
 from __future__ import annotations
 
@@ -28,9 +28,43 @@ from pathlib import Path
 
 import torch
 
-from clearcam_tpu.tools.serve_llm import _AsciiTok
-
 from ..device import resolve_device
+
+
+class _AsciiTok:
+    """Byte-level stand-in tokenizer for --synthetic runs (random weights
+    produce token ids, not language; this maps them to printable ASCII so
+    the serving path is drivable end-to-end without a checkpoint)."""
+    eos_id, eot_id = 0, None
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def encode(self, s):
+        return [1 + (ord(c) % min(self.vocab - 1, 94)) for c in s]
+
+    def decode(self, ids):
+        return "".join(chr(33 + (int(i) % 94)) for i in ids)
+
+    def is_end(self, t):
+        return t == self.eos_id
+
+    def role(self, r):
+        return self.encode("<" + r + ">")
+
+    def end_turn(self):
+        return [self.eos_id]
+
+    def prefix(self):
+        return []
+
+    def vocab_bytes(self):
+        """Byte view of the synthetic vocab (id -> one printable ASCII
+        byte, same mapping as decode) so grammar-constrained decoding is
+        drivable on synthetic runs too (the printable range includes the
+        whole JSON alphabet)."""
+        return [None] + [bytes([33 + (i % 94)])
+                         for i in range(1, self.vocab)]
 
 
 def build_engine(args):
@@ -43,7 +77,7 @@ def build_engine(args):
         params = llm.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
         tok = _AsciiTok(cfg.vocab_size)
     else:
-        from clearcam_tpu.utils.llm_tokenizer import LLMTokenizer
+        from ..utils.llm_tokenizer import LLMTokenizer
         cfg, params, kv = llm.load_gguf(args.gguf, max_context=args.ctx, device=dev)
         tok = LLMTokenizer.from_gguf_kv(kv)
     if args.int8:
@@ -129,13 +163,11 @@ def main(argv=None):
     args = parse_args(argv)
     from ..ops.decode_attention import decode_attention_batch
     from ..ops.quant_matmul import quant_linear
-    from ..serving import bind_shared_server
 
     gen = build_engine(args)
     gen.engine.start()                       # own scheduler thread
-    bind_shared_server()
-    from clearcam_tpu.server.http import AppContext, serve
-    from clearcam_tpu.utils.db import KVStore
+    from ..server.http import AppContext, serve
+    from ..utils.db import KVStore
     ctx = AppContext(KVStore(args.data / "cc_cache.db"), args.data, gen=gen,
                      api_token=args.api_token,
                      served_model=(args.gguf.stem if args.gguf else "clearcam-synthetic"))

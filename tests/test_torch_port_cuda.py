@@ -1,6 +1,7 @@
-"""The port on an NVIDIA GPU: the CUDA stem and ViT attention kernels
-against their plain versions, and the models, the detector and the CLIP
-image tower running through them. Every test needs
+"""The port on an NVIDIA GPU: the CUDA kernels (stem, ViT attention,
+quant-matmul, the decode-attention forms) against their plain versions, and
+the models, the detector, the CLIP image tower and the LLM running through
+them. Every test needs
 the card and skips without one. The file imports no jax, so on a GPU
 machine without jax it runs as
 
@@ -359,3 +360,111 @@ def test_bf16_model_gpu_matches_cpu(cuda, pallas):
     for ref, got in zip(out["cpu"], out["cuda"]):
         assert torch.isfinite(got).all()
         assert (got - ref).abs().max().item() < LLM_BF16_TOL
+
+
+def _q8_cache(rng, b, kvh, s, cuda):
+    kq, vq = (torch.from_numpy(rng.integers(-127, 128, (b, kvh, s, 128)).astype(np.int8))
+              .to(cuda) for _ in range(2))
+    ks, vs = (torch.from_numpy(rng.uniform(0.002, 0.02, (b, kvh, s)).astype(np.float32))
+              .to(cuda) for _ in range(2))
+    return kq, ks, vq, vs
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh", [(8, 4), (16, 8), (16, 2)])
+def test_decode_attention_q8_kernel_matches_plain(cuda, qdt, h, kvh):
+    """The int8-cache kernel against its plain version on the same int8
+    bytes and scales: f32 q bounded as the f32 caches (summation order
+    only); a row with no live column gives zeros on both."""
+    from clearcam_tpu_torch.ops import decode_attention as tdec
+    rng = np.random.default_rng(h * kvh + 1)
+    b, s = 4, 517
+    q = torch.from_numpy(rng.standard_normal((b, h, 128), np.float32)).to(cuda, qdt)
+    kq, ks, vq, vs = _q8_cache(rng, b, kvh, s, cuda)
+    for pos, pads in ((torch.tensor([0, 63, 300, 516], dtype=torch.int32), None),
+                      (torch.tensor([64, 300, 10, 516], dtype=torch.int32),
+                       torch.tensor([64, 0, 299, 37], dtype=torch.int32)),
+                      (200, None)):
+        pos = pos.to(cuda) if isinstance(pos, torch.Tensor) else pos
+        pads = pads.to(cuda) if pads is not None else None
+        before = (tdec.decode_attention_batch_q8.launches, tdec.decode_attention_batch.launches)
+        got = tdec.decode_attention_batch_q8(q, kq, ks, vq, vs, pos, pads)
+        ref = tdec.decode_attention_batch_q8_reference(q, kq, ks, vq, vs, pos, pads)
+        torch.cuda.synchronize()
+        assert (tdec.decode_attention_batch_q8.launches,
+                tdec.decode_attention_batch.launches) == (before[0] + 1, before[1])
+        assert got.shape == q.shape and got.dtype == qdt
+        assert torch.isfinite(got).all()
+        assert (got.float() - ref.float()).abs().max().item() < DEC_TOL[qdt]
+
+
+@pytest.mark.parametrize("q8,cdt", [(False, torch.float32), (False, torch.bfloat16),
+                                    (True, torch.int8)])
+def test_single_stream_kernels_match_plain(cuda, q8, cdt):
+    """decode_attention and decode_attention_q8 (the batch kernels at
+    B = 1, scalar pos) against their plain versions; each counts its own
+    launches only."""
+    from clearcam_tpu_torch.ops import decode_attention as tdec
+    rng = np.random.default_rng(3)
+    h, kvh, s = 16, 8, 2048
+    q = torch.from_numpy(rng.standard_normal((h, 128), np.float32)).to(cuda)
+    if q8:
+        kq, ks, vq, vs = (t[0] for t in _q8_cache(rng, 1, kvh, s, cuda))
+        fn, ref_fn, args = tdec.decode_attention_q8, tdec.decode_attention_q8_reference, \
+            (kq, ks, vq, vs)
+    else:
+        k, v = (torch.from_numpy(rng.standard_normal((kvh, s, 128), np.float32))
+                .to(cuda, cdt) for _ in range(2))
+        fn, ref_fn, args = tdec.decode_attention, tdec.decode_attention_reference, (k, v)
+    for pos in (0, 63, 256, 1000, 2047):
+        counts = [f.launches for f in (tdec.decode_attention, tdec.decode_attention_q8,
+                                       tdec.decode_attention_batch,
+                                       tdec.decode_attention_batch_q8)]
+        got = fn(q, *args, pos)
+        ref = ref_fn(q, *args, pos)
+        torch.cuda.synchronize()
+        after = [f.launches for f in (tdec.decode_attention, tdec.decode_attention_q8,
+                                      tdec.decode_attention_batch,
+                                      tdec.decode_attention_batch_q8)]
+        assert after == [c + (i == int(q8)) for i, c in enumerate(counts)]
+        assert got.shape == (h, 128)
+        assert (got - ref).abs().max().item() < DEC_TOL[torch.float32]
+
+
+def test_decode_attention_q8_kernel_raises_on_bad_input(cuda):
+    from clearcam_tpu_torch.ops import decode_attention as tdec
+    rng = np.random.default_rng(0)
+    q = torch.randn(2, 8, 128, device=cuda)
+    kq, ks, vq, vs = _q8_cache(rng, 2, 4, 64, cuda)
+    with pytest.raises(TypeError):
+        tdec.decode_attention_batch_q8(q, kq.float(), ks, vq.float(), vs, 3)
+    with pytest.raises(ValueError, match="k_s"):
+        tdec.decode_attention_batch_q8(q, kq, ks.double(), vq, vs, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tdec.decode_attention_batch_q8(q, kq, ks[:, :, ::2], vq, vs, 3)
+    with pytest.raises(ValueError, match="scalar"):
+        tdec.decode_attention_q8(q[0], kq[0], ks[0], vq[0], vs[0],
+                                 torch.tensor([1, 2], device=cuda))
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_transformer_decode_kernels_gpu_match_cpu(cuda, kv):
+    """Transformer.generate with use_pallas_decode, greedy: the card (the
+    single-stream kernels) gives the CPU's tokens (plain versions), and
+    generate_batch on the card (the batch kernels) gives each row's."""
+    from clearcam_tpu_torch.ops import decode_attention as tdec
+    cfg = _small_llm_cfg()
+    q8 = kv == "int8"
+    dt = torch.bfloat16 if kv == "bf16" else torch.float32
+    prompt = list(np.random.default_rng(2).integers(1, cfg.vocab_size, 40))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tllm.init_params(cfg, seed=5, device=dev)
+        m = tllm.Transformer(p, cfg, state_dtype=dt, kv_quant=q8, use_pallas_decode=True)
+        single = list(m.generate(prompt, temperature=0.0, max_new=8))
+        batch = tllm.generate_batch(p, cfg, [prompt, prompt[:9]], max_new=8, state_dtype=dt,
+                                    kv_quant=q8, use_pallas_decode=True)
+        out[dev] = (single, batch)
+    assert out["cpu"] == out["cuda"]
+    assert (tdec.decode_attention_q8 if q8 else tdec.decode_attention).launches > 0
+    assert (tdec.decode_attention_batch_q8 if q8 else tdec.decode_attention_batch).launches > 0

@@ -76,3 +76,105 @@ def test_rejects_other_devices():
     _, (q, k, v) = _inputs("float32", seed=1)
     with pytest.raises(ValueError, match="unsupported device"):
         tdec.decode_attention_batch(q.to("meta"), k.to("meta"), v.to("meta"), 3)
+
+
+# ---------------------------------------------------------------------------
+# the single-stream forms and the int8 forms against the JAX kernels
+
+def _q8_inputs(seed, b=B):
+    """q f32, int8 caches and f32 per-token scales, as numpy."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, H, D), np.float32)
+    kq, vq = (rng.integers(-127, 128, (b, KVH, S, D)).astype(np.int8) for _ in range(2))
+    ks, vs = (rng.uniform(0.002, 0.02, (b, KVH, S)).astype(np.float32) for _ in range(2))
+    return q, kq, ks, vq, vs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pos", [0, 255, 300, 511])
+def test_single_stream_plain_matches_jax_kernel(dtype, pos):
+    from clearcam_tpu.ops.decode_attention import decode_attention as jax_single
+    (jq, jk, jv), (tq, tk, tv) = _inputs(dtype, seed=pos)
+    ref = jax_single(jq[0], jk[0], jv[0], pos, interpret=True)
+    before = tdec.decode_attention.launches
+    got = tdec.decode_attention(tq[0], tk[0], tv[0], pos)
+    assert tdec.decode_attention.launches == before         # CPU: plain version
+    assert got.shape == (H, D) and got.dtype == tq.dtype
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("pos", [0, 255, 300, 511])
+def test_single_stream_q8_plain_matches_jax_kernel(pos):
+    from clearcam_tpu.ops.decode_attention import decode_attention_q8 as jax_q8
+    q, kq, ks, vq, vs = _q8_inputs(pos, b=1)
+    ref = jax_q8(*(jnp.asarray(a[0]) for a in (q, kq, ks, vq, vs)), pos, interpret=True)
+    before = tdec.decode_attention_q8.launches
+    got = tdec.decode_attention_q8(*(torch.from_numpy(a[0]) for a in (q, kq, ks, vq, vs)),
+                                   pos)
+    assert tdec.decode_attention_q8.launches == before
+    assert got.shape == (H, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("pos,pads", [
+    (300, None),                                   # shared scalar position
+    ([0, 255, 511], None),                         # spread per-row positions
+    ([300, 300, 300], [0, 37, 290]),               # left pads
+    ([256, 17, 400], [256, 0, 399]),               # one-column windows
+    ([100, 300, 511], [200, 0, 3]),                # row 0 has no live column
+])
+def test_batch_q8_plain_matches_jax_kernel(pos, pads):
+    """Live rows agree with the TPU kernel to 1e-5; a row with no live
+    column is zeros in the port, where the TPU kernel divides 0 by 0."""
+    from clearcam_tpu.ops.decode_attention import decode_attention_batch_q8 as jax_bq8
+    q, kq, ks, vq, vs = _q8_inputs(len(str(pos)))
+    jpos = pos if np.isscalar(pos) else jnp.asarray(pos, jnp.int32)
+    jpads = None if pads is None else jnp.asarray(pads, jnp.int32)
+    ref = np.asarray(jax_bq8(*(jnp.asarray(a) for a in (q, kq, ks, vq, vs)), jpos, jpads,
+                             interpret=True))
+    tpos = pos if np.isscalar(pos) else torch.tensor(pos, dtype=torch.int32)
+    before = tdec.decode_attention_batch_q8.launches
+    got = tdec.decode_attention_batch_q8(*(torch.from_numpy(a) for a in (q, kq, ks, vq, vs)),
+                                         tpos, None if pads is None else torch.tensor(pads))
+    assert tdec.decode_attention_batch_q8.launches == before
+    got = got.numpy()
+    live = np.broadcast_to(np.asarray(pos), (B,)) >= np.asarray(pads or [0] * B)
+    np.testing.assert_allclose(got[live], ref[live], rtol=0, atol=1e-5)
+    assert not got[~live].any()
+
+
+def test_q8_plain_is_the_dequantized_attention():
+    """Scales on scores and probabilities give the attention over the
+    dequantized cache (k * k_s, v * v_s), and junk outside the window
+    changes nothing."""
+    q, kq, ks, vq, vs = (torch.from_numpy(a) for a in _q8_inputs(4))
+    pos, pads = torch.tensor([10, 200, 511]), torch.tensor([3, 0, 500])
+    got = tdec.decode_attention_batch_q8(q, kq, ks, vq, vs, pos, pads)
+    dense = tdec.decode_attention_batch(q, kq.float() * ks[..., None],
+                                        vq.float() * vs[..., None], pos, pads)
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), rtol=0, atol=1e-5)
+    kq2, vq2 = kq.clone(), vq.clone()
+    for b in range(B):
+        lo, hi = int(pads[b]), int(pos[b])
+        kq2[b, :, :lo], kq2[b, :, hi + 1:] = 127, -127
+        vq2[b, :, :lo], vq2[b, :, hi + 1:] = -127, 127
+    out = tdec.decode_attention_batch_q8(q, kq2, ks, vq2, vs, pos, pads)
+    np.testing.assert_allclose(out.numpy(), got.numpy(), rtol=0, atol=1e-6)
+
+
+def test_plain_row_without_live_column_is_zeros():
+    _, (q, k, v) = _inputs("float32", seed=5)
+    got = tdec.decode_attention_batch(q, k, v, torch.tensor([100, 7, 300]),
+                                      torch.tensor([101, 0, 0]))
+    assert not got[0].any() and got[1:].abs().sum() > 0
+
+
+def test_new_forms_reject_other_devices():
+    q, kq, ks, vq, vs = (torch.from_numpy(a).to("meta") for a in _q8_inputs(1))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdec.decode_attention_batch_q8(q, kq, ks, vq, vs, 3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdec.decode_attention_q8(q[0], kq[0], ks[0], vq[0], vs[0], 3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdec.decode_attention(q[0], q[0, :2, None].expand(2, S, D), q[0, :2, None].expand(2, S, D), 3)

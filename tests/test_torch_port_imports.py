@@ -1,7 +1,9 @@
-"""The PyTorch/CUDA port (clearcam_tpu_torch) and chip_smoke.py never import
-jax. The test process has jax loaded (conftest), so the import check runs in
-a subprocess with ``sys.modules["jax"] = None``, which makes any
-``import jax`` raise."""
+"""The PyTorch/CUDA port (clearcam_tpu_torch) and chip_smoke.py import
+neither jax nor anything of the JAX package (clearcam_tpu), not even its
+jax-free modules: the port keeps its own copies of those. The test process
+has both loaded (conftest), so the import check runs in a subprocess with
+``sys.modules["jax"] = sys.modules["clearcam_tpu"] = None``, which makes
+any import of either raise."""
 import os
 import re
 import subprocess
@@ -13,29 +15,26 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "clearcam_tpu_torch"
 
-_IMPORT_ALL = r"""
-import importlib, pkgutil, sys
-sys.modules["jax"] = None
+_BLOCK = 'import sys\nsys.modules["jax"] = None\nsys.modules["clearcam_tpu"] = None\n'
+
+_IMPORT_ALL = _BLOCK + r"""
+import importlib, pkgutil
 import clearcam_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(
     clearcam_tpu_torch.__path__, "clearcam_tpu_torch."))
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
-               if sys.modules[m] is not None), "jax got imported"
-# the loaded modules: serving.text and serving.constrain are the JAX
-# package's files run under the port's names, not files of the port
+loaded = [m for m in sys.modules if sys.modules[m] is not None
+          and (m.split(".")[0] in ("jax", "clearcam_tpu"))]
+assert not loaded, loaded
 print(" ".join(sorted(m for m in sys.modules if m.startswith("clearcam_tpu_torch."))))
 """
 
-
-# jax itself, and the JAX package's modules that import it at the top
-_JAX_MODELS = r"(yolov9|clip|blazeface|adaface|qwen3vl|llm|rfdetr|yolo_loss)"
-JAX_IMPORT = re.compile(
-    r"^\s*(import jax|from jax\b"
-    r"|(from|import)\s+clearcam_tpu\.(nn|ops|models\." + _JAX_MODELS + r")\b"
-    r"|from\s+clearcam_tpu\.models\s+import\s.*\b" + _JAX_MODELS + r"\b)")
+# an import of jax or of the JAX package, at any depth of a file
+JAX_IMPORT = re.compile(r"^\s*(import jax\b|from jax\b|(from|import)\s+clearcam_tpu(\.|\s|$))")
+# a file of the JAX package loaded by path
+LOAD_BY_PATH = re.compile(r"spec_from_file_location|find_spec\(\s*[\"']clearcam_tpu[\"']")
 
 
 def test_port_imports_with_jax_blocked():
@@ -50,44 +49,52 @@ def test_port_imports_with_jax_blocked():
         "ops.vit_attention", "ops.quant_matmul", "ops.decode_attention",
         "models", "models.yolov9", "models.clip", "models.objects",
         "models.blazeface", "models.adaface", "models.faces", "models.llm",
-        "runtime", "runtime.nvr", "serving", "serving.engine", "serving.text",
-        "serving.constrain", "tools", "tools.serve_llm")}
+        "models.qwen3vl", "runtime", "runtime.nvr", "runtime.metrics",
+        "runtime.ingest", "runtime.settings", "runtime.storage", "server",
+        "server.http", "serving", "serving.engine", "serving.text",
+        "serving.constrain", "serving.vlm", "cloud.relay", "io.gguf",
+        "io.safetensors", "track.ocsort", "utils.db", "utils.llm_tokenizer",
+        "tools", "tools.serve_llm", "tools.parity")}
     assert expected <= names, expected - names
 
 
 def test_no_source_line_imports_jax():
-    """Neither jax nor the JAX package's jax-importing modules, even inside
-    a function (which the import check above cannot reach)."""
+    """Neither jax nor any module of the JAX package, even inside a
+    function (which the import check above cannot reach), and no file of
+    it loaded by path."""
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    pat = JAX_IMPORT
     hits = [f"{f.relative_to(ROOT)}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)
-            if pat.match(line)]
+            if JAX_IMPORT.match(line) or LOAD_BY_PATH.search(line)]
     assert not hits, hits
 
 
 def test_source_line_pattern_catches_the_jax_modules():
-    """The pattern above rejects each jax-importing module, and lets the
-    jax-free host modules the port subclasses through."""
-    pat = JAX_IMPORT
-    for mod in ("clip", "blazeface", "adaface", "qwen3vl", "llm", "rfdetr",
-                "yolo_loss", "yolov9"):
-        assert pat.match(f"    from clearcam_tpu.models.{mod} import x")
-        assert pat.match(f"import clearcam_tpu.models.{mod}")
-        assert pat.match(f"from clearcam_tpu.models import objects, {mod}")
-    for line in ("from clearcam_tpu.models import objects as _objects",
-                 "from clearcam_tpu.models.objects import ObjectFinder",
-                 "from clearcam_tpu.models.faces import FacePipeline",
-                 "from clearcam_tpu.tools.parity import resolve_fixture"):
-        assert not pat.match(line), line
+    """The pattern rejects jax and every import of the JAX package, the
+    jax-free modules included, and lets the port's own imports through."""
+    for line in ("import jax", "    import jax.numpy as jnp", "from jax import numpy",
+                 "import clearcam_tpu", "from clearcam_tpu import models",
+                 "    from clearcam_tpu.models.llm import x",
+                 "from clearcam_tpu.models import objects as _objects",
+                 "from clearcam_tpu.runtime.nvr import NVR",
+                 "from clearcam_tpu.tools.parity import resolve_fixture",
+                 "import clearcam_tpu.serving.constrain"):
+        assert JAX_IMPORT.match(line), line
+    for line in ("import clearcam_tpu_torch", "from clearcam_tpu_torch.models import llm",
+                 "from ..runtime import metrics", "import jaxtyping",
+                 "    # clearcam_tpu/models/llm.py:285 is the JAX counterpart"):
+        assert not JAX_IMPORT.match(line), line
+    assert LOAD_BY_PATH.search('root = importlib.util.find_spec("clearcam_tpu")')
+    assert LOAD_BY_PATH.search("spec = importlib.util.spec_from_file_location(n, p)")
 
 
-_SERVE = r"""
-import json, socket, sys, urllib.error, urllib.request
-sys.modules["jax"] = None
-from clearcam_tpu.tools.serve_llm import _AsciiTok
+_SERVE = _BLOCK + r"""
+import json, socket, urllib.error, urllib.request
 from clearcam_tpu_torch.models import llm
-from clearcam_tpu_torch.serving import ServingEngine, TextServing, bind_shared_server, constrain
+from clearcam_tpu_torch.serving import ServingEngine, TextServing, constrain
+from clearcam_tpu_torch.server.http import AppContext, serve
+from clearcam_tpu_torch.tools.serve_llm import _AsciiTok
+from clearcam_tpu_torch.utils.db import KVStore
 
 cfg = llm.TransformerConfig(num_blocks=1, dim=32, hidden_dim=64, n_heads=4,
                             n_kv_heads=2, norm_eps=1e-5, vocab_size=128, head_dim=8,
@@ -98,9 +105,6 @@ tc = constrain.token_table(constrain.json_char_dfa(2), tok.vocab_bytes(), [0],
 eng = ServingEngine(llm.init_params(cfg, seed=1), cfg, n_slots=2, max_waiting=1,
                     constraints={"json": tc})
 gen = TextServing(eng, tok)
-bind_shared_server()
-from clearcam_tpu.server.http import AppContext, serve
-from clearcam_tpu.utils.db import KVStore
 s = socket.socket(); s.bind(("127.0.0.1", 0)); port = s.getsockname()[1]; s.close()
 server = serve(AppContext(KVStore(sys.argv[1] + "/kv.db"), sys.argv[1], gen=gen),
                port=port, host="127.0.0.1")
@@ -128,16 +132,17 @@ text = json.loads(body)["choices"][0]["message"]["content"]
 assert text.startswith("{"), text
 server.shutdown()
 eng.close()
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
-               if sys.modules[m] is not None), "jax got imported"
+loaded = [m for m in sys.modules if sys.modules[m] is not None
+          and m.split(".")[0] in ("jax", "clearcam_tpu")]
+assert not loaded, loaded
 print("ok", text)
 """
 
 
 def test_port_serves_the_shared_http_server_with_jax_blocked(tmp_path):
-    """serve_llm's seam: the shared server's /generate and OpenAI handlers
-    reach the port's engine (backpressure is a 503, not a 500), and jax
-    never loads."""
+    """The port's own copy of the HTTP server, with jax and the JAX package
+    blocked: its /generate and OpenAI handlers reach the port's engine
+    (backpressure is a 503, not a 500)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _SERVE, str(tmp_path)], cwd=str(ROOT),
                           env=env, capture_output=True, text=True, timeout=300)
@@ -145,21 +150,9 @@ def test_port_serves_the_shared_http_server_with_jax_blocked(tmp_path):
     assert proc.stdout.startswith("ok {")
 
 
-def test_bind_shared_server_refuses_loaded_jax_modules():
-    code = ("import clearcam_tpu.serving.constrain\n"
-            "from clearcam_tpu_torch.serving import bind_shared_server\n"
-            "try:\n    bind_shared_server()\nexcept RuntimeError as e:\n"
-            "    print('refused', e)\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.stdout.startswith("refused clearcam_tpu.serving"), \
-        proc.stdout + proc.stderr[-2000:]
-
-
 def test_constrain_copy_gives_the_jax_modules_tables():
-    """The port's ``serving.constrain`` is the JAX package's file run under
-    the port's name: a module of its own, with the same tables."""
+    """The port's ``serving.constrain`` is a copy of the JAX package's file:
+    a module of its own, with the same tables."""
     from clearcam_tpu.serving import constrain as jcon
     from clearcam_tpu.tools.serve_llm import _AsciiTok
     from clearcam_tpu_torch.serving import constrain as tcon

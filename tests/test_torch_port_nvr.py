@@ -1,4 +1,4 @@
-"""The port's BatchDetector inside the shared NVR, and the port's entry point
+"""The port's BatchDetector inside the port's NVR, and the port's entry point
 `python -m clearcam_tpu_torch`, on the CPU (device="cpu" given explicitly)."""
 import contextlib
 import json
@@ -15,14 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from clearcam_tpu.runtime import metrics
-from clearcam_tpu.runtime.nvr import NVR
-from clearcam_tpu.runtime.settings import GlobalSettings
-from clearcam_tpu.utils.db import KVStore
 from clearcam_tpu_torch.models import yolov9 as T
 from clearcam_tpu_torch.ops import _build
+from clearcam_tpu_torch.runtime import metrics
 from clearcam_tpu_torch.runtime import nvr as tnvr
-from clearcam_tpu_torch.runtime.nvr import BatchDetector
+from clearcam_tpu_torch.runtime.nvr import NVR, BatchDetector
+from clearcam_tpu_torch.runtime.settings import GlobalSettings
+from clearcam_tpu_torch.utils.db import KVStore
 from clearcam_tpu_torch.testing import torch_threads
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -196,7 +195,7 @@ def _small_clip_checkpoint(path):
     to one block per tower and 1,024 token rows (the tiny merge table's ids
     stay below 522), so a CPU server loads them in a second. Returns the
     numpy params the port converts them to."""
-    from clearcam_tpu.io import safetensors as st
+    from clearcam_tpu_torch.io import safetensors as st
     from clearcam_tpu_torch.models import clip as tclip
     from clearcam_tpu_torch.nn import functional as F
     p = tclip.init_params(seed=3, img_blocks=1, txt_blocks=1)
@@ -217,7 +216,7 @@ def test_main_serves_clip_search_on_cpu(tmp_path):
 
     import cv2
 
-    from clearcam_tpu.utils.tokenizer import CLIPTokenizer
+    from clearcam_tpu_torch.utils.tokenizer import CLIPTokenizer
     from clearcam_tpu_torch.models.objects import CLIP_WEIGHTS, ObjectFinder
 
     params = _small_clip_checkpoint(tmp_path / "weights" / CLIP_WEIGHTS)

@@ -321,7 +321,8 @@ def test_seeded_sampling_is_slot_and_companion_independent(tiny):
 
 
 def test_engine_metrics_published(tiny):
-    from clearcam_tpu.runtime import metrics
+    # the port's own registry, the one its NVR and server read
+    from clearcam_tpu_torch.runtime import metrics
     cfg, _, tp = tiny
     eng = ServingEngine(tp, port_cfg(cfg), n_slots=2)
     eng.submit([1, 2, 3], max_new=4)
