@@ -5,10 +5,11 @@ Drives clearcam_tpu_torch's paths, the NVR detect tick (YOLOv9-t, res
 image and text towers, BlazeFace and AdaFace IR-50, random weights from
 seed 0), the LLM serving daemon (Qwen3-1.7B widths, random weights from
 seed 0, int8 and int4) and the NVR's Qwen3-VL alert summaries (Qwen3-VL-2B
-widths, random weights from seed 0), and the hand-written kernels (stem,
-ViT attention, quant-matmul, and decode attention in its batched,
-single-stream and int8-cache forms) on the card. Every phase raises on
-failure, so the script exits non-zero:
+widths, random weights from seed 0), speculative serving and the
+FMA-rate probe, and the hand-written kernels (stem, ViT attention,
+quant-matmul, decode attention in its batched, single-stream and
+int8-cache forms, the probe) on the card. Every phase raises on failure,
+so the script exits non-zero:
 
   0  the card: nvidia-smi name and power limit, torch, nvcc; TF32 off
   1  build csrc/*.cu with nvcc for sm_90a, timed
@@ -56,7 +57,10 @@ failure, so the script exits non-zero:
      /generate plain and streamed, 8 concurrent /v1/chat/completions (one
      with response_format json_object, whose text must be a JSON prefix),
      /v1/completions with logprobs; quant_matmul and decode_attention
-     launches reported at shutdown
+     launches reported at shutdown; then `--int8 --kv-quant --pallas`
+     at 4 blocks (the int8 cache through decode_attention_batch_q8 with its
+     scales):
+     /generate once and 4 at once, its q8 kernel launches reported
  10  decode_attention and decode_attention_q8 (B=1) and
      decode_attention_batch_q8 (B=8, spread positions, pads, a row with no
      live column) vs their plain versions, H=16 KvH=8 D=128, S 2048 and
@@ -67,18 +71,39 @@ failure, so the script exits non-zero:
      deepstack at vision block 1), f32, card vs CPU: vision embeds and the
      deepstack feature (cosine > 1 - 1e-5 per row), then an image prefill
      and 8 greedy tokens through Transformer.generate on the plain, kernel
-     and int8-KV + kernel routes: equal tokens, the last step's logits
-     within 2e-3 (2e-2 with the int8 cache)
+     and int8-KV + kernel routes: equal tokens, the logits of every step
+     within 2e-3 (2e-2 with the int8 cache) and each step's top-8 ids; the
+     int8 cache after the image prefill, card vs CPU: how many int8 values
+     differ, by how many steps, and the scales
  12  the 28 + 24-block model, int8 weights, in the port's NVR in-process
      with a synthetic camera and a key-colour stand-in detector: seconds
      from the alert to the AI Summary notification (cooperative, bf16 and
      int8 KV), 4 concurrent alerts through VLMServingEngine (4 slots), and
      generate_batch B=8 with the int8 cache and its decode tokens/s; every
-     decode-attention form, quant_matmul and vit_attention must launch
+     decode-attention form, quant_matmul and vit_attention must launch; the
+     summary by layer (vision tower, image prefill, prompt prefill, decode
+     step; CUDA events after a sync) for both caches, and one summary
+     through the engine with CLEARCAM_SPEC_LOOKUP=4, whose notification
+     must arrive with no decode kernel launched
+ 13  the FMA-rate probe kernel (csrc/vpu_probe.cu) vs probe_reference at
+     [512,128] x 32768: f32 max|d| <= 1e-5 of max, bf16 <= 1.0 (two bf16
+     ulps of the ~95 sum: __hfma2 rounds once, the plain version twice);
+     FFMA / HFMA2 counts in its SASS (cuobjdump); then `python -m
+     clearcam_tpu_torch.tools.vpu_probe`, its JSON line and T multiply-adds/s
+     against the CUDA-core peaks
+ 14  speculative serving: (a) 2 blocks at Qwen3-1.7B widths, f32, 3
+     requests admitted 2 ticks apart on 2 slots (a periodic prompt, a random
+     one, one whose greedy output cycles), then the cycling one alone: the
+     spec engine's tokens on the card equal the CPU's and the non-spec
+     engine's, with more tokens than decode dispatches; (b) 28 blocks, int8
+     weights, 8 slots, 200-token prompts: decode tokens/s with
+     spec_lookup=4 and without, tokens per dispatch, and the int8 cache
+     through the q8 kernel, its decode step; (c) `python -m clearcam_tpu_torch.tools.llm_bench --blocks 28 --modes
+     int8,int8+kv8+pallas --decode-batch 1,8 --steps 32`, its JSON lines
 
 The line before the last is the card's name and power limit; before it, a
-JSON line with each kernel's launches on a served path (phases 4, 9 and
-12; int4 from phase 8's engine run), its error against the plain version,
+JSON line with each kernel's launches on a served path (phases 4, 9, 12
+and 13; int4 from phase 8's engine run), its error against the plain version,
 its time, the plain version's, the bound (the larger of its bytes over
 3.35 TB/s and its operations over the data sheet's peak for their type)
 and the time of one PyTorch call computing the same function where there
@@ -127,7 +152,7 @@ ATTN_SHAPES = [(16, 16, 257, 64), (1, 16, 257, 64)] + [
     (2, 16, t, 64) for t in (1, 7, 128, 129, 784, 1600)] + [(1, 16, 2040, 64)]
 TOWER_COS = 1 - 1e-5                # towers, GPU vs CPU, cosine per row
 # BPE merges for the server's tokenizer: the real vocab is not in the repo
-ALL_PHASES = tuple(range(13))
+ALL_PHASES = tuple(range(15))
 MERGES = [("h", "e"), ("l", "l"), ("he", "ll"), ("hell", "o</w>"),
           ("w", "o"), ("r", "l"), ("wo", "rl"), ("worl", "d</w>")]
 
@@ -893,6 +918,11 @@ def _same_bytes(torch, a, b) -> bool:
     return all(torch.equal(getattr(a, n), getattr(b, n).cpu()) for n in names)
 
 
+def _same_tensors(torch, a: dict, b: dict) -> bool:
+    """Two dicts of tensors (a block's cache) hold equal tensors."""
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k].cpu()) for k in a)
+
+
 def _llm_2block_run(torch, llm, cfg, p, dev, state_dtype, pallas, inputs=None):
     """prefill_slot, prefill_many and 3 decode_all steps of a 2-block
     full-width model on ``dev``, the decode steps fed ``inputs`` (teacher
@@ -1018,6 +1048,33 @@ def _engine_tokens_per_s(torch, engine, prompts, max_new):
     return toks / dt, (engine.stats["decode_steps"] - steps0) / dt, reqs
 
 
+_SHARED: dict = {}
+
+
+def _bf16_28_blocks(torch):
+    """The 28-block Qwen3-1.7B-width weights, bf16 on the card, from seed
+    0: drawn once (~50 s of numpy draws) and shared by phases 8, 12 and 14.
+    Qwen3-VL-2B's language model has the same shapes, hence the same draws
+    (its rope theta is not a weight)."""
+    if "bf16_28" not in _SHARED:
+        from clearcam_tpu_torch.models import llm
+        t0 = time.time()
+        _SHARED["bf16_28"] = llm.init_params(llm.qwen3_2b_cfg(28, 8192), seed=0,
+                                             dtype=torch.bfloat16, device="cuda")
+        log(f"28-block Qwen3-1.7B-width weights, bf16 on the card from seed 0: "
+            f"{time.time() - t0:.1f} s")
+    return _SHARED["bf16_28"]
+
+
+def _f32_2_blocks():
+    """A 2-block Qwen3-1.7B-width model (ctx 512), f32 on the CPU from seed
+    0 (~20 s of numpy draws), shared by phases 8 and 14."""
+    if "f32_2" not in _SHARED:
+        from clearcam_tpu_torch.models import llm
+        _SHARED["f32_2"] = llm.init_params(llm.qwen3_2b_cfg(2, 512), seed=0)
+    return _SHARED["f32_2"]
+
+
 def phase8(torch):
     log("== phase 8: the LLM on the card vs the CPU; the 28-block int4 engine")
     from clearcam_tpu_torch.models import llm
@@ -1026,7 +1083,7 @@ def phase8(torch):
     from clearcam_tpu_torch.serving import ServingEngine
     errs = {}
     cfg = llm.qwen3_2b_cfg(2, 512)
-    p_cpu = llm.init_params(cfg, seed=0)
+    p_cpu = _f32_2_blocks()
     p_gpu = {k: v.cuda() for k, v in p_cpu.items()}
     with torch.inference_mode():
         for quant in (None, "int8", "int4"):
@@ -1043,12 +1100,8 @@ def phase8(torch):
         errs["bf16"] = _llm_2block_bf16_check(torch, llm, cfg, p_cpu)
     del p_cpu
     torch.cuda.empty_cache()
-    t0 = time.time()
     cfg = llm.qwen3_2b_cfg(28, 8192)
-    params = llm.quantize_params_int4(
-        llm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda"))
-    torch.cuda.empty_cache()
-    log(f"28-block model, bf16 init + int4 quantization on the card: {time.time() - t0:.1f} s")
+    params = llm.quantize_params_int4(_bf16_28_blocks(torch))
     prompts = np.random.default_rng(2).integers(1, cfg.vocab_size, (8, 200))
     tps = {}
     launches = None
@@ -1261,7 +1314,8 @@ def phase11(torch):
     tok = _smoke_tok()
     prompt = tok.encode("<|im_start|>user\nWhat has been detected on my CCTV camera? "
                         "Write in one short sentence<|im_end|>\n<|im_start|>assistant\n")
-    out = {}
+    out = {"logits": {}, "cache": None}
+    plain_logits_at = llm.logits_at
     for route, q8, pallas in (("plain", False, False), ("kernel", False, True),
                               ("int8 KV + kernel", True, True)):
         runs = {}
@@ -1270,33 +1324,78 @@ def phase11(torch):
             vlm = qvl.Qwen3VL(res=SUMMARY_RES, lang=lang, tok=tok, vision=towers[dev])
             counts = (dec.decode_attention.launches, dec.decode_attention_q8.launches)
             vlm.feed_image(img, reset=True)
-            toks = list(lang.generate(prompt, temperature=0.0, cache_offset=vlm.start_pos,
-                                      max_new=8))
-            impl = llm.decode_attn_impl(False, q8) if pallas else None
-            with torch.inference_mode():
-                hidden, _ = llm.forward(
-                    p, cfg, lang.state, torch.tensor([[toks[-1]]], device=dev),
-                    vlm.start_pos + len(prompt) + 7, vlm._freqs, decode_attn=impl)
-                logits = llm.logits_at(p, cfg, hidden, 0).float().cpu().numpy()
+            # a copy: .cpu() of a CPU tensor is the tensor, which generate
+            # goes on writing
+            cache = [{k: v.to("cpu", copy=True) for k, v in s_.items()}
+                     for s_ in lang.state] if q8 else None
+            steps = []       # every logits row generate samples from, in order
+
+            def recording(p_, cfg_, hidden, index, steps=steps):
+                lg = plain_logits_at(p_, cfg_, hidden, index)
+                steps.append(lg.float().cpu().numpy()[0])
+                return lg
+            llm.logits_at = recording
+            try:
+                toks = list(lang.generate(prompt, temperature=0.0,
+                                          cache_offset=vlm.start_pos, max_new=8))
+            finally:
+                llm.logits_at = plain_logits_at
             launched = (dec.decode_attention.launches - counts[0],
                         dec.decode_attention_q8.launches - counts[1])
-            runs[dev] = (toks, logits, launched)
-        err = float(np.abs(runs["cuda"][1] - runs["cpu"][1]).max())
-        # the card's decode steps: 7 in generate and the one above, each
-        # through every block's decode kernel
-        n = 8 * cfg.num_blocks
+            runs[dev] = (toks, np.stack(steps), launched, cache)
+        # the prompt's prefill chunk(s) and 7 decode steps: every step's
+        # logits, and each step's top-8 ids (where the CPU's 8th and 9th
+        # logits are nearer than the bound, either order is right)
+        lg_cpu, lg_gpu = runs["cpu"][1], runs["cuda"][1]
+        err = float(np.abs(lg_gpu - lg_cpu).max())
+        per_step = np.abs(lg_gpu - lg_cpu).max(-1)
+        top_cpu, top_gpu = (np.argsort(-x, -1)[:, :8] for x in (lg_cpu, lg_gpu))
+        srt = -np.sort(-lg_cpu, -1)
+        ties = srt[:, 7] - srt[:, 8] < VL_LOGIT_TOL[route]
+        top_ok = all(set(a) == set(b) or t for a, b, t in zip(top_cpu, top_gpu, ties))
+        n = 7 * cfg.num_blocks          # 7 decode steps, each through every block
         want = (0, 0) if not pallas else ((0, n) if q8 else (n, 0))
         log(f"image prefill + 8 greedy tokens, {route}: card {runs['cuda'][0]}, CPU "
-            f"{runs['cpu'][0]}; last step's logits max|d| {err:.2e} (bound "
-            f"{VL_LOGIT_TOL[route]}); card launches (decode_attention, _q8) "
-            f"{runs['cuda'][2]}")
+            f"{runs['cpu'][0]}; logits of all {len(lg_cpu)} steps max|d| {err:.2e} (bound "
+            f"{VL_LOGIT_TOL[route]}), per step {[f'{x:.1e}' for x in per_step]}; top-8 ids "
+            f"{'equal' if (top_cpu == top_gpu).all() else 'equal as sets' if top_ok else 'DIFFER'}"
+            f"; card launches (decode_attention, _q8) {runs['cuda'][2]}")
+        if q8:
+            out["cache"] = _q8_cache_gap(torch, runs["cpu"][3], runs["cuda"][3])
         if runs["cuda"][0] != runs["cpu"][0] or not err < VL_LOGIT_TOL[route] \
-                or runs["cuda"][2] != want or runs["cpu"][2] != (0, 0):
+                or not top_ok or runs["cuda"][2] != want or runs["cpu"][2] != (0, 0):
             raise AssertionError(f"Qwen3-VL 2-block {route}: card vs CPU off")
-        out[route] = err
+        out["logits"][route] = err
     del p_cpu, p_gpu, towers
     torch.cuda.empty_cache()
     return out
+
+
+def _q8_cache_gap(torch, cpu, gpu) -> dict:
+    """The int8 cache after the image prefill, card against CPU: the int8
+    values (where they differ, by how many steps) and the f32 scales."""
+    n = diff = 0
+    steps = 0
+    s_err = 0.0
+    for a, b in zip(cpu, gpu):
+        for name in ("k", "v"):
+            d = (a[name].int() - b[name].int()).abs()
+            n += d.numel()
+            diff += int((d > 0).sum())
+            steps = max(steps, int(d.max()))
+            sa, sb = a[name + "_s"], b[name + "_s"]
+            s_err = max(s_err, float(((sa - sb).abs() / sa.abs().clamp_min(1e-30)).max()))
+    same = all(_same_tensors(torch, a, b) for a, b in zip(cpu, gpu))
+    log(f"int8 KV cache after the image prefill, card vs CPU: "
+        f"{'bytes equal' if same else 'bytes differ'}; {diff} of {n} int8 values differ "
+        f"({diff / n:.2e}), by at most {steps} step(s); scales max rel|d| {s_err:.2e}")
+    # the scales follow the f32 K/V, which the card and the CPU compute to
+    # ~1e-4 apart through the tower and the blocks; a value may round one
+    # step apart where x/s lies that close to a rounding boundary
+    if steps > 1 or diff > 1e-2 * n or s_err > 1e-2:
+        raise AssertionError("int8 KV cache: card and CPU quantized further apart than one "
+                             "rounding step on 1% of values, or scales 1% apart")
+    return {"values_differ": diff, "values": n, "max_steps": steps, "scale_rel": s_err}
 
 
 class KeyColourDetector:
@@ -1358,6 +1457,30 @@ def _nvr_summaries(qwen, n_cams: int, slots: int, seconds: float = 300.0) -> dic
     return {cam: (sums[cam][0] - alerts[cam][0], sums[cam][1]) for cam in sums}
 
 
+def _summary_layers(torch, qwen, lang, img, prompt, steps: int = 32) -> dict:
+    """The cooperative summary's layers apart, in milliseconds, each timed
+    with CUDA events after a sync (3 runs after a warm-up): the vision
+    tower alone; the image prefill (feed_image, which runs the tower, less
+    the tower); the prompt's prefill and first token; one greedy decode
+    step ((prompt + 1 + steps tokens) - (prompt + 1 token)) / steps."""
+    qwen.lang = lang
+    x = qwen.image_tensor(img)
+
+    def gen(n):
+        qwen.feed_image(img, reset=True)
+        for _ in lang.generate(prompt, temperature=0.0, cache_offset=qwen.start_pos,
+                               max_new=n):
+            pass
+    with torch.inference_mode():
+        tower = cuda_ms(lambda: qwen.vision.apply(qwen.vision.p, x), iters=3, warmup=1)
+        feed = cuda_ms(lambda: qwen.feed_image(img, reset=True), iters=3, warmup=1)
+        first = cuda_ms(lambda: gen(1), iters=3, warmup=1)
+        more = cuda_ms(lambda: gen(1 + steps), iters=3, warmup=1)
+    return {"vision_tower_ms": tower, "image_prefill_ms": feed - tower,
+            "prompt_prefill_first_token_ms": first - feed,
+            "decode_step_ms": (more - first) / steps}
+
+
 def phase12(torch):
     log("== phase 12: Qwen3-VL-2B alert summaries at full depth (28 + 24 blocks) in the "
         "port's NVR")
@@ -1368,9 +1491,7 @@ def phase12(torch):
     from clearcam_tpu_torch.ops.vit_attention import mha_flash
     t0 = time.time()
     cfg = qvl.qwen3vl_2b_cfg(28, 2048)
-    params = llm.quantize_params_int8(
-        llm.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda"))
-    torch.cuda.empty_cache()
+    params = llm.quantize_params_int8(_bf16_28_blocks(torch))
     tower = qvl.VisionTower(*qvl.vision_2b_random(), device="cuda")
     log(f"28-block language model (int8 weights) and 24-block vision tower (f32), "
         f"random from seed 0: {time.time() - t0:.1f} s")
@@ -1392,7 +1513,13 @@ def phase12(torch):
         r = fn()
         torch.cuda.synchronize()
         return r, {k: c.launches for k, c in counters.items()}
-    out = {"launches": {}, "summary_s": {}}
+    out = {"launches": {}, "summary_s": {}, "layers": {}}
+    img = np.random.default_rng(13).integers(0, 256, (*SUMMARY_RES, 3), np.uint8)
+    prompt = tok.encode("<|im_start|>user\nWhat has been detected on my CCTV camera? "
+                        "Write in one short sentence<|im_end|>\n<|im_start|>assistant\n")
+    for name in ("bf16 KV", "int8 KV"):
+        out["layers"][name] = _summary_layers(torch, qwen, langs[name], img, prompt)
+        log(f"summary by layer, {name}: {out['layers'][name]}")
     for name in ("bf16 KV", "int8 KV"):
         qwen.lang = langs[name]
         res, launches = counted(lambda: _nvr_summaries(qwen, 1, 0))
@@ -1413,6 +1540,19 @@ def phase12(torch):
         raise AssertionError(f"engine summaries: {res}")
     out["summary_s"]["engine, 4 alerts, slowest"] = secs[-1]
     out["launches"]["engine"] = launches
+    # the engine with speculative windows (plain attention: a window has
+    # G+1 queries); the summaries sample at TEMP, one token a window
+    os.environ["CLEARCAM_SPEC_LOOKUP"] = "4"
+    try:
+        res, launches = counted(lambda: _nvr_summaries(qwen, 1, 2))
+    finally:
+        del os.environ["CLEARCAM_SPEC_LOOKUP"]
+    (sec, text), = res.values()
+    log(f"summary through VLMServingEngine with CLEARCAM_SPEC_LOOKUP=4 (2 slots, bf16 KV): "
+        f"{sec:.2f} s from the alert to the notification; text {text!r}; launches {launches}")
+    if not text or launches["decode_attention_batch"] or launches["decode_attention"]:
+        raise AssertionError("spec summary: no text, or a decode kernel ran under spec")
+    out["summary_s"]["engine, spec 4"] = sec
     prompts = [list(r) for r in np.random.default_rng(12).integers(1, 150000, (8, 200))]
     kw = dict(kv_quant=True, use_pallas_decode=True)
     llm.generate_batch(params, cfg, [p[:40] for p in prompts], max_new=2, **kw)   # warm up
@@ -1446,12 +1586,231 @@ def phase12(torch):
 
 
 
+# ---------------------------------------------------------------------------
+# the FMA-rate probe and speculative serving
+
+PROBE_SOURCE = "clearcam_tpu_torch/csrc/vpu_probe.cu"
+PROBE_REPLACES = "clearcam_tpu/tools/vpu_probe.py:34"          # _kernel
+# probe kernel vs probe_reference, max |d|: f32 rounds each multiply-add
+# once on both sides (relative to max|plain|); bf16 __hfma2 rounds once
+# where the plain version rounds the product and the sum apart, so each
+# chain may settle a few ulps from the plain one's fixed point: within 1.0,
+# two bf16 ulps of the ~95 sum
+PROBE_TOL = {"float32": 1e-5, "bfloat16": 1.0}
+# the data sheet's CUDA-core peaks, FLOP/s (2 per multiply-add): f32, and
+# bf16 outside the tensor cores
+PROBE_PEAK = {"float32": 67e12, "bfloat16": 133.8e12}
+
+
+def _sass_fma_count(fun: str) -> dict:
+    """FFMA / HFMA2 instructions in the SASS of the probe kernel ``fun``
+    in the built library (cuobjdump), or {} where the toolkit has none."""
+    from clearcam_tpu_torch.ops import _build
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        log(f"cuobjdump not found beside nvcc ({tool}): SASS not checked")
+        return {}
+    text = subprocess.run([str(tool), "-sass", "-fun", fun, _build.last_build["path"]],
+                          capture_output=True, text=True, timeout=120).stdout
+    # bf16x2 multiply-adds issue on both the FMA pipe (HFMA2.BF16_V2) and
+    # the MMA pipe (HFMA2.MMA.BF16_V2); HFMA2.MMA without BF16 is a move
+    return {"FFMA": len(re.findall(r"\bFFMA\b", text)),
+            "HFMA2": len(re.findall(r"\bHFMA2(?:\.MMA)?\.BF16_V2\b", text)),
+            "lines": len(text.splitlines())}
+
+
+def phase13(torch):
+    log("== phase 13: the FMA-rate probe kernel vs plain on the card; tools/vpu_probe")
+    from clearcam_tpu_torch.tools import vpu_probe as vp
+    out = {"err": {}, "ms": {}}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        x = torch.ones((vp.ROWS, 128), dtype=dt, device="cuda")
+        got, ref = vp.probe(x), vp.probe_reference(x)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item() if name == "float32" else 1.0
+        log(f"probe {name} [{vp.ROWS},128] x {vp.ITERS} multiply-adds per chain: kernel "
+            f"{got[0, 0].item():.6f}, plain {ref[0, 0].item():.6f}, max|d| {err:.3e} "
+            f"(bound {PROBE_TOL[name]}{' x max|plain|' if name == 'float32' else ''})")
+        if not (torch.isfinite(got.float()).all() and err <= PROBE_TOL[name] * scale):
+            raise AssertionError(f"probe {name}: kernel vs plain {err}")
+        out["err"][name] = err
+        k = cuda_ms(lambda: vp.probe(x), iters=30, warmup=2)
+        p = cuda_ms(lambda: vp.probe_reference(x), iters=1, warmup=1)
+        flops = 2 * vp.macs_per_call()
+        out["ms"][name] = (k, p, None) + bound(2 * x.numel() * x.element_size(), flops,
+                                              PROBE_PEAK[name])
+        log(f"probe {name}: kernel {k:.4f} ms = {vp.macs_per_call() / k / 1e9:.2f} T "
+            f"multiply-adds/s ({flops / k / 1e9 / PROBE_PEAK[name] * 1e12:.0%} of the "
+            f"{PROBE_PEAK[name] / 1e12:.1f} TFLOP/s CUDA-core peak, bound "
+            f"{out['ms'][name][3]:.4f} ms); plain {p:.1f} ms")
+    from clearcam_tpu_torch.ops import _build
+    lines = _build.last_build["log"].splitlines()
+    for fun, op in (("vpu_probe_f32", "FFMA"), ("vpu_probe_bf16", "HFMA2")):
+        at = next((i for i, ln in enumerate(lines) if f"entry function '{fun}'" in ln), None)
+        used = next((ln.strip() for ln in lines[at:at + 4] if "Used" in ln), "") \
+            if at is not None else ""
+        m = re.search(r"Used (\d+) registers", used)
+        if m:
+            # 128-thread blocks: resident blocks per SM by registers (64 K a
+            # SM, allocated per warp in units of 256), threads (2048), blocks (32)
+            regs = -(-int(m.group(1)) * 32 // 256) * 256
+            blocks = min(65536 // (regs * 4), 2048 // 128, 32)
+            used += f"; {blocks} blocks of 128 threads per SM by ptxas's count"
+        n = _sass_fma_count(fun)
+        log(f"ptxas, {fun}: {used or 'not in the build log'}; SASS: {n}")
+        # the loop body: 8 chains x the 4-trip unroll, plus a remainder trip
+        if n and n[op] < 8 * 4:
+            raise AssertionError(f"{fun}: {n[op]} {op} in the SASS, the loop was cut")
+    # the tool as a user runs it
+    proc = subprocess.run([sys.executable, "-m", "clearcam_tpu_torch.tools.vpu_probe"],
+                          capture_output=True, text=True, timeout=300, cwd=str(ROOT),
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    if proc.returncode != 0:
+        raise AssertionError(f"tools/vpu_probe: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    log(f"python -m clearcam_tpu_torch.tools.vpu_probe: {line}")
+    res = json.loads(line)
+    for key in ("vpu_f32_tmacs", "vpu_bf16_tmacs", "conv1_ms_at_measured_bf16_rate"):
+        if not (np.isfinite(res[key]) and res[key] > 0):
+            raise AssertionError(f"tools/vpu_probe: {key} = {res[key]}")
+    log(f"probe rates against the CUDA-core peaks: f32 {res['vpu_f32_tmacs']:.2f} of "
+        f"{PROBE_PEAK['float32'] / 2e12:.1f} T multiply-adds/s, bf16 "
+        f"{res['vpu_bf16_tmacs']:.2f} of {PROBE_PEAK['bfloat16'] / 2e12:.1f}")
+    out["tool"] = res
+    return out
+
+
+def _spec_tokens(torch, engine, prompts, max_new, stagger=0):
+    """Each prompt's tokens through ``engine``, the requests admitted
+    ``stagger`` scheduler ticks apart."""
+    reqs = []
+    for p in prompts:
+        reqs.append(engine.submit(list(p), max_new=max_new))
+        for _ in range(stagger):
+            engine.step()
+    engine.run_until_idle()
+    return [r.wait(1) for r in reqs]
+
+
+def phase14(torch):
+    log("== phase 14: speculative serving: 2 blocks card vs CPU; 28 blocks int8; llm_bench")
+    from clearcam_tpu_torch.models import llm
+    from clearcam_tpu_torch.serving import ServingEngine
+    out = {}
+    # (a) 2 blocks at full width, f32, 3 requests admitted 2 ticks apart on
+    # 2 slots: a periodic prompt, a random one, and one repeated token whose
+    # greedy continuation cycles through 3 ids on these weights (found by
+    # generating from such prompts on the CPU), prompt lookup's regime; then
+    # that one alone on 1 slot. No lag, so no dispatch is a junk one
+    cfg = llm.qwen3_2b_cfg(2, 512)
+    p_cpu = _f32_2_blocks()
+    p_gpu = {k: v.cuda() for k, v in p_cpu.items()}
+    rng = np.random.default_rng(14)
+    pat = rng.integers(1, cfg.vocab_size, 7).tolist()
+    cycling = [141544] * 16
+    prompts = [pat * 6, rng.integers(1, cfg.vocab_size, 40).tolist(), cycling]
+    toks, stats = {}, {}
+    for dev, p, spec, batch in (("cpu", p_cpu, 4, prompts), ("cuda", p_gpu, 4, prompts),
+                                ("cuda", p_gpu, 0, prompts), ("cuda", p_gpu, 4, [cycling]),
+                                ("cuda", p_gpu, 0, [cycling])):
+        eng = ServingEngine(p, cfg, n_slots=len(batch) - 1 or 1, spec_lookup=spec,
+                            sync_lag=0, fetch_every=1)
+        toks[dev, spec, len(batch)] = _spec_tokens(torch, eng, batch, 24, stagger=2)
+        stats[dev, spec, len(batch)] = dict(eng.stats)
+    st, solo = stats["cuda", 4, 3], stats["cuda", 4, 1]
+    log(f"2-block Qwen3-1.7B widths f32, spec 4 vs no spec, 3 requests of 24 tokens on 2 "
+        f"slots: card spec {toks['cuda', 4, 3]}; equal to the CPU's spec tokens "
+        f"{toks['cuda', 4, 3] == toks['cpu', 4, 3]}, to the card's non-spec tokens "
+        f"{toks['cuda', 4, 3] == toks['cuda', 0, 3]}; {st['spec_emitted']} tokens emitted in "
+        f"{st['decode_steps']} decode dispatches (non-spec: "
+        f"{stats['cuda', 0, 3]['decode_steps']}); the cycling request alone: "
+        f"{solo['spec_emitted']} tokens in {solo['decode_steps']} dispatches (non-spec: "
+        f"{stats['cuda', 0, 1]['decode_steps']}), tokens equal "
+        f"{toks['cuda', 4, 1] == toks['cuda', 0, 1]}")
+    if not (toks["cuda", 4, 3] == toks["cpu", 4, 3] == toks["cuda", 0, 3]
+            and toks["cuda", 4, 1] == toks["cuda", 0, 1]
+            and st["spec_emitted"] > st["decode_steps"]
+            and solo["spec_emitted"] > solo["decode_steps"]):
+        raise AssertionError("2-block spec engine: tokens differ or no draft accepted")
+    out["2block"] = {"emitted": solo["spec_emitted"], "dispatches": solo["decode_steps"],
+                     "nonspec_dispatches": stats["cuda", 0, 1]["decode_steps"]}
+    del p_cpu, p_gpu
+    _SHARED.pop("f32_2", None)
+    torch.cuda.empty_cache()
+
+    # (b) 28 blocks, int8 weights, 8 slots: decode tokens/s with and without
+    # spec windows on the same prompts, 200 tokens: 4 random and 4 of one
+    # repeated token (random weights rarely repeat themselves on random
+    # text; repeated-token prompts make cycles likelier). Acceptance on
+    # random weights says nothing of real text's
+    cfg = llm.qwen3_2b_cfg(28, 8192)
+    params = llm.quantize_params_int8(_bf16_28_blocks(torch))
+    rng = np.random.default_rng(15)
+    prompts = np.concatenate([rng.integers(1, cfg.vocab_size, (4, 200)),
+                              np.repeat(rng.integers(1, cfg.vocab_size, (4, 1)), 200, 1)])
+    rates = {}
+    # spec 4 and no spec on the plain attention (the route spec runs); "q8":
+    # the int8 cache through decode_attention_batch_q8, no spec
+    for spec in (4, 0, "q8", "q8", 0, 4):
+        q8 = spec == "q8"
+        eng = ServingEngine(params, cfg, n_slots=8, state_dtype=torch.bfloat16,
+                            spec_lookup=0 if q8 else spec, kv_quant=q8,
+                            use_pallas_decode=q8)
+        _engine_tokens_per_s(torch, eng, prompts[:, :40], 4)          # warm up
+        e0, d0 = eng.stats["spec_emitted"], eng.stats["decode_steps"]
+        rate, steps, reqs = _engine_tokens_per_s(torch, eng, prompts, 48)
+        if not all(len(r.tokens) == 48 for r in reqs):
+            raise AssertionError("28-block spec engine: a request did not finish 48 tokens")
+        # tokens per dispatch over the timed decode, summed over the slots;
+        # the JAX tool's tokens_per_window: windows' emitted tokens (before
+        # the eos/max_new cut) per dispatch
+        per_dispatch = rate / steps
+        per_window = (eng.stats["spec_emitted"] - e0) / max(1, eng.stats["decode_steps"] - d0)
+        rates.setdefault(spec, []).append((rate, steps, per_dispatch))
+        log(f"28-block int8 engine, 8 slots, 200-token prompts, 48 new, "
+            f"{'int8 KV + q8 kernel' if q8 else f'bf16 KV, spec {spec}'}: {rate:.1f} "
+            f"decode tokens/s ({steps:.1f} dispatches/s, {1e3 / steps:.2f} ms each, "
+            f"{per_dispatch:.2f} tokens per dispatch"
+            + (f", tokens_per_window {per_window:.2f})" if spec == 4 else ")"))
+        del eng
+        torch.cuda.empty_cache()
+    out["28block"] = {str(k): [float(np.mean([x[i] for x in v])) for i in range(3)]
+                      for k, v in rates.items()}
+    r28 = out["28block"]
+    log(f"28-block spec 4 / no spec: decode tokens/s {r28['4'][0]:.1f} / {r28['0'][0]:.1f}; "
+        f"tokens per window per slot ~{r28['4'][2] / r28['0'][2]:.2f} (tokens per dispatch "
+        "over the non-spec engine's; random weights, not real text); int8 KV + q8 kernel "
+        f"decode step {1e3 / r28['q8'][1]:.2f} ms")
+    del params
+    _SHARED.pop("bf16_28", None)
+    torch.cuda.empty_cache()
+
+    # (c) the micro-benchmark as a user runs it
+    cmd = [sys.executable, "-m", "clearcam_tpu_torch.tools.llm_bench", "--blocks", "28",
+           "--modes", "int8,int8+kv8+pallas", "--decode-batch", "1,8", "--steps", "32"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=str(ROOT),
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    if proc.returncode != 0:
+        raise AssertionError(f"llm_bench: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    for x in proc.stdout.splitlines():
+        log(f"  llm_bench| {x}")
+    if len(lines) != 4 or not all(x.get("decode_tok_s", 0) > 0 for x in lines):
+        raise AssertionError(f"llm_bench: {proc.stdout[-2000:]}")
+    out["llm_bench"] = lines
+    return out
+
+
 def _post_json(url, body, timeout=300.0):
     return json.loads(_post(url, json.dumps(body).encode(), timeout))
 
 
-def phase9():
-    log("== phase 9: python -m clearcam_tpu_torch.tools.serve_llm --synthetic --int8 --pallas")
+def _serve_llm(flags: list, drive, names: tuple, blocks: int = 28) -> tuple:
+    """Boot ``python -m clearcam_tpu_torch.tools.serve_llm --synthetic``
+    with ``flags`` (``blocks`` blocks, ctx 8192, 8 slots), call ``drive(base_url)``,
+    stop it with SIGTERM, and return (the launch counts it printed for
+    ``names``, each >= 1, and drive's result)."""
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_llm_"))
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
@@ -1461,14 +1820,41 @@ def phase9():
     with open(out_path, "w") as out:
         proc = subprocess.Popen(
             [sys.executable, "-m", "clearcam_tpu_torch.tools.serve_llm", "--synthetic",
-             "--int8", "--pallas", "--blocks", "28", "--ctx", "8192", "--slots", "8",
+             *flags, "--blocks", str(blocks), "--ctx", "8192", "--slots", "8",
              "--port", str(port), "--data", str(tmp / "data")],
             env=env, cwd=str(tmp), stdout=out, stderr=subprocess.STDOUT)
-    result = {}
     try:
         health = _wait("/healthz", lambda: json.loads(_get(f"{base}/healthz", 2)),
                        proc, out_path, 400)
         log(f"/healthz after {time.time() - t0:.1f} s: {health}")
+        result = drive(base)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    text = out_path.read_text()
+    shutil.rmtree(tmp, ignore_errors=True)
+    for line in text.splitlines()[-12:]:
+        log(f"  server| {line}")
+    launches = {}
+    for name in names:
+        m = re.search(rf"^{name}\.launches=(\d+)$", text, re.M)
+        if m is None or int(m.group(1)) < 1:
+            raise AssertionError(f"the served path did not launch {name}: {m}")
+        launches[name] = int(m.group(1))
+    log(f"launches on the served path (serve_llm {' '.join(flags)}): {launches}")
+    return launches, result
+
+
+def phase9():
+    log("== phase 9: python -m clearcam_tpu_torch.tools.serve_llm --synthetic --int8 --pallas, "
+        "then --int8 --kv-quant --pallas")
+
+    def drive(base):
+        result = {}
         models = json.loads(_get(f"{base}/v1/models"))
         log(f"/v1/models: {[m['id'] for m in models['data']]}")
         g = _post_json(f"{base}/generate", {"prompt": "hello world", "max_new": 16})
@@ -1509,24 +1895,30 @@ def phase9():
         log(f"/v1/completions logprobs: {len(lp['tokens'])} tokens, token_logprobs "
             f"{[round(x, 3) for x in lp['token_logprobs']]}")
         result.update(http_tokens_per_s=toks / dt, json_reply=text)
-    finally:
-        proc.send_signal(signal.SIGTERM)
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=30)
-    text = out_path.read_text()
-    shutil.rmtree(tmp, ignore_errors=True)
-    for line in text.splitlines()[-30:]:
-        log(f"  server| {line}")
-    launches = {}
-    for name in ("quant_matmul", "decode_attention"):
-        m = re.search(rf"^{name}\.launches=(\d+)$", text, re.M)
-        if m is None or int(m.group(1)) < 1:
-            raise AssertionError(f"the served path did not launch {name}: {m}")
-        launches[name] = int(m.group(1))
-    log(f"launches on the served path: {launches}")
+        return result
+
+    launches, result = _serve_llm(["--int8", "--pallas"], drive,
+                                  ("quant_matmul", "decode_attention"))
+
+    def drive_q8(base):
+        """The int8-cache kernel route: one /generate and 4 concurrent ones."""
+        g = _post_json(f"{base}/generate", {"prompt": "int8 cache", "max_new": 16})
+        if g["tokens"] != 16 or not g["text"]:
+            raise AssertionError(f"/generate (--kv-quant --pallas): {g}")
+        import concurrent.futures as cf
+        with cf.ThreadPoolExecutor(4) as ex:
+            gs = list(ex.map(lambda i: _post_json(
+                f"{base}/generate", {"prompt": f"camera {i}", "max_new": 24}), range(4)))
+        if any(x["tokens"] != 24 for x in gs):
+            raise AssertionError(f"/generate x4 (--kv-quant --pallas): {gs}")
+        log(f"--kv-quant --pallas /generate: {g['tokens']} tokens, text {g['text']!r}; "
+            f"4 concurrent: {[x['tokens'] for x in gs]} tokens")
+        return g
+    # 4 blocks: the route is the same at any depth, and a 28-block boot
+    # costs ~70 s of weight draws
+    q8, _ = _serve_llm(["--int8", "--kv-quant", "--pallas"], drive_q8,
+                       ("quant_matmul", "decode_attention_batch_q8"), blocks=4)
+    launches["decode_attention_batch_q8"] = q8["decode_attention_batch_q8"]
     return launches, result
 
 
@@ -1560,12 +1952,14 @@ def main(argv=None) -> int:
     t0 = time.time()
     build_s = max_err = times = fps = launches = attn_err = attn_times = clip_fps = None
     kern = llm_errs = llm_tps = int4_launches = served = k10 = vl_errs = vlm = None
+    probe = spec = None
     phase_s = {}
 
     def run(n, fn, *a):
         t = time.time()
         r = fn(*a)
         phase_s[n] = round(time.time() - t, 1)
+        log(f"-- phase {n}: {phase_s[n]} s (total {time.time() - t0:.1f} s)")
         return r
     if 0 in phases:
         run(0, phase0, torch)
@@ -1593,17 +1987,29 @@ def main(argv=None) -> int:
         vl_errs = run(11, phase11, torch)
     if 12 in phases:
         vlm = run(12, phase12, torch)
+    if 13 in phases:
+        probe = run(13, phase13, torch)
+    if 14 in phases:
+        spec = run(14, phase14, torch)
     log(f"== done in {time.time() - t0:.1f} s (phases {phase_s}); build {build_s} s; detect "
         f"fps {fps}; image tower img/s (kernel, plain) {clip_fps}; 28-block int4 engine "
         f"decode tokens/s (kernel: True, plain: False) {llm_tps}; summaries "
-        f"{None if vlm is None else vlm['summary_s']}")
+        f"{None if vlm is None else vlm['summary_s']}; probe "
+        f"{None if probe is None else probe['tool']}; spec 28-block [tokens/s, "
+        f"dispatches/s, tokens per dispatch] {None if spec is None else spec['28block']}")
+    if vlm is not None:
+        print(json.dumps({"summary_layers_ms": vlm["layers"]}))
+    if vl_errs is not None:
+        print(json.dumps({"qwen3vl_2block_card_vs_cpu": vl_errs}))
     if phases != set(ALL_PHASES):
         return 0
     # the attention row: f32, the CLIP tower's dtype; times at one CROP_BATCH.
     # The LLM rows: times at the served decode shapes (8 slots, f32 residual
     # stream): x[8,2048] . W[6144,2048] for the quant kernels, the bf16 cache
     # with spread positions for decode attention; the summary slice's rows
-    # at phase 10's summary shapes, launches from phase 12's runs
+    # at phase 10's summary shapes, launches from phase 12's runs, the int8
+    # batch form's from phase 9's --kv-quant --pallas server; the probe's
+    # f32 tile, launches from phase 13's run of the tool
     def row(name, source, replaces, n, err, t):
         ms, plain, lib, bms, by = t
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1631,8 +2037,10 @@ def main(argv=None) -> int:
             vl["int8 KV"]["decode_attention_q8"], k10["err"]["decode_attention_q8"],
             k10["ms"]["decode_attention_q8"]),
         row("decode_attention_batch_q8", DEC_SOURCE, DECBQ8_REPLACES,
-            vl["generate_batch"]["decode_attention_batch_q8"],
+            served["decode_attention_batch_q8"],
             k10["err"]["decode_attention_batch_q8"], k10["ms"]["decode_attention_batch_q8"]),
+        row("vpu_probe", PROBE_SOURCE, PROBE_REPLACES, probe["tool"]["launches"],
+            probe["err"]["float32"], probe["ms"]["float32"]),
     ]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

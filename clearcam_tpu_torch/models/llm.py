@@ -9,9 +9,10 @@ int4 weight-only quantized linears (``ops.quant_matmul``); the batched
 decode-attention kernel as the decode step's attention
 (``use_pallas_decode``, ``ops.decode_attention``); penalties, logit bias,
 top-k/top-p/min-p, grammar masks and Gumbel-max sampling; echo logprob
-scoring; GGUF loading through the port's copy of ``io.gguf``. MoE,
-MLA and the GatedDeltaNet hybrid raise ``NotImplementedError`` (ROADMAP
-queue 1 item 9).
+scoring; speculative serving graphs (prompt-lookup verify windows drafted
+on the card, ``make_serving_fns(spec_lookup=G)``); GGUF loading through
+the port's copy of ``io.gguf``. MoE, MLA and the GatedDeltaNet hybrid
+raise ``NotImplementedError`` (ROADMAP queue 1 item 4).
 
 Where the JAX package threads a functional copy of the state through a
 jitted step and donates the old one (llm.py:1321-1326), the port writes the
@@ -110,7 +111,7 @@ def check_supported(cfg: TransformerConfig) -> None:
         if on:
             raise NotImplementedError(
                 f"{what} are not in clearcam_tpu_torch yet (ROADMAP queue 1 "
-                "item 9): the port runs dense GQA attention stacks")
+                "item 4): the port runs dense GQA attention stacks")
 
 
 def precompute_freqs(dim: int, end: int, theta: float) -> np.ndarray:
@@ -579,13 +580,14 @@ def upload(a, device) -> torch.Tensor:
 
 
 def make_serving_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
-                     constraints: bool = False):
-    """The serving graphs ``serving.engine.ServingEngine`` drives (the
-    non-speculative ones of clearcam_tpu.models.llm.make_serving_fns; the
-    speculative graphs are ROADMAP queue 1 item 9). Host inputs (tokens,
-    meta rows, sampling specs) arrive as numpy and are uploaded once per
-    call; device buffers (state, first_tok, counts, bias, the constraint
-    table and states) stay on the card.
+                     constraints: bool = False, kv_quant: bool = False,
+                     spec_lookup: int = 0):
+    """The serving graphs ``serving.engine.ServingEngine`` drives
+    (clearcam_tpu.models.llm.make_serving_fns). Host inputs (tokens, meta
+    rows, sampling specs) arrive as numpy and are uploaded once per call;
+    device buffers (state, first_tok, counts, bias, the constraint table
+    and states) stay on the card. spec_lookup=G returns the speculative
+    graphs instead (``_make_spec_serving_fns``).
 
     prefill_slot(params, state, first_tok[B], first_lp[B,1+2K],
                  tokens[1,CHUNK], slot, start_pos, n_real, samp[8], seed,
@@ -612,11 +614,29 @@ def make_serving_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
     and return the advanced grammar states last (serving/constrain.py).
 
     use_pallas_decode routes decode_all's attention through the batched
-    decode kernel (``ops.decode_attention``; its plain version on the CPU).
+    decode kernel (``ops.decode_attention``; its plain version on the CPU):
+    ``decode_attention_batch`` over f32/bf16 caches, or, with kv_quant,
+    ``decode_attention_batch_q8`` over the int8 cache and its scales (the
+    JAX package's graphs run this pair without the scales,
+    clearcam_tpu/models/llm.py:1316-1318; the port's are held to the JAX
+    engine's plain int8 route).
+
+    spec_lookup keeps the reference's exclusions (llm.py:1280-1288): no
+    constraints and no use_pallas_decode (a verify window has G+1 queries,
+    the decode kernels take one); SSM stacks are refused by
+    check_supported.
     """
     check_supported(cfg)
-    from ..ops.decode_attention import decode_attention_batch
-    kk = LP_K
+    if spec_lookup:
+        if use_pallas_decode:
+            raise ValueError(
+                "spec_lookup and use_pallas_decode are mutually exclusive (as in "
+                "clearcam_tpu/models/llm.py:1284): a verify window has G+1 queries, "
+                "the decode kernels take one")
+        if constraints:
+            raise ValueError("constrained decoding and spec_lookup are mutually exclusive "
+                             "(a drafted window has no per-position grammar state)")
+        return _make_spec_serving_fns(cfg, int(spec_lookup))
     _freqs = _freqs_per_device(cfg)
 
     def _con_mask(ctab, cst, extra_live=None):
@@ -632,16 +652,13 @@ def make_serving_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
 
     attn_impl = None
     if use_pallas_decode:
+        batch_impl = decode_attn_impl(True, kv_quant)
+
         def attn_impl(q, st, pos_vec, pads):              # [B,H,1,D] -> [B,H,1,D]
-            if "k_s" in st:
-                raise ValueError(
-                    "use_pallas_decode with an int8 KV cache in the serving graphs: "
-                    "the JAX package's graphs run this pair without the cache's "
-                    "scales, so the port's refuse it (serving.engine."
-                    "check_decode_route); generate_batch and Transformer run the "
-                    "int8 decode kernel")
-            return decode_attention_batch(q[:, :, 0].contiguous(), st["k"], st["v"],
-                                          pos_vec, pads)[:, :, None]
+            if ("k_s" in st) != kv_quant:
+                raise ValueError(f"serving graphs made with kv_quant={kv_quant} driven "
+                                 f"with {'an int8' if 'k_s' in st else 'a float'} KV cache")
+            return batch_impl(q, st, pos_vec, pads)
 
     @torch.inference_mode()
     def prefill_slot_c(params, state, first_tok, first_lp, tokens, slot, start_pos,
@@ -756,6 +773,176 @@ def make_serving_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
     return prefill_slot, decode_all, prefill_many
 
 
+def init_serving_aux(cfg: TransformerConfig, batch: int, device="cpu") -> dict:
+    """The speculative graphs' bookkeeping, on the card
+    (clearcam_tpu.models.llm.init_serving_aux):
+
+    - ``ids`` [B, S] int32: ids[b, p] is the token consumed at cache
+      position p of slot b (prefill chunks and verified windows record
+      here), so drafts come from the card's own history with no host round
+      trip (the engine reads tokens ``sync_lag`` steps late);
+    - ``pos`` [B] int32: each slot's next write position, set by prefill
+      (start + n_real) and advanced by each window by its accepted length
+      + 1, which the host cannot know when it dispatches;
+    - ``last`` [B] int32: each slot's last emitted token, the next window's
+      first input."""
+    dev = resolve_device(device)
+    return {"ids": torch.zeros((batch, cfg.max_context), dtype=torch.int32, device=dev),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "last": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def _device_lookup_draft(ids, pos, x0, gamma: int):
+    """Prompt-lookup drafts on the card (llm.py:1568-1590): for each row,
+    the ``gamma`` tokens that followed the most recent earlier occurrence of
+    the tail bigram (ids[pos-1], x0) in the consumed history; rows with no
+    match draft x0 repeated. Drafts only set the speed: every one is
+    verified. ids [B,S], pos [B], x0 [B] -> [B, gamma] int32."""
+    s = ids.shape[1]
+    q0 = ids.gather(1, torch.clamp_min(pos - 1, 0).long()[:, None])[:, 0]
+    hit = (ids[:, :-1] == q0[:, None]) & (ids[:, 1:] == x0[:, None])
+    p_idx = torch.arange(s - 1, device=ids.device)[None]
+    # p <= pos-3: strictly before the tail bigram, and its first
+    # continuation token (p+2) is consumed history, not junk past pos
+    m = torch.where(hit & (p_idx <= (pos - 3)[:, None]), p_idx, -1).amax(1)
+    gidx = torch.clamp(m[:, None] + 2 + torch.arange(gamma, device=ids.device)[None], 0, s - 1)
+    d = ids.gather(1, gidx)
+    return torch.where((m >= 0)[:, None], d, x0[:, None]).to(torch.int32)
+
+
+def _window_index(starts, width: int, s: int) -> np.ndarray:
+    """[R, width] cache columns of windows at host ``starts``, each clamped
+    to end inside the cache (as the JAX package's dynamic_update_slice)."""
+    return np.minimum(np.asarray(starts, np.int64), s - width)[:, None] + np.arange(width)
+
+
+def _make_spec_serving_fns(cfg: TransformerConfig, g: int):
+    """Speculative continuous-batching graphs (make_serving_fns with
+    spec_lookup=G; clearcam_tpu.models.llm._make_spec_serving_fns).
+
+    Every decode dispatch verifies a (G+1)-token window per live slot, [the
+    current token, G drafts from ``_device_lookup_draft``], at per-row
+    positions, and advances each row by its accepted prefix + 1 (1..G+1
+    tokens a dispatch). Rows with temperature > 0, a penalty or a logit
+    bias accept nothing and emit their one sampled token. Exactness: in a
+    window, position j holds x_j and attends in-window to x_0..x_j only,
+    the true context of every accepted position; rejected positions' rows
+    are junk that the next window, starting at the first of them and G+1
+    wide, overwrites before any query reads them. Positions, histories and
+    the last tokens live on the card (``init_serving_aux``) and advance
+    there, so no call waits for the card. Non-live rows write nothing
+    (write_mask on every cache, ids and pos update). State and aux are
+    written in place.
+
+    prefill_slot(params, state, aux, first_tok, tokens[1,CHUNK], slot,
+                 start_pos, n_real, samp[8], seed, base_seed, cnt_p, cnt_o,
+                 bias) -> (first_tok', state, aux)
+        the non-speculative prefill chunk; also records the chunk's ids and
+        sets pos[slot] = start_pos + n_real.
+    decode_spec(params, state, aux, first_tok, meta[3,B] [live, inject,
+                seed], samp[B,8], base_seed, step, cnt_o, cnt_p, bias)
+        -> (out [B, G+2] int32, state, aux, cnt_o)
+        out[b, :G+1] = the candidates y_0..y_G (y_j the greedy token after
+        position pos+j; y_0 sampled on a stochastic row, its noise keyed by
+        (base_seed, seed, step)); out[b, G+1] = n_emit, the leading
+        candidates emitted (accepted + 1; 0 on a non-live row). The engine
+        reads it late and cuts at eos or max_new.
+    prefill_many(params, state, aux, first_tok, tokens[B,CHUNK],
+                 meta[4,B] [start, n_real, valid, seed], samp[B,8],
+                 base_seed, cnt_p, cnt_o, bias) -> (first_tok', state, aux)
+    """
+    s_len = cfg.max_context
+    _freqs = _freqs_per_device(cfg)
+    plain_slot, _, plain_many = make_serving_fns(cfg)
+    lp_rows: dict = {}
+
+    def _lp(first_tok):
+        """A scratch logprob row buffer: the speculative graphs keep none."""
+        key = (first_tok.device, first_tok.shape[0])
+        if key not in lp_rows:
+            lp_rows[key] = torch.zeros((first_tok.shape[0], 1 + 2 * LP_K),
+                                       device=first_tok.device)
+        return lp_rows[key]
+
+    def _record(aux, rows, starts, toks, dev):
+        """ids[rows, window at starts] = toks (host arrays)."""
+        idx = upload(_window_index(starts, toks.shape[1], s_len), dev)
+        aux["ids"][upload(np.asarray(rows, np.int64), dev)[:, None], idx] = \
+            upload(np.asarray(toks, np.int32), dev)
+
+    @torch.inference_mode()
+    def prefill_slot(params, state, aux, first_tok, tokens, slot, start_pos, n_real,
+                     samp, seed, base_seed, cnt_p, cnt_o, bias):
+        first_tok, _, state = plain_slot(params, state, first_tok, _lp(first_tok), tokens,
+                                         slot, start_pos, n_real, samp, seed, base_seed,
+                                         cnt_p, cnt_o, bias)
+        _record(aux, [int(slot)], [int(start_pos)], np.asarray(tokens), first_tok.device)
+        aux["pos"][int(slot)] = int(start_pos) + int(n_real)
+        return first_tok, state, aux
+
+    @torch.inference_mode()
+    def prefill_many(params, state, aux, first_tok, tokens, meta, samp, base_seed,
+                     cnt_p, cnt_o, bias):
+        first_tok, _, state = plain_many(params, state, first_tok, _lp(first_tok), tokens,
+                                         meta, samp, base_seed, cnt_p, cnt_o, bias)
+        meta = np.asarray(meta, np.int32)
+        rows = np.nonzero(meta[2] != 0)[0]
+        if len(rows):
+            dev = first_tok.device
+            _record(aux, rows, meta[0, rows], np.asarray(tokens)[rows], dev)
+            aux["pos"][upload(rows, dev)] = upload(meta[0, rows] + meta[1, rows], dev)
+        return first_tok, state, aux
+
+    @torch.inference_mode()
+    def decode_spec(params, state, aux, first_tok, meta, samp, base_seed, step, cnt_o,
+                    cnt_p, bias):
+        dev = first_tok.device
+        meta = np.asarray(meta, np.int32)
+        live_np = meta[0] != 0
+        m = upload(meta, dev)
+        live = m[0] != 0
+        # junk rows clamp; live rows never reach the clamp (the engine's
+        # capacity assert keeps a last window inside the cache)
+        pos = torch.clamp_max(aux["pos"], s_len - 1 - g)
+        x0 = torch.where(m[1] != 0, first_tok, aux["last"])
+        xs = torch.cat([x0[:, None], _device_lookup_draft(aux["ids"], pos, x0, g)], 1)
+        hidden, _ = forward(params, cfg, state, xs, pos, _freqs(dev), write_mask=live_np)
+        h = F.rms_norm(hidden, params["output_norm.weight"], cfg.norm_eps)
+        logits = F.linear(h, params["output.weight"])                  # [B, G+1, V]
+        y = torch.argmax(logits.float(), -1).to(torch.int32)
+        b_n = xs.shape[0]
+        # the consumed token joins its row's output histogram before sampling
+        cnt_o.index_put_((torch.arange(b_n, device=dev), x0.long()), live.to(cnt_o.dtype),
+                         accumulate=True)
+        samp_np = np.asarray(samp, np.float32).reshape(-1, SAMP_W)
+        # penalties and a bias move the greedy argmax, so such rows cannot
+        # ride the greedy verification: one sampled token a window
+        stoch_np = ((samp_np[:, 0] > 0) | (samp_np[:, 4] != 0) | (samp_np[:, 5] != 0)
+                    | (samp_np[:, 6] != 1) | (samp_np[:, 7] != 0))
+        acc = torch.cumprod((xs[:, 1:] == y[:, :-1]).to(torch.int32), 1).sum(1)
+        if (stoch_np & live_np).any():
+            stoch = upload(stoch_np, dev)
+            sampled = sample_filtered(
+                logits[:, 0], upload(samp_np, dev),
+                row_noise(base_seed, meta[2], [int(step)] * b_n, cfg.vocab_size, dev),
+                cnt_p, cnt_o, bias, flags=samp_flags(samp_np))
+            y[:, 0] = torch.where(stoch, sampled.to(torch.int32), y[:, 0])
+            acc = torch.where(stoch, 0, acc)
+        n_emit = torch.where(live, acc + 1, 0).to(torch.int32)
+        rows = np.nonzero(live_np)[0]
+        if len(rows):
+            r = upload(rows, dev)
+            idx = pos[r][:, None] + torch.arange(g + 1, device=dev)
+            aux["ids"][r[:, None], idx] = xs[r]
+        aux["pos"].copy_(torch.where(live, torch.clamp_max(pos + acc + 1, s_len - 1 - g),
+                                     aux["pos"]))
+        aux["last"].copy_(torch.where(live, y.gather(1, acc[:, None].long())[:, 0],
+                                      aux["last"]))
+        return torch.cat([y, n_emit[:, None]], 1), state, aux, cnt_o
+
+    return prefill_slot, decode_spec, prefill_many
+
+
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
@@ -811,7 +998,7 @@ def quantize_params_int8(p: dict, min_dim: int = 256) -> dict:
     for k, v in p.items():
         if k.endswith("_exps.weight"):
             raise NotImplementedError("MoE expert stacks are not in "
-                                      "clearcam_tpu_torch yet (ROADMAP queue 1 item 9)")
+                                      "clearcam_tpu_torch yet (ROADMAP queue 1 item 4)")
         if (k.endswith(".weight") and k != "token_embd.weight"
                 and isinstance(v, torch.Tensor) and v.dim() == 2
                 and min(v.shape) >= min_dim):
@@ -853,7 +1040,7 @@ def params_from_jax(params: dict, device="cpu", dtype=None) -> dict:
                                   v.out_features, v.in_features).to(dev)
         elif kind == "QuantExpert":
             raise NotImplementedError("MoE expert stacks are not in "
-                                      "clearcam_tpu_torch yet (ROADMAP queue 1 item 9)")
+                                      "clearcam_tpu_torch yet (ROADMAP queue 1 item 4)")
         else:
             t = _to_torch(v).to(dev)
             out[k] = t.to(dtype) if dtype is not None and t.is_floating_point() else t

@@ -47,6 +47,8 @@ SIGNATURES = {
     # KvH, S, scale, q/out dtype, cache dtype, stream
     "decode_attention_forward": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _F, _I, _I, _P], _I),
+    # x, out, elements, FMAs per chain, dtype, stream
+    "vpu_probe_forward": ([_P, _P, _I, _I, _I, _P], _I),
     "cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -842,7 +842,7 @@ class NVR:
         if self.llm_mesh is not None:
             raise NotImplementedError(
                 "a multi-device summary engine (llm_mesh) is not in "
-                "clearcam_tpu_torch yet (ROADMAP queue 1 item 13)")
+                "clearcam_tpu_torch yet (ROADMAP queue 1 item 7)")
         if self._summary_engine is None:
             from ..serving.vlm import VLMServingEngine
             # bf16 KV: the slots' cache is additional to the solo

@@ -14,6 +14,15 @@ are not decoding: a free slot rides every decode step at its park
 position (0, or its history length under prefix reuse), where junk K/V is
 rewritten before any causal mask can reach it.
 
+Speculative serving (``spec_lookup=G``, llm.make_serving_fns): each decode
+dispatch verifies a (G+1)-token window per live slot, drafted on the card
+from the slot's own history, and emits 1..G+1 tokens (greedy rows; a
+stochastic row emits one). The positions advance on the card by the
+accepted length, so the host's cursor stops at the prompt's end and the
+lagged records carry [G+2] candidate rows that the host cuts at eos or
+max_new. Not with constraints, logprobs, seeds or use_pallas_decode, as in
+the reference.
+
 Lagged token streaming: sampled tokens chain step to step on the card
 (first_tok and prev_tok), and the host reads them ``sync_lag`` ticks late.
 Every ``fetch_every`` decode steps the tokens are stacked into one [k, B]
@@ -27,8 +36,10 @@ What changed from the JAX engine: the lagged fetch (copy_to_host_async and
 a jitted stack) is the pinned copy + event above; the jitted row writers
 (``_cupd``, ``_cnt_row_set``) are in-place tensor writes; the serving
 state is preallocated and written in place (no donation); the scheduler
-thread sets its CUDA device before its first launch. Speculative decoding
-(``spec_lookup``) is ROADMAP queue 1 item 9 and raises.
+thread sets its CUDA device before its first launch; ``kv_quant`` with
+``use_pallas_decode`` runs the int8 decode kernel with the cache's scales
+(the JAX engine's graphs drop them); ``spec_lookup`` with
+``use_pallas_decode`` raises where the JAX engine turns spec off.
 """
 from __future__ import annotations
 
@@ -155,21 +166,6 @@ class _Fetch:
 _FREE, _PREFILL, _LIVE = 0, 1, 2
 
 
-def check_decode_route(kv_quant: bool, use_pallas_decode: bool) -> None:
-    """Refuse an int8 KV cache under the batched decode kernel in the
-    engine. The port has the int8 kernel (``decode_attention_batch_q8``,
-    which ``generate_batch`` runs), but the JAX engine runs this pair
-    without the k_s/v_s scales (clearcam_tpu/models/llm.py:1316-1318), so
-    the engine refuses it rather than serve a route the reference gets
-    wrong."""
-    if kv_quant and use_pallas_decode:
-        raise ValueError(
-            "kv_quant with use_pallas_decode in the serving engine: the JAX "
-            "engine runs this pair without the int8 cache's scales, so the "
-            "port's engine refuses it (generate_batch and Transformer run the "
-            "int8 decode kernel)")
-
-
 class ServingEngine:
     """Continuous-batching engine: ``submit()`` from any thread; tokens come
     from interleaved prefill/decode ticks (``step()``, or the background
@@ -188,11 +184,9 @@ class ServingEngine:
                  device=None):
         assert cfg.max_context % llm.CHUNK == 0
         llm.check_supported(cfg)
-        if spec_lookup:
-            raise NotImplementedError(
-                "speculative serving (spec_lookup) is not in clearcam_tpu_torch "
-                "yet (ROADMAP queue 1 item 9)")
-        check_decode_route(kv_quant, use_pallas_decode)
+        # device-drafted (G+1)-token verify windows, 1..G+1 tokens a dispatch;
+        # make_serving_fns refuses them with use_pallas_decode
+        self.spec = int(spec_lookup)
         self.params = params
         self.cfg = cfg
         self.device = torch.device(device) if device is not None else \
@@ -213,6 +207,10 @@ class ServingEngine:
             self._clock = 0
             init_rows = sum(c.trans.shape[0] for c in (constraints or {}).values())
             total = init_rows + max(0, int(constraint_rows))
+            if total and self.spec:
+                raise ValueError(
+                    "constrained decoding unsupported with spec_lookup (a drafted "
+                    "verify window has no per-position grammar state)")
             if total == 0:
                 self._ctab = torch.zeros((1, cfg.vocab_size), dtype=torch.int16,
                                          device=dev)
@@ -236,7 +234,7 @@ class ServingEngine:
             # runtime-registered grammars stay out of the fingerprint: the HTTP
             # layer names them by content hash
             self.fingerprint_cfg = (n_slots, str(state_dtype).replace("torch.", ""),
-                                    bool(kv_quant), 0, bool(use_pallas_decode),
+                                    bool(kv_quant), self.spec, bool(use_pallas_decode),
                                     tuple(sorted(self._cstarts)))
             self.hist: list[list[int]] = [[] for _ in range(n_slots)]
             self.stats = {"prefill_chunks": 0, "prefill_tokens": 0,
@@ -248,12 +246,14 @@ class ServingEngine:
             self._restart_marks: deque[float] = deque()
             self.prefill_slot, self.decode_all, self.prefill_many = \
                 llm.make_serving_fns(cfg, use_pallas_decode=use_pallas_decode,
-                                     constraints=True)
+                                     constraints=not self.spec, kv_quant=kv_quant,
+                                     spec_lookup=self.spec)
             if not prefill_batch:
                 self.prefill_many = None     # always one slot-chunk per tick
             self._state_dtype, self._kv_quant = state_dtype, kv_quant
             self.state = llm.init_state(cfg, batch=n_slots, dtype=state_dtype,
                                         kv_quant=kv_quant, device=dev)
+            self.aux = llm.init_serving_aux(cfg, n_slots, device=dev) if self.spec else None
             self.custom_prefill = custom_prefill     # (state, slot, pos, payload)
             self.phase = [_FREE] * n_slots
             self.req: list[Request | None] = [None] * n_slots
@@ -322,7 +322,13 @@ class ServingEngine:
                constraint: str | None = None) -> Request:
         """Queue a request (see Request). timeout_s: a waiting request is
         dropped at its deadline, a running one retired with its partial
-        tokens. Raises QueueFull when the queue is at ``max_waiting``."""
+        tokens. Raises QueueFull when the queue is at ``max_waiting``.
+        Under speculative serving constraints, logprobs and seeds raise (the
+        lagged fetch carries candidate windows, not per-step rows)."""
+        if self.spec and (constraint is not None or logprobs or seed is not None):
+            what = "constraint" if constraint is not None else \
+                "logprobs" if logprobs else "seed"
+            raise ValueError(f"{what} unsupported with spec_lookup")
         if constraint is not None and constraint not in self._cstarts:
             raise ValueError(f"engine has no constraint {constraint!r} "
                              f"(registered: {sorted(self._cstarts) or 'none'})")
@@ -343,7 +349,8 @@ class ServingEngine:
         r.t_submit = time.monotonic()
         if timeout_s is not None:
             r.deadline = r.t_submit + timeout_s
-        assert r.total_len + max_new <= self.cfg.max_context, \
+        # spec windows are G+1 wide: the last real one must fit in the cache
+        assert r.total_len + max_new + self.spec <= self.cfg.max_context, \
             "prompt+max_new overflow ctx"
         # every text chunk writes CHUNK wide at its start; a start past
         # S - CHUNK would run past the cache
@@ -541,6 +548,9 @@ class ServingEngine:
                 self.state = llm.init_state(self.cfg, batch=self.n_slots,
                                             dtype=self._state_dtype,
                                             kv_quant=self._kv_quant, device=self.device)
+                if self.spec:
+                    self.aux = llm.init_serving_aux(self.cfg, self.n_slots,
+                                                    device=self.device)
                 self._cnt_p.zero_()
                 self._cnt_o.zero_()
                 self._bias.zero_()
@@ -714,13 +724,14 @@ class ServingEngine:
 
     def _flush_acc(self) -> None:
         """Stack the accumulated decode steps' tokens (and logprob rows)
-        into one [k, B] tensor, start its host copy, and queue one pending
-        record for all k steps."""
+        into one [k, B] tensor ([k, B, G+2] windows under spec), start its
+        host copy, and queue one pending record for all k steps."""
         if not self._acc:
             return
         with torch.inference_mode():
             toks = _Fetch(torch.stack([t for _, _, t, _ in self._acc]))
-            lps = _Fetch(torch.stack([lp for _, _, _, lp in self._acc]))
+            lps = None if self.spec else \
+                _Fetch(torch.stack([lp for _, _, _, lp in self._acc]))
         self._pending.append(("decs", [(e, m) for e, m, _, _ in self._acc],
                               toks, lps, self._step_n))
         self._acc = []
@@ -732,7 +743,7 @@ class ServingEngine:
             k, b, ep, tok, lp, born = rec
             return (k, b, ep, tok.numpy(), lp.numpy(), born)
         k, metas, toks, lps, born = rec
-        return (k, metas, toks.numpy(), lps.numpy(), born)
+        return (k, metas, toks.numpy(), None if lps is None else lps.numpy(), born)
 
     def _process(self, rec) -> None:
         """Emit a materialized record's tokens (under the lock)."""
@@ -741,13 +752,25 @@ class ServingEngine:
             if self.phase[b] == _LIVE and self.epoch[b] == ep:
                 self._emit(b, int(tok[b]), lp[b])
             return
-        _, metas, arr, lp_arr, _born = rec            # [k, B], [k, B, 1+2K]
+        _, metas, arr, lp_arr, _born = rec    # [k, B] or [k, B, G+2]; [k, B, 1+2K]
         for j, (epochs, mask) in enumerate(metas):
             # a retirement at step j bumps the slot's epoch, so its later
             # rows in this record drop
             for b in range(self.n_slots):
-                if mask[b] and self.phase[b] == _LIVE and self.epoch[b] == epochs[b]:
+                if not (mask[b] and self.phase[b] == _LIVE and self.epoch[b] == epochs[b]):
+                    continue
+                if not self.spec:
                     self._emit(b, int(arr[j, b]), lp_arr[j, b])
+                    continue
+                # a window's n_emit leading candidates; a retirement inside
+                # it (eos, max_new, deadline) drops the rest, and what the
+                # card consumed past the stop is never claimed as history
+                n = min(int(arr[j, b, -1]), self.spec + 1)
+                self.stats["spec_emitted"] += max(n, 0)
+                for t in arr[j, b, :n]:
+                    if self.phase[b] != _LIVE or self.epoch[b] != epochs[b]:
+                        break
+                    self._emit(b, int(t))
 
     def _first_record(self, b: int, fetched: list) -> None:
         """Queue slot b's first token; the tick's host copy of first_tok
@@ -789,11 +812,16 @@ class ServingEngine:
             self.stats["prefill_tokens"] += n
         self.stats["prefill_batched_steps"] += 1
         self._step_n += 1
-        self._upload_cinit()
-        self._first_tok, self._first_lp, self.state, self._cstate = self.prefill_many(
-            self.params, self.state, self._first_tok, self._first_lp, toks, meta,
-            self.samp, self._base_seed, self._cnt_p, self._cnt_o, self._bias,
-            self._ctab, self._cinit_dev, self._cstate)
+        if self.spec:
+            self._first_tok, self.state, self.aux = self.prefill_many(
+                self.params, self.state, self.aux, self._first_tok, toks, meta, self.samp,
+                self._base_seed, self._cnt_p, self._cnt_o, self._bias)
+        else:
+            self._upload_cinit()
+            self._first_tok, self._first_lp, self.state, self._cstate = self.prefill_many(
+                self.params, self.state, self._first_tok, self._first_lp, toks, meta,
+                self.samp, self._base_seed, self._cnt_p, self._cnt_o, self._bias,
+                self._ctab, self._cinit_dev, self._cstate)
         fetched: list = []
         with self._lock:
             for b, r, new_cur, seg_done in fin:
@@ -836,7 +864,7 @@ class ServingEngine:
             pre = sorted((b for b in range(self.n_slots) if self.phase[b] == _PREFILL),
                          key=lambda b: self._admit_seq[b])
             has_dec = any(self.phase[b] == _LIVE
-                          and self.cursor[b] <= self.cfg.max_context - 1
+                          and (self.spec or self.cursor[b] <= self.cfg.max_context - 1)
                           for b in range(self.n_slots))
 
         # chunked-prefill fairness: with both prefill and decode work,
@@ -876,14 +904,21 @@ class ServingEngine:
             self._step_n += 1
             self.stats["prefill_chunks"] += 1
             self.stats["prefill_tokens"] += n
-            self._upload_cinit()
-            self._first_tok, self._first_lp, self.state, self._cstate = \
-                self.prefill_slot(
-                    self.params, self.state, self._first_tok, self._first_lp,
+            if self.spec:
+                self._first_tok, self.state, self.aux = self.prefill_slot(
+                    self.params, self.state, self.aux, self._first_tok,
                     np.asarray([chunk], np.int32), b, cur, n, self.samp[b],
-                    int(self._seed_np[b]), self._base_seed, self._cnt_p,
-                    self._cnt_o, self._bias, self._ctab, self._cinit_dev,
-                    self._cstate)
+                    int(self._seed_np[b]), self._base_seed, self._cnt_p, self._cnt_o,
+                    self._bias)
+            else:
+                self._upload_cinit()
+                self._first_tok, self._first_lp, self.state, self._cstate = \
+                    self.prefill_slot(
+                        self.params, self.state, self._first_tok, self._first_lp,
+                        np.asarray([chunk], np.int32), b, cur, n, self.samp[b],
+                        int(self._seed_np[b]), self._base_seed, self._cnt_p,
+                        self._cnt_o, self._bias, self._ctab, self._cinit_dev,
+                        self._cstate)
             with self._lock:
                 self.cursor[b] = cur + n
                 if off + n == len(toks):
@@ -898,8 +933,25 @@ class ServingEngine:
         else:
             self._prefer_decode = False
             dec = [b for b in range(self.n_slots)
-                   if self.phase[b] == _LIVE and self.cursor[b] <= self.cfg.max_context - 1]
-            if dec:
+                   if self.phase[b] == _LIVE
+                   and (self.spec or self.cursor[b] <= self.cfg.max_context - 1)]
+            if dec and self.spec:
+                mask = np.zeros(self.n_slots, bool)
+                mask[dec] = True
+                self.stats["decode_steps"] += 1
+                self._step_n += 1
+                # positions live on the card under spec (each window advances
+                # its row by a length only the card knows): [live, inject, seed]
+                meta = np.stack([mask, self._inject, self._seed_np]).astype(np.int32)
+                self._inject[:] = False
+                out_dev, self.state, self.aux, self._cnt_o = self.decode_all(
+                    self.params, self.state, self.aux, self._first_tok, meta, self.samp,
+                    self._base_seed, self._step_n, self._cnt_o, self._cnt_p, self._bias)
+                self._acc.append((tuple(self.epoch), mask, out_dev, None))
+                if len(self._acc) >= self.fetch_every:
+                    self._flush_acc()
+                did = True
+            elif dec:
                 mask = np.zeros(self.n_slots, bool)
                 mask[dec] = True
                 self.stats["decode_steps"] += 1

@@ -35,15 +35,18 @@ ALERT_JSON_PROMPT = (
 class VLMServingEngine:
     """Wraps ServingEngine with Qwen3-VL image segments + chat template.
     The engine's decode attention takes the route of ``qwen.lang``
-    (``use_pallas_decode``: the batched decode kernel). ``mesh`` must be
-    None (multi-device serving is not in the port yet);
-    ``CLEARCAM_SPEC_LOOKUP`` > 0 raises, as the port's engine does."""
+    (``use_pallas_decode``: the batched decode kernel, its int8 form when
+    the engine is given ``kv_quant``). ``CLEARCAM_SPEC_LOOKUP=G`` > 0 serves with speculative
+    verify windows (greedy summaries gain; sampled ones emit a token a
+    window), on the plain attention route, since the decode kernels take
+    one query, and without ``CLEARCAM_SUMMARY_JSON``. ``mesh`` must be None
+    (multi-device serving is not in the port yet)."""
 
     def __init__(self, qwen, n_slots: int = 2, mesh=None, **engine_kw):
         if mesh is not None:
             raise NotImplementedError(
                 "a multi-device VLMServingEngine (mesh) is not in clearcam_tpu_torch "
-                "yet (ROADMAP queue 1 item 13)")
+                "yet (ROADMAP queue 1 item 7)")
         self.qwen = qwen
         impl = qwen._image_prefill_impl
         slotted = llm.make_slot_transform(
@@ -55,11 +58,16 @@ class VLMServingEngine:
         # summaries lead with an image segment, so text-prefix reuse never
         # fires: off, so retired slots park at 0 (the shortest kernel window)
         engine_kw.setdefault("prefix_cache", False)
-        # decode attention on the route the language model was built for:
-        # the batched decode kernel where its Transformer runs the kernels
-        engine_kw.setdefault("use_pallas_decode", qwen.lang.use_pallas_decode)
+        # CLEARCAM_SPEC_LOOKUP=G: speculative verify windows (greedy requests
+        # only; Qwen summaries default to TEMP > 0, so this gains where a
+        # deployment pins temperature 0 for deterministic alerts)
         engine_kw.setdefault("spec_lookup", int(
             os.environ.get("CLEARCAM_SPEC_LOOKUP", "0") or 0))
+        # decode attention on the route the language model was built for
+        # (the batched decode kernel where its Transformer runs the
+        # kernels), except under spec: a window has G+1 queries
+        engine_kw.setdefault("use_pallas_decode", qwen.lang.use_pallas_decode
+                             and not engine_kw["spec_lookup"])
         self.json_summaries = bool(int(
             os.environ.get("CLEARCAM_SUMMARY_JSON", "0") or 0))
         if self.json_summaries and (engine_kw.get("spec_lookup")

@@ -4,7 +4,8 @@ the continuous-batching engine, with no NVR attached. The counterpart of
 ``python -m clearcam_tpu.tools.serve_llm``, with its flags and defaults:
 
     python -m clearcam_tpu_torch.tools.serve_llm --synthetic --int8 --pallas \\
-        [--blocks 28] [--ctx 8192] [--slots 8] [--port 8081] [--device cuda]
+        [--kv-quant] [--blocks 28] [--ctx 8192] [--slots 8] [--port 8081] [--device cuda]
+    python -m clearcam_tpu_torch.tools.serve_llm --synthetic --int8 --spec 4
 
     curl -N -X POST localhost:8081/generate \\
         -d '{"prompt": "hello", "max_new": 64, "stream": true}'
@@ -14,9 +15,11 @@ published widths (``models.llm.qwen3_2b_cfg``) with a byte-level stand-in
 tokenizer; ``--gguf`` loads a checkpoint with the shared GGUF reader and
 tokenizer. ``--int8`` quantizes the weights (the quant-matmul kernel),
 ``--pallas`` runs the decode step's attention through the batched
-decode-attention kernel. The HTTP server is the JAX package's jax-free
-one, copied into the port (``server.http``). On SIGTERM or SIGINT it stops
-and prints each kernel's launch count.
+decode-attention kernel (its int8 form with ``--kv-quant``), ``--spec G``
+serves speculative verify windows of G drafted tokens (greedy requests;
+not with ``--pallas``, whose kernels take one query). The HTTP server is
+the JAX package's jax-free one, copied into the port (``server.http``).
+On SIGTERM or SIGINT it stops and prints each kernel's launch count.
 """
 from __future__ import annotations
 
@@ -83,7 +86,7 @@ def build_engine(args):
     if args.int8:
         params = llm.quantize_params_int8(params)
     constraints = None
-    if args.json_depth > 0:
+    if args.json_depth > 0 and not args.spec:
         # the JSON grammar (response_format json_object): one [S, V] int16
         # table on the card
         import time
@@ -101,8 +104,9 @@ def build_engine(args):
     eng = ServingEngine(params, cfg, n_slots=args.slots, state_dtype=torch.bfloat16,
                         kv_quant=args.kv_quant, use_pallas_decode=args.pallas,
                         sync_lag=args.sync_lag, fetch_every=args.fetch_every,
-                        max_waiting=args.max_waiting, max_restarts=args.max_restarts,
-                        constraints=constraints, constraint_rows=args.constraint_rows,
+                        max_waiting=args.max_waiting, spec_lookup=args.spec,
+                        max_restarts=args.max_restarts, constraints=constraints,
+                        constraint_rows=0 if args.spec else args.constraint_rows,
                         device=dev)
     return TextServing(eng, tok)
 
@@ -123,11 +127,12 @@ def parse_args(argv=None):
     ap.add_argument("--int8", action="store_true",
                     help="int8 weight-only serving (the quant-matmul kernel)")
     ap.add_argument("--kv-quant", action="store_true",
-                    help="int8 KV cache (not with --pallas)")
+                    help="int8 KV cache (half the decode attention's bytes)")
     ap.add_argument("--pallas", action="store_true",
                     help="decode attention through the batched decode kernel")
     ap.add_argument("--spec", type=int, default=0,
-                    help="speculative decoding: not ported yet")
+                    help="speculative decoding: G-token device-drafted verify windows "
+                         "(greedy requests; excludes --pallas)")
     ap.add_argument("--sync-lag", type=int, default=4, dest="sync_lag",
                     help="decode steps tokens materialize late (pipeline depth)")
     ap.add_argument("--fetch-every", type=int, default=4, dest="fetch_every",
@@ -148,20 +153,18 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     if args.gguf is None and not args.synthetic:
         ap.error("--gguf PATH or --synthetic required")
-    if args.spec:
-        raise SystemExit("--spec: speculative serving is not in clearcam_tpu_torch "
-                         "yet (ROADMAP queue 1 item 9)")
+    if args.spec and args.pallas:
+        ap.error("--spec excludes --pallas: a verify window has G+1 queries, the "
+                 "decode kernels take one")
     if args.mesh > 1:
         raise SystemExit("--mesh: multi-device serving is not in clearcam_tpu_torch "
-                         "yet (ROADMAP queue 1 item 13)")
-    from ..serving.engine import check_decode_route
-    check_decode_route(args.kv_quant, args.pallas)     # before the model is built
+                         "yet (ROADMAP queue 1 item 7)")
     return args
 
 
 def main(argv=None):
     args = parse_args(argv)
-    from ..ops.decode_attention import decode_attention_batch
+    from ..ops.decode_attention import decode_attention_batch, decode_attention_batch_q8
     from ..ops.quant_matmul import quant_linear
 
     gen = build_engine(args)
@@ -188,6 +191,10 @@ def main(argv=None):
         gen.engine.close()
         print(f"quant_matmul.launches={quant_linear.launches}", flush=True)
         print(f"decode_attention.launches={decode_attention_batch.launches}", flush=True)
+        print(f"decode_attention_batch_q8.launches={decode_attention_batch_q8.launches}",
+              flush=True)
+        print(f"spec_emitted={gen.engine.stats['spec_emitted']} "
+              f"decode_steps={gen.engine.stats['decode_steps']}", flush=True)
 
 
 if __name__ == "__main__":

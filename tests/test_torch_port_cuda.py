@@ -468,3 +468,85 @@ def test_transformer_decode_kernels_gpu_match_cpu(cuda, kv):
     assert out["cpu"] == out["cuda"]
     assert (tdec.decode_attention_q8 if q8 else tdec.decode_attention).launches > 0
     assert (tdec.decode_attention_batch_q8 if q8 else tdec.decode_attention_batch).launches > 0
+
+
+def test_engine_kv_quant_decode_kernel_gpu_matches_cpu(cuda):
+    """The engine's int8-cache kernel route: decode_attention_batch_q8 with
+    the cache's scales on the card gives the CPU engine's tokens (its
+    plain version), and the card's plain int8 route's."""
+    from clearcam_tpu_torch.ops import decode_attention as tdec
+    from clearcam_tpu_torch.serving import ServingEngine
+    cfg = _small_llm_cfg()
+    prompts = [[1, 2, 3, 4, 5], list(range(10, 50)), [7, 7, 7]]
+    outs = {}
+    before = tdec.decode_attention_batch_q8.launches
+    for dev, pallas in (("cpu", True), ("cuda", True), ("cuda", False)):
+        p = tllm.quantize_params_int8(tllm.init_params(cfg, seed=5, device=dev))
+        eng = ServingEngine(p, cfg, n_slots=2, kv_quant=True, use_pallas_decode=pallas)
+        reqs = [eng.submit(pr, max_new=6) for pr in prompts]
+        eng.run_until_idle()
+        outs[dev, pallas] = [r.wait(1) for r in reqs]
+    assert outs["cpu", True] == outs["cuda", True] == outs["cuda", False]
+    assert tdec.decode_attention_batch_q8.launches > before
+
+
+def test_spec_engine_gpu_matches_cpu(cuda):
+    """Speculative windows on the card: the CPU's tokens, the non-spec
+    engine's, and more tokens than decode dispatches on a periodic prompt."""
+    from clearcam_tpu_torch.serving import ServingEngine
+    cfg = _small_llm_cfg()
+    prompts = [[5, 6, 7] * 8, list(range(10, 50)), [7, 7, 7]]
+    outs = {}
+    for dev, spec in (("cpu", 4), ("cuda", 4), ("cuda", 0)):
+        p = tllm.init_params(cfg, seed=5, device=dev)
+        eng = ServingEngine(p, cfg, n_slots=2, spec_lookup=spec, sync_lag=0, fetch_every=1)
+        reqs = [eng.submit(pr, max_new=24) for pr in prompts]
+        eng.run_until_idle()
+        outs[dev, spec] = [r.wait(1) for r in reqs]
+        if spec:
+            assert eng.stats["spec_emitted"] > eng.stats["decode_steps"]
+    assert outs["cpu", 4] == outs["cuda", 4] == outs["cuda", 0]
+
+
+@pytest.mark.parametrize("dtype,iters", [(torch.float32, 256), (torch.float32, None),
+                                         (torch.bfloat16, 256), (torch.bfloat16, None)])
+@pytest.mark.parametrize("kind", ["ones", "random"])
+def test_vpu_probe_kernel_matches_plain(cuda, dtype, iters, kind):
+    """The probe kernel against probe_reference on the same tile: f32
+    (FFMA, one rounding on both sides) within 1e-5 of max|plain|. bf16:
+    __hfma2 rounds once where the plain version rounds twice, and each
+    chain stops anywhere in a band of about ulp / (1 - c_j) around its
+    fixed point, so the two settle apart: on the tool's input (ones)
+    within 1.0, two bf16 ulps of the ~95 sum; on random inputs within 8
+    ulps of max|plain| (a CPU model of the fused form reaches 5 over
+    65,536 inputs in [0.25, 2])."""
+    from clearcam_tpu_torch.tools import vpu_probe as tvp
+    x = torch.ones((tvp.ROWS, 128), device=cuda) if kind == "ones" else \
+        torch.rand((tvp.ROWS, 128), device=cuda, generator=torch.Generator(
+            device="cuda").manual_seed(1)) + 0.5
+    x = x.to(dtype)
+    before = tvp.probe.launches
+    got = tvp.probe(x, iters)
+    ref = tvp.probe_reference(x, iters)
+    torch.cuda.synchronize()
+    assert tvp.probe.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape and torch.isfinite(got.float()).all()
+    err = (got.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-5 * top
+    else:
+        assert err <= (1.0 if kind == "ones" else 8 * 2.0 ** (np.floor(np.log2(top)) - 7))
+
+
+def test_vpu_probe_kernel_raises_on_bad_input(cuda):
+    from clearcam_tpu_torch.tools import vpu_probe as tvp
+    x = torch.ones((4, 128), device=cuda)
+    with pytest.raises(TypeError):
+        tvp.probe(x.half(), 8)
+    with pytest.raises(ValueError, match=r"\[N, 128\]"):
+        tvp.probe(torch.ones((4, 64), device=cuda), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        tvp.probe(torch.ones((128, 8), device=cuda).t(), 8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tvp.probe(x, 12)

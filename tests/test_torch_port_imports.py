@@ -54,7 +54,7 @@ def test_port_imports_with_jax_blocked():
         "server.http", "serving", "serving.engine", "serving.text",
         "serving.constrain", "serving.vlm", "cloud.relay", "io.gguf",
         "io.safetensors", "track.ocsort", "utils.db", "utils.llm_tokenizer",
-        "tools", "tools.serve_llm", "tools.parity")}
+        "tools", "tools.serve_llm", "tools.parity", "tools.llm_bench", "tools.vpu_probe")}
     assert expected <= names, expected - names
 
 

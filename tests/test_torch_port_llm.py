@@ -274,5 +274,5 @@ def test_other_block_families_raise(kw):
     cfg = port_cfg(tiny_cfg(**kw))
     for fn in (lambda: tllm.init_params(cfg), lambda: tllm.init_state(cfg),
                lambda: tllm.make_serving_fns(cfg)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
             fn()

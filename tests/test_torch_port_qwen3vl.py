@@ -279,6 +279,34 @@ def test_vlm_engine_concurrent_summaries_equal_solo():
                                    max_new=6) for f in frames]
 
 
+def test_vlm_engine_spec_lookup_serves(monkeypatch):
+    """CLEARCAM_SPEC_LOOKUP=3: the port's VLM engine serves speculative
+    windows on the plain attention route (its language model was built for
+    the decode kernel), and its greedy summaries equal the JAX VLM engine's
+    under the same setting and the port's non-speculative engine's."""
+    from clearcam_tpu.serving.vlm import VLMServingEngine as JaxVLM
+    from clearcam_tpu_torch.serving.vlm import VLMServingEngine
+    j, t = _vlms(pallas=True)
+    assert t.lang.use_pallas_decode
+    rng = np.random.default_rng(6)
+    frames = [rng.integers(0, 256, (64, 96, 3), np.uint8) for _ in range(2)]
+
+    def run(eng):
+        reqs = [eng.submit([f], "describe", max_new=10, temperature=0.0) for f in frames]
+        eng.run_until_idle()
+        return [r.wait(1) for r in reqs]
+
+    plain = run(VLMServingEngine(t, n_slots=2))
+    monkeypatch.setenv("CLEARCAM_SPEC_LOOKUP", "3")
+    monkeypatch.setenv("CLEARCAM_SUMMARY_JSON", "1")         # ignored under spec
+    eng = VLMServingEngine(t, n_slots=2)
+    assert eng.engine.spec == 3 and not eng.json_summaries
+    assert eng.engine.stats["decode_steps"] == 0
+    got = run(eng)
+    assert got == plain == run(JaxVLM(j, n_slots=2))
+    assert eng.engine.stats["spec_emitted"] >= sum(len(x) for x in got) - len(got)
+
+
 class ColorKeyDetector:
     """Finds the synthetic source's (40,180,240) box by colour and emits one
     class-0 detection per frame (tests/test_nvr.py's stand-in)."""
@@ -320,6 +348,35 @@ def test_nvr_summary_delivers_a_notification(tmp_path, slots):
     summaries = [n for n in notes if n[1].startswith("AI Summary")]
     assert summaries and isinstance(summaries[0][2], str), [n[1] for n in notes]
     assert (nvr._summary_engine is not None) == (slots > 0)
+
+
+def test_nvr_summary_under_spec_lookup(tmp_path, monkeypatch):
+    """With CLEARCAM_SPEC_LOOKUP set and summary slots, the NVR's first
+    alert gets its "AI Summary" through the speculative engine (the port
+    raised there before)."""
+    from clearcam_tpu_torch.runtime.nvr import NVR
+    from clearcam_tpu_torch.runtime.settings import GlobalSettings
+    from clearcam_tpu_torch.utils.db import KVStore
+    monkeypatch.setenv("CLEARCAM_SPEC_LOOKUP", "4")
+    _, t = _vlms()
+    db = KVStore(tmp_path / "kv.db")
+    db.run_put("links", "cam1", "synthetic://640x360")
+    notes = []
+    nvr = NVR(db, tmp_path / "data", GlobalSettings(userID="uid", key="k", use_qwen=True),
+              detector=ColorKeyDetector(), qwen=t, notifier=lambda *a: notes.append(a),
+              uploader=lambda **kw: True, summary_slots=2)
+    nvr.init_cam("cam1", "synthetic://640x360")
+    deadline = time.time() + 120
+    try:
+        while not any(n[1].startswith("AI Summary") for n in notes) \
+                and time.time() < deadline:
+            nvr.tick()
+            time.sleep(0.01)
+    finally:
+        nvr.stop()
+    assert any(n[1].startswith("AI Summary") for n in notes), [n[1] for n in notes]
+    assert nvr._summary_engine.engine.spec == 4
+    assert nvr._summary_engine.engine.stats["spec_emitted"] > 0
 
 
 def test_qwen3vl_loads_a_gguf_pair(tmp_path, monkeypatch):
