@@ -42,7 +42,10 @@ so the script exits non-zero:
      batched decode attention at B=8 H=16 KvH=8 S=8192 D=128, bf16 and
      f32 caches, per-row positions and pads, f32 q (max|d| < 1e-4) and
      bf16 q (< 2e-2); device times from CUDA-graph replays over operands
-     larger than L2, and GB/s against 3.35 TB/s
+     larger than L2 (decode attention: enough distinct caches that the
+     live K/V cycled passes 120 MB, at least 2), and per decode-attention
+     form its split plan, launches per call, GB/s of live K/V, share of the
+     bytes bound and ratio to scaled_dot_product_attention
   8  a 2-block Qwen3-1.7B-width model (vocab 151936), f32 weights, int8
      and int4, through prefill_slot, prefill_many and teacher-forced
      decode_all with the decode kernel: card vs CPU logprob rows and
@@ -66,7 +69,9 @@ so the script exits non-zero:
      live column) vs their plain versions, H=16 KvH=8 D=128, S 2048 and
      8192: f32 q max|d| < 1e-4 (the int8 forms on the same int8 bytes and
      scales), bf16 q < 2e-2; times at the summary path's shapes as CUDA-graph
-     replays over more than L2, GB/s of live K/V against 3.35 TB/s
+     replays over enough distinct caches that the live K/V cycled passes
+     120 MB (27, 52 and 28 caches), printed as in phase 7, and each
+     wrapper's host time per eager call (the enqueue time of 200 calls)
  11  a 2-block Qwen3-VL-2B-width model (2 language + 2 vision blocks, the
      deepstack at vision block 1), f32, card vs CPU: vision embeds and the
      deepstack feature (cosine > 1 - 1e-5 per row), then an image prefill
@@ -82,7 +87,9 @@ so the script exits non-zero:
      generate_batch B=8 with the int8 cache and its decode tokens/s; every
      decode-attention form, quant_matmul and vit_attention must launch; the
      summary by layer (vision tower, image prefill, prompt prefill, decode
-     step; CUDA events after a sync) for both caches, and one summary
+     step; CUDA events after a sync) for both caches, with the decode
+     step's kernel launches, kernel time and decode-attention time
+     (torch.profiler), and one summary
      through the engine with CLEARCAM_SPEC_LOOKUP=4, whose notification
      must arrive with no decode kernel launched
  13  the FMA-rate probe kernel (csrc/vpu_probe.cu) vs probe_reference at
@@ -111,7 +118,9 @@ is one (scaled_dot_product_attention, torch._weight_int8pack_mm). The last line 
 {"ok": true, "device": {...}}. Without CUDA, or outside the repository, it
 exits non-zero and prints no result.
 
-`--phases 0,1,2` runs a subset (the last line is then not printed).
+`--phases 0,1,2` runs a subset (the last line is then not printed);
+`--package DIR` runs the phases on the clearcam_tpu_torch of another
+checkout (e.g. the parent commit, for a before/after in one chip call).
 """
 from __future__ import annotations
 
@@ -204,7 +213,7 @@ def phase1():
     _build.load()
     b = _build.last_build
     log(f"build: {b['seconds']:.2f} s ({'cached' if b['cached'] else 'nvcc'}) "
-        f"-> {Path(b['path']).relative_to(ROOT)}")
+        f"-> {os.path.relpath(b['path'], ROOT)}")
     for line in b["log"].splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"  ptxas: {line.strip()}")
@@ -782,9 +791,37 @@ def _copies(torch, ql, nbytes: int) -> list:
                    for _ in range(n - 1)]
 
 
+def _distinct(pool: list, make, live: int) -> list:
+    """The first n operands of ``pool``, made with ``make()`` as needed, n
+    being enough (and at least 2) that the live bytes cycled, ``live`` per
+    operand, pass L2_FLUSH."""
+    n = max(2, -(-L2_FLUSH // live))
+    while len(pool) < n:
+        pool.append(make())
+    return pool[:n]
+
+
+DEC_LAUNCHES = 2        # kernel launches per decode-attention call: split, merge
+
+
+def _dec_line(dec, kt, pt, lib, bms, live, n, b, kvh, s) -> str:
+    """What phases 7 and 10 print per timed form: the split plan, launches
+    per call, GB/s of live K/V, the share of the bytes bound, the plain
+    version and the one-call yardstick (with its ratio to the kernel). A
+    package from before the split design (``--package``) has no plan: one
+    block walks each row, one launch a call."""
+    plan = getattr(dec, "plan", None)
+    chunk, splits = plan(b, kvh, s) if plan else (s, 1)
+    return (f"{splits} splits of {chunk} positions, {DEC_LAUNCHES if plan else 1} launches "
+            f"a call; kernel "
+            f"{kt:.4f} ms = {live / kt / 1e6:.0f} GB/s of live K/V ({bms / kt:.1%} of the "
+            f"bytes bound, {bms:.4f} ms), plain {pt:.4f} ms, scaled_dot_product_attention "
+            + ("none" if lib is None else f"{lib:.4f} ms = {lib / kt:.2f}x the kernel's time")
+            + f"; timed over {n} distinct caches, {n * live / 1e6:.0f} MB of live K/V")
+
+
 def phase7(torch):
     log("== phase 7: quant-matmul and decode-attention kernels vs plain on the card")
-    from clearcam_tpu_torch.ops import decode_attention as dec
     from clearcam_tpu_torch.ops import quant_matmul as qm
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"qm_err": {8: 0.0, 4: 0.0}, "qm_ms": {}, "dec_err": 0.0, "dec_ms": {}}
@@ -825,6 +862,15 @@ def phase7(torch):
                             f" of HBM), plain {p:.4f} ms")
             del ql, qls
         del w
+    _phase7_decode(torch, gen, out)
+    return out
+
+
+def _phase7_decode(torch, gen, out):
+    """The batched decode kernel against its plain version at B=8 H=16
+    KvH=8 S=8192, and its times over distinct caches (out["dec_err"],
+    out["dec_ms"])."""
+    from clearcam_tpu_torch.ops import decode_attention as dec
     b, h, kvh, s, d = 8, 16, 8, 8192, 128
     zeros = torch.zeros(b, dtype=torch.int32, device="cuda")
     spread = torch.tensor(DEC_POS, dtype=torch.int32, device="cuda")
@@ -835,8 +881,12 @@ def phase7(torch):
              "pos4096": (torch.full((b,), 4096, dtype=torch.int32, device="cuda"), zeros)}
     for cname, cdt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         q = torch.randn((b, h, d), generator=gen, device="cuda")
-        k, v = (torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(cdt)
-                for _ in range(2))
+
+        def make():
+            return tuple(torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(cdt)
+                         for _ in range(2))
+        pool = [make()]
+        k, v = pool[0]
         for case, (pos, pads) in cases.items():
             # q f32 (the model's residual stream); a bf16 q too, on a bf16 cache
             for qn, qq in [("float32", q)] + ([("bfloat16", q.bfloat16())]
@@ -853,21 +903,23 @@ def phase7(torch):
                 else:
                     log(f"decode attention {case}, bf16 q and cache: max|d| {err:.2e} "
                         f"(bound {DEC_TOL[qn]})")
-            live = int((pos - pads + 1).sum().item()) * kvh * d * 2 * k.element_size()
+            npos = int((pos - pads + 1).sum().item())
+            live = npos * kvh * d * 2 * k.element_size()
+            caches = _distinct(pool, make, live)
             kt, pt = _pair_ms(
-                [lambda: dec.decode_attention_batch_reference(q, k, v, pos, pads)] * 4,
-                [lambda: dec.decode_attention_batch(q, k, v, pos, pads)] * 4)
-            lib = _sdpa_decode_ms(torch, q, k, v, pos, pads) if cname == "bfloat16" else None
+                [lambda c=c: dec.decode_attention_batch_reference(q, *c, pos, pads)
+                 for c in caches],
+                [lambda c=c: dec.decode_attention_batch(q, *c, pos, pads) for c in caches])
+            lib = _sdpa_decode_ms(torch, q, caches, pos, pads) if cname == "bfloat16" else None
             nb = live + 2 * q.numel() * q.element_size()
-            ops = 4 * int((pos - pads + 1).sum().item()) * h * d
-            out["dec_ms"][(case, cname)] = (kt, pt, lib) + bound(nb, ops, PEAK["float32"])
+            bms, by = bound(nb, 4 * npos * h * d, PEAK["float32"])
+            out["dec_ms"][(case, cname)] = (kt, pt, lib, bms, by)
             log(f"decode attention B=8 H=16 KvH=8 S=8192 {cname} cache, {case}: max|d| "
-                f"{err32:.2e} (bound {DEC_TOL['float32']}); kernel {kt:.4f} ms = "
-                f"{live / kt / 1e6:.0f} GB/s of live K/V ({live / kt / 1e9 / HBM * 1e12:.0%} "
-                f"of HBM), plain {pt:.4f} ms (reads the whole cache)")
-        del k, v
-    torch.cuda.empty_cache()
-    return out
+                f"{err32:.2e} (bound {DEC_TOL['float32']}); "
+                + _dec_line(dec, kt, pt, lib, bms, live, len(caches), b, kvh, s)
+                + "; the plain version reads the whole cache")
+        del pool, k, v
+        torch.cuda.empty_cache()
 
 
 def _int8pack_ms(torch, qls, x, ref):
@@ -888,18 +940,19 @@ def _int8pack_ms(torch, qls, x, ref):
                      for c in qls])
 
 
-def _sdpa_decode_ms(torch, q, k, v, pos, pads):
+def _sdpa_decode_ms(torch, q, caches, pos, pads):
     """One ``scaled_dot_product_attention`` call computing the decode step
-    over a float cache: q [B,H,D] as [B,H,1,D] in the cache's dtype, the
-    live window as a boolean mask, grouped-query heads (``enable_gqa``)."""
-    b, h, d = q.shape
+    over a float cache, timed over the same distinct ``caches`` (k, v) as
+    the kernel: q [B,H,D] as [B,H,1,D] in the cache's dtype, the live
+    window as a boolean mask, grouped-query heads (``enable_gqa``)."""
+    k = caches[0][0]
     s = k.shape[2]
     cols = torch.arange(s, device=q.device)
     mask = ((cols[None] >= pads[:, None]) & (cols[None] <= pos[:, None]))[:, None, None]
     qq = q.to(k.dtype)[:, :, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return _yardstick(lambda: graph_ms(
-        [lambda: sdpa(qq, k, v, attn_mask=mask, enable_gqa=True)] * 4))
+        [lambda c=c: sdpa(qq, c[0], c[1], attn_mask=mask, enable_gqa=True) for c in caches]))
 
 
 def _yardstick(timed):
@@ -1232,16 +1285,25 @@ def phase10(torch):
         del kf, vf, kq, ks, vq, vs
     torch.cuda.empty_cache()
 
-    # times at the summary path's shapes, as CUDA-graph replays over enough
-    # cache copies to pass the 50 MB L2: one stream at the cooperative
-    # summary's depth (two images, a prompt and 60 tokens: ~1100 positions)
-    # over a bf16 or int8 cache of 2048; generate_batch's 8 rows at ~256
-    s, p1, n = 2048, 1100, 16
+    _phase10_times(torch, gen, out)
+    return out
+
+
+def _phase10_times(torch, gen, out):
+    """Times at the summary path's shapes, as CUDA-graph replays over enough
+    distinct caches that the live bytes cycled pass L2_FLUSH: one stream at
+    the cooperative summary's depth (two images, a prompt and 60 tokens:
+    ~1100 positions) over a bf16 or int8 cache of 2048; generate_batch's 8
+    rows at ~256 (out["ms"])."""
+    from clearcam_tpu_torch.ops import decode_attention as dec
+    h, kvh, d = 16, 8, 128
+    s, p1 = 2048, 1100
     q = torch.randn((h, d), generator=gen, device="cuda")
-    live1 = (p1 + 1) * kvh
+    live1 = (p1 + 1) * kvh                      # live (position, KV head) pairs
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    kv = [tuple(torch.randn((kvh, s, d), generator=gen, device="cuda").bfloat16()
-                for _ in range(2)) for _ in range(n)]
+    kv = _distinct([], lambda: tuple(torch.randn((kvh, s, d), generator=gen,
+                                                 device="cuda").bfloat16()
+                                     for _ in range(2)), live1 * d * 2 * 2)
     kt, pt = _pair_ms([lambda c=c: dec.decode_attention_reference(q, *c, p1) for c in kv],
                       [lambda c=c: dec.decode_attention(q, *c, p1) for c in kv])
     mask = (torch.arange(s, device="cuda") <= p1)[None, None, None]
@@ -1252,35 +1314,67 @@ def phase10(torch):
     nb = live1 * d * 2 * 2 + 2 * q.numel() * 4
     out["ms"]["decode_attention"] = (kt, pt, lib) + bound(nb, 4 * live1 * (h // kvh) * d,
                                                           PEAK["float32"])
+    counts = {"decode_attention": len(kv)}
     del kv
-    q8 = [tuple(t[0] for t in _q8_operands(torch, gen, 1, kvh, s)) for _ in range(2 * n)]
+    q8 = _distinct([], lambda: tuple(t[0] for t in _q8_operands(torch, gen, 1, kvh, s)),
+                   live1 * (d * 2 + 8))
     kt, pt = _pair_ms(
         [lambda c=c: dec.decode_attention_q8_reference(q, *c, p1) for c in q8],
         [lambda c=c: dec.decode_attention_q8(q, *c, p1) for c in q8])
     nb = live1 * (d * 2 + 8) + 2 * q.numel() * 4
     out["ms"]["decode_attention_q8"] = (kt, pt, None) + bound(
         nb, 4 * live1 * (h // kvh) * d, PEAK["float32"])
+    counts["decode_attention_q8"] = len(q8)
     del q8
     qb = torch.randn((8, h, d), generator=gen, device="cuda")
     pos = torch.full((8,), 256, dtype=torch.int32, device="cuda")
-    qb8 = [_q8_operands(torch, gen, 8, kvh, s) for _ in range(4)]
+    liveb = 8 * 257 * kvh
+    qb8 = _distinct([], lambda: _q8_operands(torch, gen, 8, kvh, s), liveb * (d * 2 + 8))
     kt, pt = _pair_ms(
         [lambda c=c: dec.decode_attention_batch_q8_reference(qb, *c, pos) for c in qb8],
         [lambda c=c: dec.decode_attention_batch_q8(qb, *c, pos) for c in qb8])
-    liveb = 8 * 257 * kvh
     nb = liveb * (d * 2 + 8) + 2 * qb.numel() * 4
     out["ms"]["decode_attention_batch_q8"] = (kt, pt, None) + bound(
         nb, 4 * liveb * (h // kvh) * d, PEAK["float32"])
+    counts["decode_attention_batch_q8"] = len(qb8)
     del qb8
+    # the host's cost of one eager call (the decode step is host-bound):
+    # the enqueue time of 200 calls, the card left to catch up after
+    k1, k8 = (torch.randn((b, kvh, s, d), generator=gen, device="cuda").bfloat16()
+              for b in (1, 8))
+    q8 = tuple(t[0] for t in _q8_operands(torch, gen, 1, kvh, s))
+    qb8 = _q8_operands(torch, gen, 8, kvh, s)
+    out["host_us"] = {
+        "decode_attention": _host_us(torch, lambda: dec.decode_attention(q, k1[0], k1[0], p1)),
+        "decode_attention_q8": _host_us(torch, lambda: dec.decode_attention_q8(q, *q8, p1)),
+        "decode_attention_batch_q8": _host_us(
+            torch, lambda: dec.decode_attention_batch_q8(qb, *qb8, pos)),
+        "decode_attention_batch": _host_us(
+            torch, lambda: dec.decode_attention_batch(qb, k8, k8, pos))}
+    del k1, k8, q8, qb8
     for name, (kt, pt, lib, bms, by) in out["ms"].items():
-        live = liveb if name.startswith("decode_attention_batch") else live1
-        per = d * 2 * (2 if name == "decode_attention" else 1) + (0 if name == "decode_attention" else 8)
-        log(f"{name} at the summary path's shape: kernel {kt:.4f} ms = "
-            f"{live * per / kt / 1e6:.0f} GB/s of live K/V ({live * per / kt / 1e9 / HBM * 1e12:.0%}"
-            f" of HBM), plain {pt:.4f} ms, one PyTorch call "
-            f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bms:.4f} ms ({by})")
+        b = 8 if name.startswith("decode_attention_batch") else 1
+        live = (liveb if b == 8 else live1) * (d * 4 if name == "decode_attention" else d * 2 + 8)
+        log(f"{name} at the summary path's shape (B={b} S={s}): "
+            + _dec_line(dec, kt, pt, lib, bms, live, counts[name], b, kvh, s)
+            + f"; host {out['host_us'][name]:.1f} us a call")
+    log(f"decode_attention_batch (B=8 S={s} bf16): host "
+        f"{out['host_us']['decode_attention_batch']:.1f} us a call")
     torch.cuda.empty_cache()
-    return out
+
+
+def _host_us(torch, fn, n: int = 200) -> float:
+    """Host microseconds per eager call of ``fn``: the time to enqueue n
+    calls after a sync, before the card has caught up."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def phase11(torch):
@@ -1462,7 +1556,9 @@ def _summary_layers(torch, qwen, lang, img, prompt, steps: int = 32) -> dict:
     with CUDA events after a sync (3 runs after a warm-up): the vision
     tower alone; the image prefill (feed_image, which runs the tower, less
     the tower); the prompt's prefill and first token; one greedy decode
-    step ((prompt + 1 + steps tokens) - (prompt + 1 token)) / steps."""
+    step ((prompt + 1 + steps tokens) - (prompt + 1 token)) / steps; and,
+    by the same difference under torch.profiler, the decode step's kernel
+    launches, their device time and the decode-attention kernels' share."""
     qwen.lang = lang
     x = qwen.image_tensor(img)
 
@@ -1476,9 +1572,29 @@ def _summary_layers(torch, qwen, lang, img, prompt, steps: int = 32) -> dict:
         feed = cuda_ms(lambda: qwen.feed_image(img, reset=True), iters=3, warmup=1)
         first = cuda_ms(lambda: gen(1), iters=3, warmup=1)
         more = cuda_ms(lambda: gen(1 + steps), iters=3, warmup=1)
+        k_first, k_more = _kernels(torch, lambda: gen(1)), _kernels(torch, lambda: gen(1 + steps))
+    per_step = [(b - a) / steps for a, b in zip(k_first, k_more)]
     return {"vision_tower_ms": tower, "image_prefill_ms": feed - tower,
             "prompt_prefill_first_token_ms": first - feed,
-            "decode_step_ms": (more - first) / steps}
+            "decode_step_ms": (more - first) / steps,
+            "launches_per_decode_step": per_step[0],
+            "kernel_ms_per_decode_step": per_step[1],
+            "decode_attention_ms_per_decode_step": per_step[2]}
+
+
+def _kernels(torch, fn) -> tuple:
+    """(kernels launched, their device ms, the decode-attention kernels'
+    device ms) in one call of ``fn``, from torch.profiler's CUDA rows."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in rows),
+            sum(e.self_device_time_total for e in rows) / 1e3,
+            sum(e.self_device_time_total for e in rows
+                if "decode_split" in e.key or "decode_merge" in e.key) / 1e3)
 
 
 def phase12(torch):
@@ -1938,16 +2054,24 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated subset of phases to run")
-    phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
+    ap.add_argument("--package", default=None,
+                    help="import clearcam_tpu_torch from this checkout instead (e.g. "
+                         "a parent commit unpacked with git archive), to time two "
+                         "versions with the same phases in one run")
+    args = ap.parse_args(argv)
+    phases = {int(p) for p in args.phases.split(",")}
+    if args.package:
+        sys.path.insert(0, str(Path(args.package).resolve()))
 
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
                  "this script needs an NVIDIA GPU")
     try:
-        import clearcam_tpu_torch  # noqa: F401
+        import clearcam_tpu_torch
     except ImportError as e:
         sys.exit(f"chip_smoke: run from the repository root ({e})")
+    log(f"package: {Path(clearcam_tpu_torch.__file__).parent}")
 
     t0 = time.time()
     build_s = max_err = times = fps = launches = attn_err = attn_times = clip_fps = None

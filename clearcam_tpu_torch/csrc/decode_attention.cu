@@ -9,48 +9,67 @@
 //   out[b, h] = sum_s p_s vs_s v_s / sum_s p_s,
 //   p = exp(score - max), score_s = (q . k_s / sqrt(D)) ks_s.
 //
-// Replaces: clearcam_tpu/ops/decode_attention.py `decode_attention_batch`
-// -> `_batch_kernel` (f32/bf16 caches) and `decode_attention_batch_q8` ->
-// `_batch_kernel_q8` (int8 caches), the Pallas TPU kernels of batched decode;
-// and, launched with B = 1 and no pads, `decode_attention` ->
+// Replaces four Pallas TPU kernels of clearcam_tpu/ops/decode_attention.py:
+// `decode_attention_batch` -> `_batch_kernel` (f32/bf16 caches) and
+// `decode_attention_batch_q8` -> `_batch_kernel_q8` (int8 caches), batched
+// decode; and, launched with B = 1 and no pads, `decode_attention` ->
 // `_chunked_kernel` and `decode_attention_q8` -> `_chunked_kernel_q8`, the
-// single-stream ones (the same function at B = 1). The TPU's batch kernel
-// walks every row from min(pads) to max(pos); here each block walks only
-// its own row's window, so a slot parked at position 0 reads one tile and a
-// long slot does not make the short ones read its length.
+// single-stream ones (the same function at B = 1).
 //
 // Layouts: q [B, H, D] and out [B, H, D] f32 or bf16 (out in q's type);
 // k, v [B, KvH, S, D] f32, bf16 or int8, contiguous; with int8, ks and vs
 // [B, KvH, S] f32; pos, pads [B] int32 on the card. D = 128; rep = H / KvH
-// <= 8. Any S (the TPU's S % 256 guarded its DMA, not the math).
+// <= 8. Any S.
 //
-// What bounds it: the bytes of the live K and V (a decode step reads each
-// cached element once and does 2 * rep FLOPs per element), so HBM
-// bandwidth. int8 halves those bytes against bf16 and adds 8 bytes of
-// scales per position and KV head. At 8 slots x 8 KV heads there are 64
-// blocks for 132 SMs, and one stream has 8: the card is not filled, and
-// per-SM load concurrency sets the rate. The next design step is splitting
-// each row's window over several blocks (flash-decoding) with a second pass
-// to merge the partial softmaxes.
+// What bounds it: the bytes of the live K and V. Per position and KV head a
+// step reads 4 D bytes of bf16 K + V (2 D of int8, plus 8 of scales) and
+// does 4 rep D FLOPs: rep FLOP/byte, 2 at Qwen3's rep = 2 and at most 8,
+// against the f32 CUDA cores' ridge of 67e12 / 3.35e12 = 20 FLOP/byte. So
+// HBM bandwidth bounds it, and the f32 CUDA cores do the math: tensor cores
+// (mma / wgmma) would buy nothing here and would round the f32 query, the
+// model's residual stream, to bf16.
 //
-// Design: one block of 256 threads (8 warps) per (KV head, row). The
-// window is walked in tiles of 64 positions. Each warp holds the rep
-// query rows (pre-scaled, f32) in registers, 4 dims per lane, and scores
-// 8 positions of the tile: 4 products per lane and a shuffle reduction.
-// The V tile is staged in shared memory as f32. The next tile's K and V
-// (and scales) are loaded into registers while this tile's softmax and PV
-// product run. int8 is widened to f32 only in registers: K's scale
-// multiplies the reduced score, V's scale the probability written for the
-// PV product (the running sum l takes the unscaled probability), so no
-// dequantized tile is written anywhere. Warp r keeps row r's running max
-// and sum (online softmax in f32); the PV product runs with thread
-// (d = tid % 128) owning output dim d of rows tid / 128, tid / 128 + 2, ...
-// A tile always holds at least one live column (tiles run from the one
-// holding pads[b] to the one holding pos[b]), and the max is still shifted
-// by a finite value if not, so no exp(-inf - -inf) is taken. A row with no
-// live column (pads > pos) gets zeros. Static shared memory (34.9 KB); the
-// kernel allocates nothing; `decode_attention_forward` returns
-// cudaGetLastError() after the launch.
+// Design: flash-decoding, two launches per call.
+// 1. `decode_split`, grid (split, KV head, row), 128 threads. The host-side
+//    plan (`plan` in ops/decode_attention.py) cuts the cache's positions
+//    into `splits` chunks of `chunk` positions (a multiple of TILE) from
+//    (B, KvH, S) alone, never from pos or pads, so a call can be captured
+//    in a CUDA graph and replayed with new positions. A block whose chunk
+//    misses its row's window pads[b]..pos[b] exits at once and writes
+//    nothing; the others walk their part of the window in tiles of TILE =
+//    32 positions and write f32 partials for their rep query heads: the
+//    running max m (log2 units), the sum l and acc[D]. The plan keeps the
+//    grid near 2,048 blocks, so the live blocks of a long window cover the
+//    132 SMs: at B = 1, KvH = 8, S = 2048, chunks of 64 (144 live blocks at
+//    pos 1100); at B = 8, KvH = 8, S = 8192, chunks of 256 (at most 8
+//    tiles of serial walk per block).
+// 2. `decode_merge`, grid (head, row), 128 threads (one per dim): over the
+//    splits that meet the window, out = sum_j 2^(m_j - M) acc_j /
+//    sum_j 2^(m_j - M) l_j with M = max_j m_j. A live split holds a live
+//    column, so l_j >= 1 for the largest m_j: no 0/0 and no exp(-inf - -inf).
+//    A row with no live column (pads > pos) meets no split and gets zeros.
+//
+// In a block, K and V tiles (and with int8 the scales) go through a ring of
+// STAGES slots in dynamic shared memory, filled with cp.async (16 bytes a
+// thread; 4 for a scale) in commit groups: STAGES - 1 tiles are in flight
+// while one is computed, and one __syncthreads per tile guards the ring.
+// Positions outside the window are zero-filled, not read. Each warp owns 8
+// positions of a tile and its own online softmax (m, l, acc for every query
+// head of the KV head), so warps never wait on each other inside the walk;
+// they merge in shared memory at the end. A lane holds 4 dims: it scores
+// the 8 positions with 8 independent partial dot products per query head,
+// folded over the warp by a transposed reduction (9 shuffles for 8 scores,
+// against 40 for one reduction each), which leaves position (lane >> 2) & 7
+// in every lane of its quad. The probabilities go through shared memory to
+// the PV product, whose 4 rep accumulators per lane take 8 dependent FMAs a
+// tile. q is pre-scaled by log2(e) / sqrt(D), so exp is exp2. int8 is
+// widened to f32 only in registers (the byte placed in the mantissa of
+// 2^23, exact): K's scale multiplies the reduced score, V's scale the
+// probability written for PV, and l takes the unscaled probability, so the
+// merge is the same for every cache type. The kernels allocate nothing: the
+// wrapper passes the partials' scratch. `decode_attention_prepare` raises
+// the dynamic shared-memory limit once per device; `decode_attention_forward`
+// returns cudaGetLastError() after the two launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,44 +79,43 @@
 namespace {
 
 constexpr int D = 128;
-constexpr int TILE = 64;
-constexpr int WARPS = 8;
+constexpr int WARPS = 4;
 constexpr int NTHREADS = 32 * WARPS;
-constexpr int MAXR = 8;                      // rep = H / KvH <= 8
-constexpr int PER_WARP = TILE / WARPS;       // positions scored per warp
-constexpr int VLOADS = TILE * D / 4 / NTHREADS;   // 4-element V loads per thread
+constexpr int GROUP = 8;                      // positions a warp scores at once
+constexpr int TILE = WARPS * GROUP;           // positions per ring slot
+constexpr int STAGES = 3;                     // ring slots (3 read faster than 4 on the H100)
+constexpr int MAXR = 8;                       // rep = H / KvH <= 8
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
 
-static_assert(D == 4 * 32, "a warp covers D with 4 dims per lane");
-static_assert(NTHREADS == 2 * D, "two row groups in the PV product");
-static_assert(TILE == 64, "the softmax pass takes 2 scores per lane");
+static_assert(D == 4 * 32, "a lane holds 4 dims");
+static_assert(GROUP == 8, "the transposed reduction folds 8 scores over lane bits 4, 3, 2");
+static_assert(NTHREADS == D, "the epilogue and the merge give each thread one dim");
 
-// 4 consecutive cache elements as loaded (16 bytes f32, 8 bytes bf16)
-template <typename T> struct Raw4;
-template <> struct Raw4<float> {
-    float4 v;
-    __device__ __forceinline__ void load(const float* p) { v = __ldg(reinterpret_cast<const float4*>(p)); }
-    __device__ __forceinline__ void zero() { v = make_float4(0.f, 0.f, 0.f, 0.f); }
-    __device__ __forceinline__ float4 f() const { return v; }
-};
-template <> struct Raw4<__nv_bfloat16> {
-    uint2 v;
-    __device__ __forceinline__ void load(const __nv_bfloat16* p) { v = __ldg(reinterpret_cast<const uint2*>(p)); }
-    __device__ __forceinline__ void zero() { v = make_uint2(0u, 0u); }
-    __device__ __forceinline__ float4 f() const {
-        const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-        const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-        const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
-        return make_float4(fa.x, fa.y, fb.x, fb.y);
+// 4 consecutive cache elements in shared memory, as f32
+template <typename TC> struct Cache;
+template <> struct Cache<float> {
+    static __device__ __forceinline__ float4 load4(const float* p) {
+        return *reinterpret_cast<const float4*>(p);
     }
 };
-
-template <> struct Raw4<int8_t> {
-    int v;
-    __device__ __forceinline__ void load(const int8_t* p) { v = __ldg(reinterpret_cast<const int*>(p)); }
-    __device__ __forceinline__ void zero() { v = 0; }
-    __device__ __forceinline__ float4 f() const {
-        const char4 c = *reinterpret_cast<const char4*>(&v);
-        return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
+template <> struct Cache<__nv_bfloat16> {
+    static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+        const uint2 u = *reinterpret_cast<const uint2*>(p);
+        return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                           __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+    }
+};
+template <> struct Cache<int8_t> {
+    // x ^ 0x80 is x + 128 as a byte; in the low mantissa byte of 2^23 it is
+    // the float 2^23 + 128 + x, exactly, so one subtraction gives x
+    static __device__ __forceinline__ float4 load4(const int8_t* p) {
+        const unsigned u = *reinterpret_cast<const unsigned*>(p) ^ 0x80808080u;
+        const float bias = 8388736.f;                       // 2^23 + 128
+        return make_float4(__uint_as_float(__byte_perm(u, 0x4b000000u, 0x7540)) - bias,
+                           __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7541)) - bias,
+                           __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7542)) - bias,
+                           __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7543)) - bias);
     }
 };
 
@@ -106,195 +124,367 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
+// cp.async: `bytes` from global to shared memory, zero-filled when !on
+// (nothing is read then)
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool on) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(src), "r"(on ? 16 : 0) : "memory");
 }
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool on) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(s), "l"(src), "r"(on ? 4 : 0) : "memory");
 }
-
-// K: warp w reads positions t0 + w + 8i (4 dims per lane); V: the tile's
-// TILE x D elements, 4 per load, consecutive threads on consecutive dims.
-// With Q8, each lane also takes K's scale of its warp's 8 positions and V's
-// scale of positions t0 + lane and t0 + lane + 32 (the softmax pass's).
-template <typename TC, bool Q8>
-__device__ __forceinline__ void load_tile(const TC* kb, const TC* vb, const float* ksb,
-                                          const float* vsb, int t0, int S, int warp, int lane,
-                                          Raw4<TC> (&kr)[PER_WARP], Raw4<TC> (&vr)[VLOADS],
-                                          float (&ksr)[PER_WARP], float (&vsr)[2]) {
-#pragma unroll
-    for (int i = 0; i < PER_WARP; ++i) {
-        const int t = t0 + warp + WARPS * i;
-        if (t < S) kr[i].load(kb + (size_t)t * D + 4 * lane);
-        else kr[i].zero();
-        if (Q8) ksr[i] = t < S ? __ldg(ksb + t) : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < VLOADS; ++j) {
-        const int e = threadIdx.x + NTHREADS * j;           // 4-element index
-        const int t = t0 + e / (D / 4);
-        if (t < S) vr[j].load(vb + (size_t)t * D + 4 * (e % (D / 4)));
-        else vr[j].zero();                                  // 0 * garbage could be NaN
-    }
-    if (Q8) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-            const int t = t0 + lane + 32 * c;
-            vsr[c] = t < S ? __ldg(vsb + t) : 0.f;
-        }
-    }
+__device__ __forceinline__ void cp_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-template <typename TQ, typename TC, bool Q8>
+// 8 partial dot products (positions 0..7, this lane's 4 dims) -> the full
+// score of position (lane >> 2) & 7, in each lane of its quad. Each step
+// halves the positions a lane keeps and adds its partner's sums of them.
+__device__ __forceinline__ float fold8(float (&s)[GROUP], int lane) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const bool up = lane & 16;
+        const float send = up ? s[i] : s[i + 4], keep = up ? s[i + 4] : s[i];
+        s[i] = keep + __shfl_xor_sync(FULL, send, 16);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const bool up = lane & 8;
+        const float send = up ? s[i] : s[i + 2], keep = up ? s[i + 2] : s[i];
+        s[i] = keep + __shfl_xor_sync(FULL, send, 8);
+    }
+    {
+        const bool up = lane & 4;
+        const float send = up ? s[0] : s[1], keep = up ? s[1] : s[0];
+        s[0] = keep + __shfl_xor_sync(FULL, send, 4);
+    }
+    s[0] += __shfl_xor_sync(FULL, s[0], 2);
+    return s[0] + __shfl_xor_sync(FULL, s[0], 1);
+}
+
+// dynamic shared memory: the K and V rings [STAGES][TILE][D], with int8 the
+// scale rings [STAGES][TILE] for K and V, then the probabilities each warp
+// hands to its PV product [WARPS][RMAX][GROUP]; after the walk the rings
+// hold the warps' states for the block's merge
+template <typename TC, bool Q8, int RMAX> struct Smem {
+    static constexpr int ring_elems = STAGES * TILE * D;
+    static constexpr size_t ring = ring_elems * sizeof(TC);
+    static constexpr size_t scales = Q8 ? STAGES * TILE * sizeof(float) : 0;
+    static constexpr size_t probs = WARPS * RMAX * GROUP * sizeof(float);
+    static constexpr size_t bytes = 2 * ring + 2 * scales + probs;
+    static_assert(WARPS * RMAX * (D + 2) * sizeof(float) <= 2 * ring,
+                  "the warps' states fit in the rings");
+};
+
+template <typename TC, bool Q8, int RMAX>
 __global__ void __launch_bounds__(NTHREADS)
-decode_attn(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* __restrict__ v,
-            const float* __restrict__ ks, const float* __restrict__ vs_scale,
-            TQ* __restrict__ out, const int* __restrict__ pos, const int* __restrict__ pads,
-            int H, int KvH, int S, float scale) {
-    __shared__ __align__(16) float vs[TILE][D];
-    __shared__ float ps[MAXR][TILE];
-    __shared__ float alpha_s[MAXR], l_s[MAXR];
+decode_split(const void* __restrict__ q, int q_bf16, const TC* __restrict__ k,
+             const TC* __restrict__ v, const float* __restrict__ ks,
+             const float* __restrict__ vsc, const int* __restrict__ pos,
+             const int* __restrict__ pads, float* __restrict__ part_acc,
+             float* __restrict__ part_ml, int H, int KvH, int S, int chunk, int splits,
+             float scale) {
+    using L = Smem<TC, Q8, RMAX>;
+    extern __shared__ __align__(16) unsigned char smem[];
+    TC* kring = reinterpret_cast<TC*>(smem);
+    TC* vring = kring + L::ring_elems;
+    float* ksr = reinterpret_cast<float*>(smem + 2 * L::ring);
+    float* vsr = ksr + STAGES * TILE;
+    float* pw = reinterpret_cast<float*>(smem + 2 * L::ring + 2 * L::scales);
 
-    const int g = blockIdx.x, b = blockIdx.y;
+    const int split = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
     const int rep = H / KvH;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int d = threadIdx.x % D, half = threadIdx.x / D;
     const int lo = max(__ldg(pads + b), 0);
     const int hi = min(__ldg(pos + b), S - 1);
-    const size_t off = ((size_t)b * KvH + g) * S * D;
-    const TC* kb = k + off;
-    const TC* vb = v + off;
-    const float* ksb = Q8 ? ks + off / D : nullptr;
-    const float* vsb = Q8 ? vs_scale + off / D : nullptr;
-    const TQ* qb = q + ((size_t)b * H + (size_t)g * rep) * D;
-    TQ* ob = out + ((size_t)b * H + (size_t)g * rep) * D;
+    const int c0 = split * chunk;
+    if (c0 > hi || c0 + chunk <= lo) return;            // the merge skips this split
+    const int first = max(c0, lo) / TILE * TILE;
+    const int ntiles = (min(c0 + chunk - 1, hi) - first) / TILE + 1;
 
-    if (lo > hi) {                                          // no live column
-        for (int i = threadIdx.x; i < rep * D; i += NTHREADS) store(ob + i, 0.f);
-        return;
-    }
+    const size_t off = ((size_t)b * KvH + g) * S;       // (b, g)'s position 0
+    const TC* kb = k + off * D;
+    const TC* vb = v + off * D;
+    const float* ksb = Q8 ? ks + off : nullptr;
+    const float* vsb = Q8 ? vsc + off : nullptr;
 
-    float qr[MAXR][4];
+    // tile i into ring slot i % STAGES; every thread commits one group per
+    // call, empty past the last tile, so the wait counts stay uniform
+    auto fetch = [&](int i) {
+        if (i < ntiles) {
+            const int t0 = first + i * TILE, slot = i % STAGES;
+            constexpr int PER_ROW = D * (int)sizeof(TC) / 16;     // 16-byte chunks
+            constexpr int ELEMS = 16 / (int)sizeof(TC);
 #pragma unroll
-    for (int r = 0; r < MAXR; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-            qr[r][c] = r < rep ? to_f32(qb[r * D + 4 * lane + c]) * scale : 0.f;
-
-    float m = -CUDART_INF_F, l = 0.f;                       // row `warp`'s softmax state
-    float acc[MAXR / 2];
-#pragma unroll
-    for (int i = 0; i < MAXR / 2; ++i) acc[i] = 0.f;
-
-    Raw4<TC> kr[PER_WARP], vr[VLOADS];
-    float ksr[PER_WARP], vsr[2];
-    int t0 = lo / TILE * TILE;
-    load_tile<TC, Q8>(kb, vb, ksb, vsb, t0, S, warp, lane, kr, vr, ksr, vsr);
-
-    for (; t0 <= hi; t0 += TILE) {
-#pragma unroll
-        for (int j = 0; j < VLOADS; ++j) {
-            const int e = threadIdx.x + NTHREADS * j;
-            *reinterpret_cast<float4*>(&vs[e / (D / 4)][4 * (e % (D / 4))]) = vr[j].f();
-        }
-#pragma unroll
-        for (int i = 0; i < PER_WARP; ++i) {
-            const int tt = warp + WARPS * i, t = t0 + tt;
-            const bool live = t >= lo && t <= hi;
-            const float4 kv = kr[i].f();
-#pragma unroll
-            for (int r = 0; r < MAXR; ++r) {
-                if (r < rep) {
-                    float s = qr[r][0] * kv.x + qr[r][1] * kv.y + qr[r][2] * kv.z + qr[r][3] * kv.w;
-                    s = warp_sum(s);
-                    if (Q8) s *= ksr[i];                    // dequantize K on the score
-                    if (lane == 0) ps[r][tt] = live ? s : -CUDART_INF_F;
-                }
+            for (int c = 0; c < TILE * PER_ROW / NTHREADS; ++c) {
+                const int e = threadIdx.x + NTHREADS * c;
+                const int row = e / PER_ROW, col = (e % PER_ROW) * ELEMS;
+                const int t = t0 + row;
+                const bool live = t >= lo && t <= hi;
+                const size_t src = (size_t)(live ? t : lo) * D + col;
+                const int dst = (slot * TILE + row) * D + col;
+                cp16(kring + dst, kb + src, live);
+                cp16(vring + dst, vb + src, live);
+            }
+            if (Q8 && threadIdx.x < 2 * TILE) {
+                const int row = threadIdx.x % TILE, t = t0 + row;
+                const bool live = t >= lo && t <= hi;
+                const bool is_k = threadIdx.x < TILE;
+                cp4((is_k ? ksr : vsr) + slot * TILE + row, (is_k ? ksb : vsb) + (live ? t : lo),
+                    live);
             }
         }
-        // this tile's V scales, before the next tile's load takes vsr
-        const float vs0 = Q8 ? vsr[0] : 1.f, vs1 = Q8 ? vsr[1] : 1.f;
-        if (t0 + TILE <= hi)                                // next tile in flight
-            load_tile<TC, Q8>(kb, vb, ksb, vsb, t0 + TILE, S, warp, lane, kr, vr, ksr, vsr);
-        __syncthreads();
-
-        if (warp < rep) {                                   // online softmax, row `warp`
-            const float s0 = ps[warp][lane], s1 = ps[warp][lane + 32];
-            const float m_new = fmaxf(m, warp_max(fmaxf(s0, s1)));
-            const float m_safe = isfinite(m_new) ? m_new : 0.f;
-            const float p0 = expf(s0 - m_safe), p1 = expf(s1 - m_safe);
-            const float a = expf(m - m_safe);
-            l = l * a + warp_sum(p0 + p1);
-            m = m_new;
-            ps[warp][lane] = Q8 ? p0 * vs0 : p0;        // dequantize V on the probability
-            ps[warp][lane + 32] = Q8 ? p1 * vs1 : p1;
-            if (lane == 0) alpha_s[warp] = a;
-        }
-        __syncthreads();
-
+        cp_commit();
+    };
 #pragma unroll
-        for (int i = 0; i < MAXR / 2; ++i) {
-            const int r = half + 2 * i;
-            if (r < rep) {
-                float a = acc[i] * alpha_s[r];
-#pragma unroll 16
-                for (int tt = 0; tt < TILE; ++tt) a = fmaf(ps[r][tt], vs[tt][d], a);
-                acc[i] = a;
+    for (int i = 0; i < STAGES - 1; ++i) fetch(i);
+
+    // this lane's 4 dims of the rep query heads, scaled by log2(e) / sqrt(D)
+    const float qs = scale * LOG2E;
+    float qr[RMAX][4];
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            const size_t i = ((size_t)b * H + (size_t)g * rep + r) * D + 4 * lane + c;
+            const float x = r >= rep ? 0.f
+                            : q_bf16 ? to_f32(static_cast<const __nv_bfloat16*>(q)[i])
+                                     : static_cast<const float*>(q)[i];
+            qr[r][c] = x * qs;
+        }
+
+    float m[RMAX], l[RMAX], acc[RMAX][4];               // this warp's softmax state
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) {
+        m[r] = -CUDART_INF_F;
+        l[r] = 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    }
+    const int j_me = (lane >> 2) & 7;                   // the position this lane's quad scores
+
+    for (int i = 0; i < ntiles; ++i) {
+        cp_wait<STAGES - 2>();                          // tile i has landed (this thread's part)
+        __syncthreads();                                // ... everyone's; slot (i-1) % STAGES is free
+        fetch(i + STAGES - 1);
+        const int slot = i % STAGES;
+        const int tg = first + i * TILE + warp * GROUP; // this warp's first position
+        if (tg > hi || tg + GROUP - 1 < lo) continue;   // no live position in the group
+        const int base = slot * TILE + warp * GROUP;
+        const TC* kt = kring + (size_t)base * D + 4 * lane;
+        float4 kf[GROUP];
+#pragma unroll
+        for (int j = 0; j < GROUP; ++j) kf[j] = Cache<TC>::load4(kt + j * D);
+        const int t_me = tg + j_me;
+        const bool live = t_me >= lo && t_me <= hi;
+        const float kscale = Q8 ? ksr[base + j_me] : 1.f;
+
+        float p[RMAX];
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) {
+            if (r >= rep) break;
+            float s[GROUP];
+#pragma unroll
+            for (int j = 0; j < GROUP; ++j)
+                s[j] = qr[r][0] * kf[j].x + qr[r][1] * kf[j].y + qr[r][2] * kf[j].z +
+                       qr[r][3] * kf[j].w;
+            float sc = fold8(s, lane);
+            sc = live ? sc * kscale : -CUDART_INF_F;    // dequantize K on the score
+            float mx = fmaxf(sc, __shfl_xor_sync(FULL, sc, 4));
+            mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 8));
+            mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 16));
+            const float m_new = fmaxf(m[r], mx);        // finite: the group has a live position
+            const float a = exp2f(m[r] - m_new);        // 0 at the warp's first live group
+            p[r] = exp2f(sc - m_new);                   // 0 for a dead position
+            l[r] = l[r] * a + p[r];
+            m[r] = m_new;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[r][c] *= a;
+        }
+        if ((lane & 3) == 0) {
+            const float vscale = Q8 ? vsr[base + j_me] : 1.f;
+#pragma unroll
+            for (int r = 0; r < RMAX; ++r)              // dequantize V on the probability
+                if (r < rep) pw[(warp * RMAX + r) * GROUP + j_me] = p[r] * vscale;
+        }
+        __syncwarp();
+        const TC* vt = vring + (size_t)base * D + 4 * lane;
+#pragma unroll
+        for (int j = 0; j < GROUP; ++j) {
+            const float4 vf = Cache<TC>::load4(vt + j * D);
+#pragma unroll
+            for (int r = 0; r < RMAX; ++r) {
+                if (r >= rep) break;
+                const float pj = pw[(warp * RMAX + r) * GROUP + j];
+                acc[r][0] = fmaf(pj, vf.x, acc[r][0]);
+                acc[r][1] = fmaf(pj, vf.y, acc[r][1]);
+                acc[r][2] = fmaf(pj, vf.z, acc[r][2]);
+                acc[r][3] = fmaf(pj, vf.w, acc[r][3]);
             }
         }
-        __syncthreads();                                    // vs, ps free for the next tile
     }
 
-    if (warp < rep && lane == 0) l_s[warp] = l;
+    // merge the warps' states in shared memory (the rings are free now)
+    cp_wait<0>();
     __syncthreads();
+    float* red = reinterpret_cast<float*>(smem);        // [WARPS][RMAX][D]
+    float* red_m = red + WARPS * RMAX * D;              // [WARPS][RMAX]
+    float* red_l = red_m + WARPS * RMAX;
 #pragma unroll
-    for (int i = 0; i < MAXR / 2; ++i) {
-        const int r = half + 2 * i;
-        if (r < rep) store(ob + r * D + d, acc[i] / l_s[r]);
+    for (int r = 0; r < RMAX; ++r) {
+        if (r >= rep) break;
+        float lt = l[r];                                // the 8 quads' positions
+        lt += __shfl_xor_sync(FULL, lt, 4);
+        lt += __shfl_xor_sync(FULL, lt, 8);
+        lt += __shfl_xor_sync(FULL, lt, 16);
+        *reinterpret_cast<float4*>(red + (warp * RMAX + r) * D + 4 * lane) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        if (lane == 0) {
+            red_m[warp * RMAX + r] = m[r];
+            red_l[warp * RMAX + r] = lt;
+        }
+    }
+    __syncthreads();
+    const int d = threadIdx.x;
+    for (int r = 0; r < rep; ++r) {
+        float mx = -CUDART_INF_F;                       // finite: some warp saw a live position
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, red_m[w * RMAX + r]);
+        float a = 0.f, ls = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) {
+            const float e = exp2f(red_m[w * RMAX + r] - mx);   // 0 for a warp with no live column
+            a = fmaf(e, red[(w * RMAX + r) * D + d], a);
+            ls = fmaf(e, red_l[w * RMAX + r], ls);
+        }
+        const size_t row = ((size_t)b * H + (size_t)g * rep + r) * splits + split;
+        part_acc[row * D + d] = a;
+        if (d == 0) {
+            part_ml[2 * row] = mx;
+            part_ml[2 * row + 1] = ls;
+        }
     }
 }
 
-template <typename TQ, typename TC, bool Q8>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
-                   void* out, const int* pos, const int* pads, int B, int H, int KvH, int S,
-                   float scale, cudaStream_t st) {
-    decode_attn<TQ, TC, Q8><<<dim3(KvH, B), NTHREADS, 0, st>>>(
-        static_cast<const TQ*>(q), static_cast<const TC*>(k), static_cast<const TC*>(v), ks, vs,
-        static_cast<TQ*>(out), pos, pads, H, KvH, S, scale);
+template <typename TQ>
+__global__ void __launch_bounds__(D)
+decode_merge(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+             const int* __restrict__ pos, const int* __restrict__ pads, TQ* __restrict__ out,
+             int H, int S, int chunk, int splits) {
+    const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+    const int lo = max(__ldg(pads + b), 0);
+    const int hi = min(__ldg(pos + b), S - 1);
+    TQ* o = out + ((size_t)b * H + h) * D + d;
+    if (lo > hi) {                                      // no live column
+        store(o, 0.f);
+        return;
+    }
+    const size_t row = ((size_t)b * H + h) * splits;
+    const int j0 = lo / chunk, j1 = hi / chunk;         // the splits that meet the window
+    float mx = -CUDART_INF_F;
+    for (int j = j0; j <= j1; ++j) mx = fmaxf(mx, part_ml[2 * (row + j)]);
+    float a = 0.f, ls = 0.f;
+    for (int j = j0; j <= j1; ++j) {
+        const float e = exp2f(part_ml[2 * (row + j)] - mx);
+        a = fmaf(e, part_acc[(row + j) * D + d], a);
+        ls = fmaf(e, part_ml[2 * (row + j) + 1], ls);
+    }
+    store(o, a / ls);                                   // ls >= 1: the largest m_j's split
+}
+
+template <typename TC, bool Q8, int RMAX>
+cudaError_t set_smem() {
+    return cudaFuncSetAttribute(decode_split<TC, Q8, RMAX>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)Smem<TC, Q8, RMAX>::bytes);
+}
+
+template <typename TC, bool Q8>
+cudaError_t set_smem_all() {
+    cudaError_t e;
+    if ((e = set_smem<TC, Q8, 1>()) != cudaSuccess) return e;
+    if ((e = set_smem<TC, Q8, 2>()) != cudaSuccess) return e;
+    if ((e = set_smem<TC, Q8, 4>()) != cudaSuccess) return e;
+    return set_smem<TC, Q8, 8>();
+}
+
+struct Args {
+    const void* q; int q_bf16; const void* k; const void* v; const float* ks; const float* vs;
+    const int* pos; const int* pads; float* part_acc; float* part_ml;
+    int B, H, KvH, S, chunk, splits; float scale; cudaStream_t st;
+};
+
+template <typename TC, bool Q8, int RMAX>
+cudaError_t launch_split(const Args& a) {
+    decode_split<TC, Q8, RMAX>
+        <<<dim3(a.splits, a.KvH, a.B), NTHREADS, Smem<TC, Q8, RMAX>::bytes, a.st>>>(
+            a.q, a.q_bf16, static_cast<const TC*>(a.k), static_cast<const TC*>(a.v), a.ks, a.vs,
+            a.pos, a.pads, a.part_acc, a.part_ml, a.H, a.KvH, a.S, a.chunk, a.splits, a.scale);
     return cudaGetLastError();
+}
+
+template <typename TC, bool Q8>
+cudaError_t dispatch_rep(const Args& a) {
+    const int rep = a.H / a.KvH;
+    if (rep <= 1) return launch_split<TC, Q8, 1>(a);
+    if (rep <= 2) return launch_split<TC, Q8, 2>(a);
+    if (rep <= 4) return launch_split<TC, Q8, 4>(a);
+    return launch_split<TC, Q8, 8>(a);
 }
 
 }  // namespace
 
+// Once per device, before its first decode_attention_forward: the dynamic
+// shared-memory limit of every instance (the bf16 and f32 rings pass 48 KB).
+extern "C" int decode_attention_prepare() {
+    cudaError_t e;
+    if ((e = set_smem_all<float, false>()) != cudaSuccess) return (int)e;
+    if ((e = set_smem_all<__nv_bfloat16, false>()) != cudaSuccess) return (int)e;
+    return (int)set_smem_all<int8_t, true>();
+}
+
 // q [B, H, 128], k and v [B, KvH, S, 128] contiguous, out [B, H, 128];
 // ks and vs [B, KvH, S] f32 for an int8 cache (null otherwise); pos and
-// pads [B] int32 on the card; H % KvH == 0 and H / KvH <= 8 (the wrapper
-// checks). qdtype (q and out): 0 = f32, 1 = bf16; cdtype (k, v): 0 = f32,
-// 1 = bf16, 2 = int8. Returns a cudaError_t.
+// pads [B] int32 on the card; part_acc [B, H, splits, 128] and part_ml
+// [B, H, splits, 2] f32 scratch; chunk a multiple of 32 and splits =
+// max(1, ceil(S / chunk)) (the wrapper's plan); H % KvH == 0 and H / KvH
+// <= 8. qdtype (q and out): 0 = f32, 1 = bf16; cdtype (k, v): 0 = f32,
+// 1 = bf16, 2 = int8. Two launches on `stream`; returns a cudaError_t.
 extern "C" int decode_attention_forward(const void* q, const void* k, const void* v,
                                         const void* ks, const void* vs, void* out,
-                                        const void* pos, const void* pads, int B, int H,
-                                        int KvH, int S, float scale, int qdtype, int cdtype,
-                                        void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int* p = static_cast<const int*>(pos);
-    const int* pd = static_cast<const int*>(pads);
-    const float* fks = static_cast<const float*>(ks);
-    const float* fvs = static_cast<const float*>(vs);
+                                        const void* pos, const void* pads, void* part_acc,
+                                        void* part_ml, int B, int H, int KvH, int S,
+                                        int chunk, int splits, float scale, int qdtype,
+                                        int cdtype, void* stream) {
     if (B <= 0) return (int)cudaSuccess;
-    if (cdtype == 2 && (fks == nullptr || fvs == nullptr)) return (int)cudaErrorInvalidValue;
-#define CC_LAUNCH(TQ, TC, Q8) \
-    return (int)launch<TQ, TC, Q8>(q, k, v, fks, fvs, out, p, pd, B, H, KvH, S, scale, st)
-    if (qdtype == 0 && cdtype == 0) CC_LAUNCH(float, float, false);
-    if (qdtype == 0 && cdtype == 1) CC_LAUNCH(float, __nv_bfloat16, false);
-    if (qdtype == 1 && cdtype == 0) CC_LAUNCH(__nv_bfloat16, float, false);
-    if (qdtype == 1 && cdtype == 1) CC_LAUNCH(__nv_bfloat16, __nv_bfloat16, false);
-    if (qdtype == 0 && cdtype == 2) CC_LAUNCH(float, int8_t, true);
-    if (qdtype == 1 && cdtype == 2) CC_LAUNCH(__nv_bfloat16, int8_t, true);
-#undef CC_LAUNCH
-    return (int)cudaErrorInvalidValue;
+    const int want_splits = S > chunk ? (S + chunk - 1) / chunk : 1;
+    if (KvH <= 0 || H % KvH || H / KvH > MAXR || S < 0 || chunk <= 0 || chunk % TILE ||
+        splits != want_splits || part_acc == nullptr || part_ml == nullptr ||
+        (qdtype != 0 && qdtype != 1) || (cdtype == 2 && (ks == nullptr || vs == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    const Args a{q, qdtype, k, v, static_cast<const float*>(ks), static_cast<const float*>(vs),
+                 static_cast<const int*>(pos), static_cast<const int*>(pads),
+                 static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+                 B, H, KvH, S, chunk, splits, scale, static_cast<cudaStream_t>(stream)};
+    cudaError_t e;
+    if (cdtype == 0) e = dispatch_rep<float, false>(a);
+    else if (cdtype == 1) e = dispatch_rep<__nv_bfloat16, false>(a);
+    else if (cdtype == 2) e = dispatch_rep<int8_t, true>(a);
+    else return (int)cudaErrorInvalidValue;
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid(H, B);
+    if (qdtype == 0)
+        decode_merge<float><<<grid, D, 0, a.st>>>(a.part_acc, a.part_ml, a.pos, a.pads,
+                                                  static_cast<float*>(out), H, S, chunk, splits);
+    else
+        decode_merge<__nv_bfloat16><<<grid, D, 0, a.st>>>(
+            a.part_acc, a.part_ml, a.pos, a.pads, static_cast<__nv_bfloat16*>(out), H, S, chunk,
+            splits);
+    return (int)cudaGetLastError();
 }

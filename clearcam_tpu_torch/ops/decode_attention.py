@@ -13,8 +13,9 @@
 Each wrapper takes its plain version (``*_reference``) for a CPU tensor,
 and for a CUDA tensor launches its kernel or raises (wrong dtype, head dim,
 shape, contiguity or device, failed build or launch). Nothing falls back.
-Each wrapper counts its own kernel launches in ``.launches``, so a run can
-show which entry points its path went through.
+Each wrapper counts its own kernel calls in ``.launches`` (one per call,
+which on the card is the split and merge pair), so a run can show which
+entry points its path went through.
 
 Contract (the JAX functions'): ``pos`` is a shared scalar or a per-row [B]
 vector, ``pads`` [B] each row's first live position (None = 0). Row b
@@ -24,6 +25,12 @@ multiplies the score and V's scale the probability before the PV product,
 as the TPU kernels apply them. A row with no live column (pads > pos) gives
 zeros; the TPU kernels give 0/0 there. The kernels take f32 or bf16 q,
 D = 128, any S, and read only each row's own window.
+
+On the card every call is two launches (flash-decoding): one block per
+(split, KV head, row) writes the softmax partials of its chunk of the
+window into scratch, and a merge combines them. ``plan`` picks the chunk
+from the shapes alone, so a call reads nothing back and can be captured in
+a CUDA graph.
 """
 from __future__ import annotations
 
@@ -33,6 +40,11 @@ from . import _build
 
 HEAD_DIM = 128
 MAX_REP = 8
+TILE = 32               # positions per shared-memory ring slot (csrc/decode_attention.cu)
+# the plan's grid size: the live blocks of a long window fill 132 SMs
+# (1,024 and 4,096 each read slower at a served shape on the H100)
+MAX_BLOCKS = 2048
+MAX_GRID_YZ = 65535     # CUDA's limit on grid.y (KV heads) and grid.z (rows)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _FLOAT_CACHES = (torch.float32, torch.bfloat16)
 
@@ -122,29 +134,56 @@ def _check(name, q, k, v, scales=()):
     if k.shape[0] != b or h % kvh or h // kvh > MAX_REP:
         raise ValueError(f"{name}: q {tuple(q.shape)} against caches {tuple(k.shape)}: "
                          f"need equal B, H % KvH == 0 and H / KvH <= {MAX_REP}")
-    if b > 65535:
-        raise ValueError(f"{name}: B = {b} > 65535")
+    if b > MAX_GRID_YZ or kvh > MAX_GRID_YZ:
+        raise ValueError(f"{name}: B = {b}, KvH = {kvh}; the grid takes at most "
+                         f"{MAX_GRID_YZ} of each")
+
+
+def plan(b: int, kvh: int, s: int) -> tuple[int, int]:
+    """(chunk, splits) of the split kernel's grid (splits, KvH, B): the
+    cache's positions 0..S-1 cut into ``splits`` chunks of ``chunk``
+    positions, a multiple of ``TILE``. The chunk starts at two tiles (one
+    read slower at B = 1 on the H100) and doubles while the grid would
+    pass ``MAX_BLOCKS`` blocks and the cache still needs more than one
+    chunk. From the shapes alone: pos and pads stay on the card."""
+    chunk = 2 * TILE
+    while b * kvh * -(-s // chunk) > MAX_BLOCKS and chunk < s:
+        chunk *= 2
+    return chunk, max(1, -(-s // chunk))
+
+
+def prepare(device) -> str:
+    """Build and load the kernel library and set the kernels up on the CUDA
+    ``device`` (their shared-memory limit), once; returns the library's path."""
+    return _build.prepare("decode_attention_prepare", device)
 
 
 def _launch(name, q, k, v, pos, pads, k_s=None, v_s=None):
-    """Check the operands and launch the batch kernel on q's stream."""
+    """Check the operands and launch the split and merge kernels on q's
+    stream."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     scales = () if k_s is None else (k_s, v_s)
     _check(name, q, k, v, scales)
     b, h, d = q.shape
     kvh, s = k.shape[1], k.shape[2]
+    chunk, splits = plan(b, kvh, s)
     pos_v = _rows(pos, b, q.device)
     pad_v = _rows(0 if pads is None else pads, b, q.device)
     out = torch.empty_like(q)
+    # the partials: acc [B,H,splits,D], then m and l [B,H,splits,2]
+    part = torch.empty(b * h * splits * (d + 2), dtype=torch.float32, device=q.device)
+    prepare(q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_s.data_ptr() if scales else None, v_s.data_ptr() if scales else None,
-            out.data_ptr(), pos_v.data_ptr(), pad_v.data_ptr(), b, h, kvh, s,
-            float(1.0 / (d ** 0.5)), _DTYPES[q.dtype], _DTYPES[k.dtype], stream)
+            out.data_ptr(), pos_v.data_ptr(), pad_v.data_ptr(),
+            part.data_ptr(), part.data_ptr() + b * h * splits * d * 4, b, h, kvh, s,
+            chunk, splits, float(1.0 / (d ** 0.5)), _DTYPES[q.dtype], _DTYPES[k.dtype],
+            stream)
     _build.check(err, f"{name} kernel launch")
     return out
 

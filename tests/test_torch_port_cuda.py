@@ -240,7 +240,7 @@ DEC_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 @pytest.mark.parametrize("qdt,cdt", [(torch.float32, torch.float32),
                                      (torch.float32, torch.bfloat16),
                                      (torch.bfloat16, torch.bfloat16)])
-@pytest.mark.parametrize("h,kvh", [(8, 4), (16, 8), (16, 2)])
+@pytest.mark.parametrize("h,kvh", [(8, 4), (16, 8), (16, 2), (8, 8)])
 def test_decode_attention_kernel_matches_plain(cuda, qdt, cdt, h, kvh):
     from clearcam_tpu_torch.ops import decode_attention as tdec
     rng = np.random.default_rng(h * kvh)
@@ -371,7 +371,7 @@ def _q8_cache(rng, b, kvh, s, cuda):
 
 
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,kvh", [(8, 4), (16, 8), (16, 2)])
+@pytest.mark.parametrize("h,kvh", [(8, 4), (16, 8), (16, 2), (8, 8)])
 def test_decode_attention_q8_kernel_matches_plain(cuda, qdt, h, kvh):
     """The int8-cache kernel against its plain version on the same int8
     bytes and scales: f32 q bounded as the f32 caches (summation order
@@ -445,6 +445,100 @@ def test_decode_attention_q8_kernel_raises_on_bad_input(cuda):
     with pytest.raises(ValueError, match="scalar"):
         tdec.decode_attention_q8(q[0], kq[0], ks[0], vq[0], vs[0],
                                  torch.tensor([1, 2], device=cuda))
+
+
+def _split_windows(chunk, s):
+    """(pos, pads) for 8 rows against the split plan's chunk: one position,
+    exactly one chunk, a window ending on a chunk's last position, one
+    starting inside a chunk and ending on a chunk's first, the whole cache,
+    a row with pads > pos (no live column), position 0, one past a chunk."""
+    rows = [(5000, 5000), (4 * chunk - 1, 3 * chunk), (5 * chunk - 1, 0),
+            (5 * chunk, chunk + 17), (s - 1, 0), (99, 100), (0, 0), (chunk, chunk - 1)]
+    return ([torch.tensor([r[i] for r in rows], dtype=torch.int32) for i in (0, 1)])
+
+
+@pytest.mark.parametrize("cache", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("h,kvh", [(8, 8), (16, 8), (16, 2)])
+def test_decode_attention_split_windows_match_plain(cuda, cache, h, kvh):
+    """B = 8, S = 8192: windows placed against the plan's chunks, rep 1, 2
+    and 8, f32 and bf16 q, every cache type; the row with no live column is
+    zeros in both."""
+    from clearcam_tpu_torch.ops import decode_attention as tdec
+    rng = np.random.default_rng(h + kvh)
+    b, s = 8, 8192
+    chunk, splits = tdec.plan(b, kvh, s)
+    assert splits > 8
+    pos, pads = (t.to(cuda) for t in _split_windows(chunk, s))
+    q = torch.from_numpy(rng.standard_normal((b, h, 128), np.float32)).to(cuda)
+    if cache == "int8":
+        kq, ks, vq, vs = _q8_cache(rng, b, kvh, s, cuda)
+        fn, ref_fn = tdec.decode_attention_batch_q8, tdec.decode_attention_batch_q8_reference
+        args = (kq, ks, vq, vs)
+    else:
+        k, v = (torch.from_numpy(rng.standard_normal((b, kvh, s, 128), np.float32))
+                .to(cuda, getattr(torch, cache)) for _ in range(2))
+        fn, ref_fn, args = tdec.decode_attention_batch, tdec.decode_attention_batch_reference, \
+            (k, v)
+    for qq in (q, q.bfloat16()) if cache != "float32" else (q,):
+        before = fn.launches
+        got = fn(qq, *args, pos, pads)
+        ref = ref_fn(qq, *args, pos, pads)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.dtype == qq.dtype and torch.isfinite(got).all()
+        assert not got[5].any() and not ref[5].any()
+        assert (got.float() - ref.float()).abs().max().item() < DEC_TOL[qq.dtype]
+
+
+@pytest.mark.parametrize("form", ["batch", "batch_q8", "single", "single_q8"])
+def test_decode_attention_replays_in_a_cuda_graph(cuda, form):
+    """Each form captured once in a CUDA graph and replayed with new
+    positions (and pads) written in place: the plan reads nothing from pos,
+    so each replay matches the plain version at the new window."""
+    from clearcam_tpu_torch.ops import decode_attention as tdec
+    rng = np.random.default_rng(7)
+    b, h, kvh, s = (8 if form.startswith("batch") else 1), 16, 8, 8192
+    q = torch.from_numpy(rng.standard_normal((b, h, 128), np.float32)).to(cuda)
+    if form.endswith("q8"):
+        cache = _q8_cache(rng, b, kvh, s, cuda)
+    else:
+        cache = tuple(torch.from_numpy(rng.standard_normal((b, kvh, s, 128), np.float32))
+                      .to(cuda, torch.bfloat16) for _ in range(2))
+    batch = form.startswith("batch")
+    pos = torch.zeros(b if batch else (), dtype=torch.int32, device=cuda)
+    pads = torch.zeros(b, dtype=torch.int32, device=cuda)
+    fn = {"batch": tdec.decode_attention_batch, "batch_q8": tdec.decode_attention_batch_q8,
+          "single": tdec.decode_attention, "single_q8": tdec.decode_attention_q8}[form]
+    ref_fn = {"batch": tdec.decode_attention_batch_reference,
+              "batch_q8": tdec.decode_attention_batch_q8_reference,
+              "single": tdec.decode_attention_reference,
+              "single_q8": tdec.decode_attention_q8_reference}[form]
+
+    def call(f):
+        if batch:
+            return f(q, *cache, pos, pads)
+        return f(q[0], *(t[0] for t in cache), pos)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                   # warm-up outside the capture
+        call(fn)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call(fn)
+    windows = [([0] * b, [0] * b), ([8191] * b, [0] * b),
+               ([100, 8000, 4096, 255, 5, 7000, 1, 2047][:b], [0, 6000, 100, 255, 9, 0, 0, 64][:b])]
+    for p_new, pad_new in windows:
+        if batch:
+            pos.copy_(torch.tensor(p_new, dtype=torch.int32))
+            pads.copy_(torch.tensor(pad_new, dtype=torch.int32))
+        else:
+            pos.fill_(p_new[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = call(ref_fn)
+        assert (out - ref).abs().max().item() < DEC_TOL[torch.float32], (form, p_new)
 
 
 @pytest.mark.parametrize("kv", ["bf16", "int8"])

@@ -178,3 +178,51 @@ def test_new_forms_reject_other_devices():
         tdec.decode_attention_q8(q[0], kq[0], ks[0], vq[0], vs[0], 3)
     with pytest.raises(ValueError, match="unsupported device"):
         tdec.decode_attention(q[0], q[0, :2, None].expand(2, S, D), q[0, :2, None].expand(2, S, D), 3)
+
+
+# ---------------------------------------------------------------------------
+# the split plan of the CUDA kernels (pure Python: it runs here too)
+
+SMS = 132                   # the H100's streaming multiprocessors
+GRID_X = 2 ** 31 - 1        # CUDA's grid limits
+GRID_YZ = 65535
+
+
+def _live_blocks(chunk, kvh, pos, pads):
+    """Blocks whose chunk meets the row's window pads[b]..pos[b]: the ones
+    that do work (the rest exit at once)."""
+    return kvh * sum(max(0, p // chunk - lo // chunk + 1) if lo <= p else 0
+                     for p, lo in zip(pos, pads))
+
+
+@pytest.mark.parametrize("b,kvh,s", [
+    (1, 8, 2048), (8, 8, 8192), (8, 8, 2048),      # the served shapes (PERF.md rows 4-7)
+    (1, 8, 17), (8, 2, 17), (1, 2, 1),             # S under one tile
+    (4, 4, 517), (8, 2, 517), (1, 8, 100),         # S not a multiple of 64
+    (1, 2, 8192), (8, 2, 8192), (1, 8, 131072),    # KvH 2 and 8, long caches
+    (64, 8, 8192), (512, 8, 4096), (1, 1, 0),      # past MAX_BLOCKS rows; an empty cache
+])
+def test_plan_covers_every_position_once(b, kvh, s):
+    chunk, splits = tdec.plan(b, kvh, s)
+    assert chunk % tdec.TILE == 0 and chunk >= tdec.TILE
+    cover = np.zeros(max(s, 1), np.int64)
+    for j in range(splits):
+        cover[j * chunk:(j + 1) * chunk] += 1
+    assert (cover[:s] == 1).all()                  # each position in exactly one split
+    assert splits == max(1, -(-s // chunk))        # no split past the cache
+    assert splits <= GRID_X and kvh <= GRID_YZ and b <= GRID_YZ
+    assert b * kvh * splits <= max(tdec.MAX_BLOCKS, b * kvh)
+
+
+@pytest.mark.parametrize("b,kvh,s,pos,pads,max_tiles", [
+    (1, 8, 2048, [1100], [0], 2),                                   # row 4 / 7
+    (8, 8, 8192, [0, 17, 255, 256, 1000, 4095, 8191, 3000], [0] * 8, 8),   # row 5
+    (8, 8, 2048, [256] * 8, [0] * 8, 2),                            # row 6
+])
+def test_plan_fills_the_card_at_the_served_shapes(b, kvh, s, pos, pads, max_tiles):
+    """The live blocks cover the 132 SMs at least once where the window is
+    long enough, and no block walks more than ``max_tiles`` tiles."""
+    chunk, _ = tdec.plan(b, kvh, s)
+    assert chunk // tdec.TILE <= max_tiles
+    live = _live_blocks(chunk, kvh, pos, pads)
+    assert live >= SMS, (chunk, live)
