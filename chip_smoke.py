@@ -38,7 +38,11 @@ so the script exits non-zero:
      at batch 1, 16, 64 with the kernel and with the plain attention
   7  the LLM kernels vs their plain versions: int8 and int4 quant-matmul
      at Qwen3-1.7B's five products (the LM head included) and 1, 8, 32,
-     256 rows, x f32 (max|d|/max|plain| <= 1e-5) and bf16 (<= 8e-3);
+     256, 520 rows, x f32 (max|d|/max|plain| <= 1e-5) and bf16 (<= 8e-3),
+     each timed form with its split plan, GB/s and share of the bound
+     (bytes at 3.35 TB/s or bf16 tensor-core operations, / 3 for f32 x);
+     one-call yardsticks torch._weight_int8pack_mm at 8, 256 and 520 rows
+     and torch._weight_int4pack_mm at 8 rows (bf16 x);
      batched decode attention at B=8 H=16 KvH=8 S=8192 D=128, bf16 and
      f32 caches, per-row positions and pads, f32 q (max|d| < 1e-4) and
      bf16 q (< 2e-2); device times from CUDA-graph replays over operands
@@ -145,6 +149,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+PKG_ROOT = ROOT     # where subprocesses import clearcam_tpu_torch from (--package)
 BF16_TOL, F32_TOL = 0.05, 1e-4      # stem kernel vs plain, max |d|
 RAW_TOL = 2e-3                      # forward_raw GPU vs CPU, rtol and atol
 STEM_SOURCE = "clearcam_tpu_torch/csrc/stem.cu"
@@ -418,7 +423,7 @@ def phase4():
     with gzip.open(vocab, "wt", encoding="utf-8") as f:
         # no trailing newline: the reader takes every line after the header
         f.write("#version: smoke\n" + "\n".join(" ".join(m) for m in MERGES))
-    env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONUNBUFFERED="1",
+    env = dict(os.environ, PYTHONPATH=str(PKG_ROOT), PYTHONUNBUFFERED="1",
                CLEARCAM_BPE_PATH=str(vocab))
     out_path = tmp / "server.log"
     with open(out_path, "w") as out:
@@ -714,15 +719,21 @@ DEC_REPLACES = "clearcam_tpu/ops/decode_attention.py:200"
 QM_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 # Qwen3-1.7B's products (out, in): q/o, k/v, gate/up, down, the LM head
 QM_SHAPES = [(2048, 2048), (1024, 2048), (6144, 2048), (2048, 6144), (151936, 2048)]
-QM_ROWS = (1, 8, 32, 256)
+QM_ROWS = (1, 8, 32, 256, 520)
+# forms timed against a one-call yardstick: (out, in, rows)
+QM_YARDSTICK = {(6144, 2048, 8), (6144, 2048, 256), (6144, 2048, 520)}
 # decode kernel vs plain (f32 softmax over the whole cache), max |d|
 DEC_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DEC_POS = [0, 17, 255, 256, 1000, 4095, 8191, 3000]
 QM_JSON_SHAPE = (6144, 2048, 8, "float32")     # (out, in, rows, x dtype)
+GROUP_INT4 = 128       # the int4 scale group along the input
 HBM = 3.35e12          # H100 SXM HBM3 bytes/s (data sheet)
 # H100 SXM dense peaks (data sheet): f32 outside the tensor cores; bf16 and
 # int8 in them
 PEAK = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+# the quant kernel's rate for x of each type: bf16 products on the tensor
+# cores, three of them (bf16 terms) for an f32-exact product
+QM_PEAK = {"float32": PEAK["bfloat16"] / 3, "bfloat16": PEAK["bfloat16"]}
 L2_FLUSH = 120_000_000  # bytes a timed run cycles through: > the H100's 50 MB L2
 # 2-block full-width model, card vs CPU, f32: max |d| of the logprob rows
 # (chosen + top 8) and of the decode step's full logits
@@ -820,6 +831,22 @@ def _dec_line(dec, kt, pt, lib, bms, live, n, b, kvh, s) -> str:
             + f"; timed over {n} distinct caches, {n * live / 1e6:.0f} MB of live K/V")
 
 
+def _qm_line(qm, k, p, lib, bms, by, wbytes, rows, o_pad, k_pad, int4) -> str:
+    """What phase 7 prints per timed quant form: the split plan, launches a
+    call, GB/s of weights, the share of the bound, the plain version and
+    the one-call yardstick. A package from before the split design
+    (``--package``) has no plan: one block per 32 outputs and 16 rows."""
+    plan = getattr(qm, "plan", None)
+    grid = "no splits"
+    if plan is not None:
+        pl = plan(rows, o_pad, k_pad, int4)
+        grid = f"{pl.splits} splits x {pl.tiles} tiles = {pl.splits * pl.tiles} blocks"
+    grid += ", 1 launch a call"
+    return (f"{grid}; kernel {k:.4f} ms = {wbytes / k / 1e6:.0f} GB/s of weights "
+            f"({bms / k:.1%} of the {by} bound, {bms:.4f} ms), plain {p:.4f} ms, one call "
+            + ("none" if lib is None else f"{lib:.4f} ms = {lib / k:.2f}x the kernel's time"))
+
+
 def phase7(torch):
     log("== phase 7: quant-matmul and decode-attention kernels vs plain on the card")
     from clearcam_tpu_torch.ops import quant_matmul as qm
@@ -829,7 +856,9 @@ def phase7(torch):
         w = torch.randn((o, i), generator=gen, device="cuda") * 0.05
         for bits in (8, 4):
             ql = qm.quantize_int8(w) if bits == 8 else qm.quantize_int4(w)
-            wbytes = (ql.q if bits == 8 else ql.packed).numel() + ql.s.numel() * 4
+            qw = ql.q if bits == 8 else ql.packed
+            o_pad, k_pad = qw.shape[0], qw.shape[1] * (1 if bits == 8 else 2)
+            wbytes = qw.numel() + ql.s.numel() * 4
             qls = _copies(torch, ql, wbytes)
             for rows in QM_ROWS:
                 for dtype in (torch.float32, torch.bfloat16):
@@ -847,21 +876,28 @@ def phase7(torch):
                     if dtype == torch.float32:
                         out["qm_err"][bits] = max(
                             out["qm_err"][bits], (got - ref).abs().max().item())
+                        out["qm_rel"] = max(out.get("qm_rel", 0.0), rel)
                     if dtype == torch.float32 or rows == 8:
                         k, p = _pair_ms(
                             [lambda c=c: qm.quant_linear_reference(x, c) for c in qls],
                             [lambda c=c: qm.quant_linear(x, c) for c in qls])
-                        lib = _int8pack_ms(torch, qls, x, ref) if (
-                            bits == 8 and (o, i, rows, name) == QM_JSON_SHAPE) else None
+                        lib = None
+                        if (o, i, rows) in QM_YARDSTICK and bits == 8 and name == "float32":
+                            lib = _int8pack_ms(torch, qls, x, ref)
+                        elif (o, i, rows) == (6144, 2048, 8) and bits == 4 and name == "bfloat16":
+                            lib = _int4pack_ms(torch, qls, x, ref)
                         nb = wbytes + x.numel() * x.element_size() + rows * o * x.element_size()
-                        out["qm_ms"][(bits, o, i, rows, name)] = (k, p, lib) + bound(
-                            nb, 2 * rows * i * o, PEAK[name])
+                        bms, by = bound(nb, 2 * rows * i * o, QM_PEAK[name])
+                        out["qm_ms"][(bits, o, i, rows, name)] = (k, p, lib, bms, by)
                         log(f"quant int{bits} x[{rows},{i}] {name} . W[{o},{i}]: max|d|/max "
-                            f"{rel:.2e} (bound {QM_TOL[name]}); kernel {k:.4f} ms = "
-                            f"{wbytes / k / 1e6:.0f} GB/s ({wbytes / k / 1e9 / HBM * 1e12:.0%}"
-                            f" of HBM), plain {p:.4f} ms")
+                            f"{rel:.2e} (bound {QM_TOL[name]}); "
+                            + _qm_line(qm, k, p, lib, bms, by, wbytes, rows, o_pad, k_pad,
+                                       bits == 4))
             del ql, qls
         del w
+    log(f"quant f32 x: largest max|d|/max|plain| {out['qm_rel']:.2e} (bound "
+        f"{QM_TOL['float32']}); bounds: bytes over {HBM / 1e12} TB/s against operations "
+        "over 989 TFLOP/s bf16 (f32 x: / 3, its three bf16 terms)")
     _phase7_decode(torch, gen, out)
     return out
 
@@ -938,6 +974,39 @@ def _int8pack_ms(torch, qls, x, ref):
         return None
     return graph_ms([lambda c=c: torch._weight_int8pack_mm(x, c.q, c.s.reshape(-1))
                      for c in qls])
+
+
+def _int4pack(torch, ql):
+    """``ql``'s weights in tinygemm's layout (``torch._convert_weight_to_int4pack``
+    of the values + 8, two a byte, the even input in the high nibble, group
+    128) and its scales and zero points [groups, O, 2] in bf16: (q + 8 - 8)
+    * s + 0 = q * s."""
+    u = (ql.unpack() + 8).to(torch.uint8)                       # [O_pad, I_pad], 0..15
+    w = torch._convert_weight_to_int4pack(((u[:, ::2] << 4) | u[:, 1::2]).contiguous(), 8)
+    s = ql.s.to(torch.bfloat16)                                 # [groups, O_pad]
+    return w, torch.stack([s, torch.zeros_like(s)], -1).contiguous()
+
+
+def _int4pack_ms(torch, qls, x, ref):
+    """One ``torch._weight_int4pack_mm`` call (tinygemm, bf16 x) on the same
+    int4 values and scales (the scales rounded to bf16), where the card's
+    PyTorch has it and it agrees with the plain version to the bf16 bound;
+    else None."""
+    try:
+        packs = [_int4pack(torch, c) for c in qls]
+        got = torch._weight_int4pack_mm(x, packs[0][0], GROUP_INT4, packs[0][1])
+        torch.cuda.synchronize()
+    except (RuntimeError, AttributeError, NotImplementedError, TypeError) as e:
+        log(f"torch._weight_int4pack_mm on the card: {str(e).splitlines()[0][:160]}")
+        return None
+    rel = (got.float()[:, :ref.shape[1]] - ref.float()).abs().max().item() \
+        / ref.float().abs().max().item()
+    if not rel <= QM_TOL["bfloat16"]:
+        log(f"torch._weight_int4pack_mm differs from the plain version ({rel:.2e})")
+        return None
+    log(f"torch._weight_int4pack_mm: max|d|/max|plain| {rel:.2e} (bound {QM_TOL['bfloat16']})")
+    return _yardstick(lambda: graph_ms(
+        [lambda c=c: torch._weight_int4pack_mm(x, c[0], GROUP_INT4, c[1]) for c in packs]))
 
 
 def _sdpa_decode_ms(torch, q, caches, pos, pads):
@@ -1781,7 +1850,7 @@ def phase13(torch):
     # the tool as a user runs it
     proc = subprocess.run([sys.executable, "-m", "clearcam_tpu_torch.tools.vpu_probe"],
                           capture_output=True, text=True, timeout=300, cwd=str(ROOT),
-                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
+                          env=dict(os.environ, PYTHONPATH=str(PKG_ROOT)))
     if proc.returncode != 0:
         raise AssertionError(f"tools/vpu_probe: rc {proc.returncode}\n{proc.stderr[-3000:]}")
     line = proc.stdout.strip().splitlines()[-1]
@@ -1906,7 +1975,7 @@ def phase14(torch):
     cmd = [sys.executable, "-m", "clearcam_tpu_torch.tools.llm_bench", "--blocks", "28",
            "--modes", "int8,int8+kv8+pallas", "--decode-batch", "1,8", "--steps", "32"]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=str(ROOT),
-                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
+                          env=dict(os.environ, PYTHONPATH=str(PKG_ROOT)))
     if proc.returncode != 0:
         raise AssertionError(f"llm_bench: rc {proc.returncode}\n{proc.stderr[-3000:]}")
     lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
@@ -1930,7 +1999,7 @@ def _serve_llm(flags: list, drive, names: tuple, blocks: int = 28) -> tuple:
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_llm_"))
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
-    env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONUNBUFFERED="1")
+    env = dict(os.environ, PYTHONPATH=str(PKG_ROOT), PYTHONUNBUFFERED="1")
     out_path = tmp / "server.log"
     t0 = time.time()
     with open(out_path, "w") as out:
@@ -2061,7 +2130,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if args.package:
-        sys.path.insert(0, str(Path(args.package).resolve()))
+        global PKG_ROOT
+        PKG_ROOT = Path(args.package).resolve()
+        sys.path.insert(0, str(PKG_ROOT))
 
     import torch
     if not torch.cuda.is_available():

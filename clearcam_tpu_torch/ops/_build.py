@@ -39,8 +39,10 @@ SIGNATURES = {
                                ctypes.POINTER(ctypes.c_longlong), _F, _I, _P], _I),
     # once per device, before its first vit_attention_forward
     "vit_attention_prepare": ([], _I),
-    # x, q, s, bias, out, N, K, K_pad, O, O_pad, int4, dtype, stream
-    "quant_matmul_forward": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    # x, q, s, bias, out, the splits' scratch, their counters, N, K, K_pad,
+    # O, O_pad, splits, int4, dtype, stream
+    "quant_matmul_forward": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _P], _I),
     # once per device, before its first quant_matmul_forward
     "quant_matmul_prepare": ([], _I),
     # q, k, v, k scales, v scales (null unless int8), out, pos, pads, the

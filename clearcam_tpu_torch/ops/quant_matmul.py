@@ -24,10 +24,18 @@ O is padded to 256 and I to 1024 at quantization time; symmetric scales
 any leading dims, the product in f32 with the scale applied after the K
 sum (int4: to each group's partial sum), the bias added in f32, the result
 cast to x's dtype.
+
+The kernel runs on the tensor cores (f32 x as three exact bf16 terms) and
+splits K over the card's SMs: ``plan`` sizes the grid from the shapes
+alone, so a call can be captured in a CUDA graph. With more than one
+split, the wrapper passes f32 scratch for the splits' sums and the
+device's arrival counters, which every call leaves at zero; calls on one
+device run in stream order (the port issues them on one stream).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +45,18 @@ TO = 256        # output padding (the JAX layout's output tile)
 TI = 1024       # input padding (its contraction tile)
 GROUP = 128     # int4 scale group along the input
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's grid (csrc/quant_matmul.cu): tiles of 64 outputs x 8 or 16
+# rows (decode, N <= 16) or 256 outputs x 32 or 64 rows (prefill), K splits
+# of whole UNITs
+UNIT = 256      # split granularity in inputs: an int4 128-byte slice holds whole groups
+SMS = 132       # the H100 SXM's streaming multiprocessors
+# blocks the plan asks for, one an SM: at decode the fewest splits that
+# reach it (each split adds scratch traffic and a reduction; on the H100
+# two an SM read a layer's seven products no faster); at prefill, where
+# one block of 8 warps fills an SM, the most splits that fit in it (a
+# part-empty second wave gains nothing)
+TARGET_BLOCKS = SMS
+COUNTERS = 1024  # the split counters a device keeps (> TARGET_BLOCKS tiles)
 
 
 @dataclass
@@ -153,6 +173,51 @@ def quant_linear_reference(x, w, b=None):
     return y.reshape(*lead, w.out_features).to(x.dtype)
 
 
+class Plan(NamedTuple):
+    block_o: int     # outputs a block: 64 (decode) or 256 (prefill)
+    block_n: int     # rows a block: 8, 16 (decode) or 32, 64 (prefill)
+    tiles: int       # output tiles x row tiles
+    units: int       # K_pad / UNIT
+    splits: int      # K splits of whole units, 1 <= splits <= units
+
+
+def plan(n: int, o_pad: int, k_pad: int, int4: bool = False) -> Plan:
+    """The kernel's grid for ``n`` rows against an [o_pad, k_pad] weight,
+    from the shapes alone (nothing is read back, so a call can be captured
+    in a CUDA graph): at decode the fewest K splits that give
+    ``TARGET_BLOCKS`` blocks, at prefill as many as fit in one wave of
+    ``TARGET_BLOCKS``; at most one a unit. A split is whole units of 256
+    inputs, so it never cuts an int4 group; the plan is the same for both
+    formats."""
+    del int4
+    block_o, block_n = ((64, 8) if n <= 8 else (64, 16) if n <= 16
+                        else (256, 32) if n <= 32 else (256, 64))
+    tiles = (o_pad // block_o) * -(-n // block_n)
+    units = k_pad // UNIT
+    if n <= 16:
+        splits = -(-TARGET_BLOCKS // tiles)          # the fewest that reach it
+    else:
+        splits = TARGET_BLOCKS // tiles              # one wave at most
+    return Plan(block_o, block_n, tiles, units, min(units, max(1, splits)))
+
+
+_counters: dict[int, torch.Tensor] = {}
+
+
+def _split_counters(device) -> torch.Tensor:
+    """The device's arrival counters of the split reduction, zero between
+    calls (each call's last block resets its tile's). Made once per device,
+    on the first call: not inside a CUDA graph capture, whose memory pool
+    would own them."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _counters:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("quant_linear: call it once on this device before "
+                               "capturing it in a CUDA graph")
+        _counters[index] = torch.zeros(COUNTERS, dtype=torch.int32, device=device)
+    return _counters[index]
+
+
 def prepare(device) -> str:
     """Build and load the kernel library and set the kernel up on the CUDA
     ``device``, once; returns the library's path."""
@@ -206,14 +271,22 @@ def quant_linear(x, w, b=None):
     if n == 0:
         return out.reshape(*lead, w.out_features)
     bias = None if b is None else b.float().contiguous()
+    p = plan(n, o_pad, k_pad, int4)
     prepare(x.device)
     lib = _build.load()
+    part = counters = None
+    if p.splits > 1:
+        assert p.tiles <= COUNTERS, p
+        counters = _split_counters(x.device)
+        part = torch.empty(p.splits * n * o_pad, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.quant_matmul_forward(
             x2.data_ptr(), (w.packed if int4 else w.q).data_ptr(), w.s.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            n, w.in_features, k_pad, w.out_features, o_pad, int(int4),
+            None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            n, w.in_features, k_pad, w.out_features, o_pad, p.splits, int(int4),
             _DTYPES[x.dtype], stream)
     _build.check(err, "quant_matmul kernel launch")
     quant_linear.launches += 1

@@ -185,8 +185,8 @@ QM_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows", [1, 2, 3, 5, 16, 17, 130])
-@pytest.mark.parametrize("oi", [(300, 700), (1024, 2048)])
+@pytest.mark.parametrize("rows", [1, 2, 3, 5, 16, 17, 32, 130, 256, 520])
+@pytest.mark.parametrize("oi", [(300, 700), (1024, 2048), (6144, 2048), (2048, 6144)])
 def test_quant_matmul_kernel_matches_plain(cuda, bits, dtype, rows, oi):
     from clearcam_tpu_torch.ops import quant_matmul as tqm
     rng = np.random.default_rng(rows)
@@ -202,6 +202,88 @@ def test_quant_matmul_kernel_matches_plain(cuda, bits, dtype, rows, oi):
     assert got.shape == ref.shape == (rows, oi[0]) and got.dtype == dtype
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= QM_TOL[dtype] * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_is_bitwise_deterministic_and_replays_in_a_cuda_graph(cuda, bits):
+    """Two eager calls give the same bits; so do graph replays of two
+    interleaved shapes (split and unsplit plans) with new x written in
+    place: the split counters come back to 0 after every call."""
+    from clearcam_tpu_torch.ops import quant_matmul as tqm
+    rng = np.random.default_rng(bits)
+    quant = tqm.quantize_int8 if bits == 8 else tqm.quantize_int4
+    ws = [quant(torch.from_numpy(rng.normal(0, 0.05, oi).astype(np.float32)).to(cuda))
+          for oi in ((2048, 6144), (151936 // 16, 2048))]
+    xs = [torch.zeros((rows, w.in_features), device=cuda) for rows, w in zip((8, 256), ws)]
+    pads = [(w.s.shape[1], (w.q.shape[1] if bits == 8 else 2 * w.packed.shape[1]))
+            for w in ws]
+    assert [tqm.plan(x.shape[0], *pad, bits == 4).splits > 1
+            for x, pad in zip(xs, pads)] == [True, False]
+
+    def fill(seed):
+        g = np.random.default_rng(seed)
+        for x in xs:
+            x.copy_(torch.from_numpy(g.standard_normal(tuple(x.shape), np.float32)))
+
+    fill(0)
+    first = [tqm.quant_linear(x, w) for x, w in zip(xs, ws)]
+    again = [tqm.quant_linear(x, w) for x, w in zip(xs, ws)]
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                   # warm-up outside the capture
+        for x, w in zip(xs, ws):
+            tqm.quant_linear(x, w)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [tqm.quant_linear(x, w) for x, w in zip(xs, ws)] + \
+            [tqm.quant_linear(xs[0], ws[0])]
+    for seed in (1, 2, 0):
+        fill(seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = [tqm.quant_linear(x, w) for x, w in zip(xs, ws)]
+        assert torch.equal(outs[0], eager[0]) and torch.equal(outs[2], eager[0])
+        assert torch.equal(outs[1], eager[1])
+        for x, w, o in zip(xs, ws, outs):
+            ref = tqm.quant_linear_reference(x, w)
+            assert (o - ref).abs().max().item() <= QM_TOL[torch.float32] * ref.abs().max().item()
+    assert [torch.equal(a, b) for a, b in zip(first, outs)] == [True, True]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_widens_every_int8_value_exactly(cuda, dtype):
+    """All 256 int8 values through the kernel: x one-hot rows pick single
+    weights, with scale 1, so the output is the widened weight itself."""
+    from clearcam_tpu_torch.ops import quant_matmul as tqm
+    o = torch.arange(256).reshape(-1, 1)
+    q = (((o + torch.arange(1024)) % 256) - 128).to(torch.int8)    # every value per column
+    ql = tqm.QuantLinear(q.to(cuda), torch.ones((1, 256), device=cuda), 256, 1024)
+    x = torch.eye(256, 1024, device=cuda, dtype=dtype)              # row n picks input n
+    got = tqm.quant_linear(x, ql)
+    torch.cuda.synchronize()
+    assert torch.equal(got.float().cpu(), q[:, :256].T.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_widens_every_int4_byte_exactly(cuda, dtype):
+    """All 256 packed bytes, both nibbles, through the kernel against
+    ``QuantLinear4.unpack``: one-hot rows of x at input j (low nibble of
+    byte j) and j + 512 (high nibble), scales 1."""
+    from clearcam_tpu_torch.ops import quant_matmul as tqm
+    o = torch.arange(256).reshape(-1, 1)
+    packed = (((o + torch.arange(512)) % 256) - 128).to(torch.int8)
+    ql = tqm.QuantLinear4(packed.to(cuda), torch.ones((8, 256), device=cuda), 256, 1024)
+    cols = torch.cat([torch.arange(128), 512 + torch.arange(128)])
+    x = torch.zeros((256, 1024), device=cuda, dtype=dtype)
+    x[torch.arange(256), cols.to(cuda)] = 1
+    got = tqm.quant_linear(x, ql)
+    torch.cuda.synchronize()
+    want = ql.to("cpu").unpack()[:, cols].T.float()
+    assert set(packed[:, :128].flatten().tolist()) == set(range(-128, 128))
+    assert torch.equal(got.float().cpu(), want)
 
 
 @pytest.mark.parametrize("bits", [8, 4])

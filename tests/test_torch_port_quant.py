@@ -142,3 +142,160 @@ def test_quantize_params_picks_the_jax_keys(bits):
             np.testing.assert_array_equal(tq[k].s.numpy(), np.asarray(v.s))
     assert not isinstance(tq["token_embd.weight"], (tqm.QuantLinear, tqm.QuantLinear4))
     assert isinstance(tq["output.weight"], tqm.QuantLinear if bits == 8 else tqm.QuantLinear4)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's grid and arithmetic, as far as the CPU can hold them
+
+# Qwen3-1.7B's products (out, in): q/o, k/v, gate/up, down, the LM head
+SERVED = [(2048, 2048), (1024, 2048), (6144, 2048), (2048, 6144), (151936, 2048)]
+TESTED = [(300, 700), (1024, 2048), (256, 1024), (300, 1100)]
+ROWS = [1, 2, 3, 5, 8, 16, 17, 32, 130, 256, 520]
+QM_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}   # the card's bounds, max|d|/max|ref|
+
+
+def _pads(o, i):
+    return -(-o // tqm.TO) * tqm.TO, -(-i // tqm.TI) * tqm.TI
+
+
+def _split_units(p, split):
+    """The units [u0, u1) that split ``split`` of plan ``p`` sums, cut as the
+    kernel's ``split_stages`` cuts them. Unit u is inputs 256u.. of an int8
+    row, and packed bytes 128u.. of an int4 row: one low and one high group
+    of 128."""
+    return split * p.units // p.splits, (split + 1) * p.units // p.splits
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("oi", SERVED + TESTED)
+def test_plan_splits_cover_k_in_whole_units(oi, bits):
+    """At every served and tested shape and row count: the splits cover the
+    padded K exactly, none is empty, every boundary is a multiple of 256
+    inputs, so an int4 split holds whole groups (a unit's 128 packed bytes
+    are one low and one high group), and the grid stays in the kernel's
+    counters."""
+    o_pad, k_pad = _pads(*oi)
+    for n in ROWS:
+        p = tqm.plan(n, o_pad, k_pad, bits == 4)
+        assert (p.block_o, p.block_n) == ((64, 8) if n <= 8 else (64, 16) if n <= 16
+                                          else (256, 32) if n <= 32 else (256, 64))
+        assert p.tiles == (o_pad // p.block_o) * -(-n // p.block_n)
+        assert p.units * tqm.UNIT == k_pad and 1 <= p.splits <= p.units
+        bounds = [_split_units(p, j) for j in range(p.splits)]
+        assert bounds[0][0] == 0 and bounds[-1][1] == p.units
+        assert all(a < b for a, b in bounds)
+        assert all(b == c for (_, b), (c, _) in zip(bounds, bounds[1:]))
+        if bits == 4:
+            for u0, _ in bounds:                      # packed byte 128 u0 starts a group pair
+                tile, sub = divmod(u0 * tqm.UNIT // 2, tqm.TI // 2)
+                assert sub % tqm.GROUP == 0 and (tile * tqm.TI + sub) % tqm.GROUP == 0
+        assert p.splits == 1 or p.tiles <= tqm.COUNTERS
+        # decode: the fewest splits that reach the target, unless K runs out
+        # of units; prefill: the most that fit in one wave
+        blocks = p.tiles * p.splits
+        target = tqm.TARGET_BLOCKS
+        if n <= 16:
+            assert blocks >= min(target, p.tiles * p.units)
+            assert p.splits == 1 or p.tiles * (p.splits - 1) < target
+        else:
+            assert p.splits == 1 or blocks <= target
+            assert p.splits == p.units or p.tiles * (p.splits + 1) > target
+
+
+@pytest.mark.parametrize("oi", SERVED)
+def test_plan_fills_the_card_at_decode(oi):
+    """8 rows (the serving slots) at each served product: a block for
+    every SM where the shape has that many units of work (k and v, [1024,
+    2048], have 16 tiles x 8 units = 128), and no more splits than that
+    needs."""
+    p = tqm.plan(8, *_pads(*oi))
+    blocks = p.tiles * p.splits
+    assert blocks >= tqm.SMS or (oi == (1024, 2048) and blocks == p.tiles * p.units == 128)
+    assert p.splits == 1 or p.tiles * (p.splits - 1) < tqm.SMS
+
+
+def _terms(x, n):
+    """x as the sum of n bf16 terms, each widened back to f32 (the
+    kernel's split of f32 x; bf16 x is its own single term)."""
+    out, r = [], x.float()
+    for _ in range(n):
+        t = r.bfloat16().float()
+        out.append(t)
+        r = r - t
+    return out
+
+
+def _kernel_model(x, w, b=None, terms=3):
+    """Plain torch of the kernel's arithmetic: x in bf16 terms (one for bf16
+    x), products with the integer weights exact (f32 here, < 2^24), f32
+    sums per split (int4: per group, then scaled), the splits added in
+    split order, then the int8 scale, the bias and the cast."""
+    int4 = isinstance(w, tqm.QuantLinear4)
+    q = (w.unpack() if int4 else w.q.to(torch.int32)).float()   # [O_pad, K_pad]
+    o_pad, k_pad = q.shape
+    x2 = x.reshape(-1, x.shape[-1])
+    xs = _terms(x2, 1 if x.dtype == torch.bfloat16 else terms)
+    xs = [torch.nn.functional.pad(t, (0, k_pad - t.shape[1])) for t in xs]
+    p = tqm.plan(x2.shape[0], o_pad, k_pad, int4)
+    out = torch.zeros(x2.shape[0], o_pad)
+    for j in range(p.splits):
+        u0, u1 = _split_units(p, j)
+        acc = torch.zeros(x2.shape[0], o_pad)
+        for u in range(u0, u1):
+            if int4:                                   # unit u: one low and one high group
+                tile, sub = divmod(u * tqm.UNIT // 2, tqm.TI // 2)
+                for k0 in (tile * tqm.TI + sub, tile * tqm.TI + tqm.TI // 2 + sub):
+                    ks = slice(k0, k0 + tqm.GROUP)
+                    part = sum(t[:, ks] @ q[:, ks].T for t in reversed(xs))
+                    acc = acc + part * w.s[k0 // tqm.GROUP]
+            else:
+                ks = slice(u * tqm.UNIT, (u + 1) * tqm.UNIT)
+                acc = acc + sum(t[:, ks] @ q[:, ks].T for t in reversed(xs))
+        out = out + acc
+    if not int4:
+        out = out * w.s
+    y = out[:, :w.out_features]
+    if b is not None:
+        y = y + b
+    return y.reshape(*x.shape[:-1], w.out_features).to(x.dtype)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k", [2048, 6144])
+@pytest.mark.parametrize("rows", [1, 8, 256])
+def test_kernel_arithmetic_model_holds_the_bounds(bits, k, rows, capsys):
+    """Three bf16 terms of f32 x hold the card's f32 bound against the plain
+    version at the served K; the test prints the error of two terms and of
+    one (bf16 x's own bound holds for bf16 x)."""
+    rng = np.random.default_rng(k + rows + bits)
+    w = torch.from_numpy(rng.normal(0, 0.05, (256, k)).astype(np.float32))
+    ql = tqm.quantize_int8(w) if bits == 8 else tqm.quantize_int4(w)
+    x = torch.from_numpy(rng.standard_normal((rows, k), np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.1, 256).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        xx = x.to(dtype)
+        ref = tqm.quant_linear_reference(xx, ql, b).float()
+        rel = {n: ((_kernel_model(xx, ql, b, n).float() - ref).abs().max()
+                   / ref.abs().max()).item() for n in (3, 2, 1)}
+        assert rel[3] <= QM_TOL[dtype], rel
+        if dtype == torch.float32:
+            with capsys.disabled():
+                print(f"\nint{bits} K={k} rows={rows}: max|d|/max|ref| by terms {rel}")
+            assert rel[1] > QM_TOL[dtype]             # one bf16 term is not f32
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_kernel_arithmetic_model_matches_the_jax_kernel(bits):
+    """The model against the JAX package's Pallas kernel in interpret mode,
+    at a small size with split K (3 splits of 1 to 2 units)."""
+    rng = np.random.default_rng(20 + bits)
+    w = _w((300, 1500), seed=bits)
+    x = rng.standard_normal((5, 1500), np.float32)
+    b = rng.normal(0, 0.1, 300).astype(np.float32)
+    quant = jqm.quantize_int8 if bits == 8 else jqm.quantize_int4
+    jq = quant(w)
+    ref = np.asarray(jqm.quant_linear(jnp.asarray(x), jq, jnp.asarray(b), interpret=True))
+    tq = tllm.params_from_jax({"w": jq})["w"]
+    assert tqm.plan(5, 512, 2048, bits == 4).splits == 8
+    got = _kernel_model(torch.from_numpy(x), tq, torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=TOL, atol=TOL)
