@@ -31,7 +31,13 @@ so the script exits non-zero:
      vit_attention launches reported at shutdown
   5  ViT attention kernel vs its plain version (mha_reference) at the CLIP
      tower's shapes and the Qwen3-VL vision lengths: f32 max|d| < 1e-4
-     (TF32 off), bf16 max|d| < 2e-2; timed with CUDA events
+     (TF32 off), bf16 max|d| < 2e-2; the CLIP tower at 1, 16 and 64 crops
+     (f32), at 16 in bf16 and a summary frame's tower [1,16,2040,64] (f32)
+     timed as CUDA-graph replays over distinct q/k/v sets larger than L2,
+     plain, kernel, kernel, plain, each with one
+     scaled_dot_product_attention call timed the same way, the kernel's
+     plan, TFLOP/s and share of the bound (bytes at 3.35 TB/s or bf16
+     tensor-core operations, / 3 for f32 inputs)
   6  the towers on the card against the CPU, f32: ViT-L/14 (24 blocks,
      through the kernel) and the text tower (12 blocks), cosine > 1 - 1e-5
      per row; BlazeFace detect and IR-50 AdaFace embed; image-tower img/s
@@ -164,6 +170,11 @@ ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # vision tower's 2040 (a 544x960 frame)
 ATTN_SHAPES = [(16, 16, 257, 64), (1, 16, 257, 64)] + [
     (2, 16, t, 64) for t in (1, 7, 128, 129, 784, 1600)] + [(1, 16, 2040, 64)]
+# timed forms (B, T, dtype name), 16 heads of 64: the CLIP tower at one
+# crop (an image search), one and four CROP_BATCHes (f32, as served), bf16
+# at one, and a summary frame's Qwen3-VL tower (f32, as served)
+ATTN_TIMED = [(1, 257, "float32"), (16, 257, "float32"), (64, 257, "float32"),
+              (16, 257, "bfloat16"), (1, 2040, "float32")]
 TOWER_COS = 1 - 1e-5                # towers, GPU vs CPU, cosine per row
 # BPE merges for the server's tokenizer: the real vocab is not in the repo
 ALL_PHASES = tuple(range(15))
@@ -582,6 +593,7 @@ def _qkv(torch, shape, dtype, seed):
 
 def phase5(torch):
     log("== phase 5: ViT attention kernel vs plain (mha_reference) on the card")
+    from clearcam_tpu_torch.ops import vit_attention
     from clearcam_tpu_torch.ops.vit_attention import mha_flash, mha_reference
     max_err = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -601,27 +613,33 @@ def phase5(torch):
                 raise AssertionError(f"attention {shape} {name}: max|d| {err} >= "
                                      f"{ATTN_TOL[name]}")
     times = {}
-    for b, dtype in ((16, torch.float32), (64, torch.float32), (16, torch.bfloat16)):
-        q, k, v = _qkv(torch, (b, 16, 257, 64), dtype, seed=b)
-        # plain, kernel, kernel, plain: drift on the card hits both alike
-        p1 = cuda_ms(lambda: mha_reference(q, k, v))
-        k1 = cuda_ms(lambda: mha_flash(q, k, v))
-        k2 = cuda_ms(lambda: mha_flash(q, k, v))
-        p2 = cuda_ms(lambda: mha_reference(q, k, v))
-        key = (b, str(dtype)[6:])
-        sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b, t, name in ATTN_TIMED:
+        dtype = getattr(torch, name)
+        shape = (b, 16, t, 64)
+        live = 4 * int(np.prod(shape)) * (4 if name == "float32" else 2)  # q, k, v, out
+        pool = []
+        sets = _distinct(pool, lambda: _qkv(torch, shape, dtype, seed=1000 + len(pool)), live)
+        q, k, v = sets[0]
         lib_err = (sdpa(q, k, v).float() - mha_flash(q, k, v).float()).abs().max().item()
-        if not lib_err < ATTN_TOL[key[1]]:
+        if not lib_err < ATTN_TOL[name]:
             raise AssertionError(f"SDPA yardstick off the kernel by {lib_err}")
-        lib = _yardstick(lambda: cuda_ms(lambda: sdpa(q, k, v)))
-        flop = 4 * b * 16 * 257 * 257 * 64
-        times[key] = ((k1 + k2) / 2, (p1 + p2) / 2, lib) + bound(
-            4 * q.numel() * q.element_size(), flop, PEAK[key[1]])
-        log(f"attention [{b},16,257,64] {key[1]}: kernel {times[key][0]:.4f} ms "
-            f"(runs {k1:.4f}, {k2:.4f}) = {flop / times[key][0] / 1e9:.1f} TFLOP/s, "
-            f"plain {times[key][1]:.4f} ms (runs {p1:.4f}, {p2:.4f}), one "
-            f"scaled_dot_product_attention call {lib} ms, bound {times[key][3]:.4f} ms "
-            f"({times[key][4]})")
+        # plain, kernel, kernel, plain, as CUDA-graph replays over the sets
+        kt, pt = _pair_ms([lambda s=s: mha_reference(*s) for s in sets],
+                          [lambda s=s: mha_flash(*s) for s in sets])
+        lib = _yardstick(lambda: graph_ms([lambda s=s: sdpa(*s) for s in sets]))
+        flop = 4 * b * 16 * t * t * 64
+        bms, by = bound(live, flop, ATTN_PEAK[name])
+        times[(b, t, name)] = (kt, pt, lib, bms, by)
+        # a package from before the tensor-core design (--package) has no plan
+        plan = getattr(vit_attention, "plan", None)
+        grid = (f"plan {plan(b, 16, t, dtype)}" if plan else
+                "no plan (one block of 256 threads per 64 query rows)")
+        log(f"attention {list(shape)} {name}: {grid}; kernel {kt:.4f} ms = "
+            f"{flop / kt / 1e9:.1f} TFLOP/s ({bms / kt:.1%} of the {by} bound, "
+            f"{bms:.4f} ms), plain {pt:.4f} ms, scaled_dot_product_attention "
+            + ("none" if lib is None else f"{lib:.4f} ms = {lib / kt:.2f}x the kernel's time")
+            + f"; timed over {len(sets)} distinct q/k/v sets, {len(sets) * live / 1e6:.0f} MB")
     return max_err, times
 
 
@@ -734,6 +752,8 @@ PEAK = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 # the quant kernel's rate for x of each type: bf16 products on the tensor
 # cores, three of them (bf16 terms) for an f32-exact product
 QM_PEAK = {"float32": PEAK["bfloat16"] / 3, "bfloat16": PEAK["bfloat16"]}
+# the ViT attention kernel's, by the same rule, whatever terms it splits into
+ATTN_PEAK = QM_PEAK
 L2_FLUSH = 120_000_000  # bytes a timed run cycles through: > the H100's 50 MB L2
 # 2-block full-width model, card vs CPU, f32: max |d| of the logprob rows
 # (chosen + top 8) and of the decode step's full logits
@@ -2211,7 +2231,7 @@ def main(argv=None) -> int:
                 "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib}
     st = times[8]
-    at = attn_times[(16, "float32")]
+    at = attn_times[(16, 257, "float32")]
     vl = vlm["launches"]
     print(json.dumps({"kernels": [
         row("stem", STEM_SOURCE, STEM_REPLACES, launches["stem"], max_err,

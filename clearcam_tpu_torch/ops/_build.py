@@ -34,9 +34,10 @@ SIGNATURES = {
     "stem_forward": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     # once per device, before its first stem_forward -> cudaError_t
     "stem_prepare": ([], _I),
-    # q, k, v, out, B, H, T, int64[12] strides, scale, dtype, stream
+    # q, k, v, out, B, H, T, int64[12] strides, scale, dtype, warps, stages,
+    # stream
     "vit_attention_forward": ([_P, _P, _P, _P, _I, _I, _I,
-                               ctypes.POINTER(ctypes.c_longlong), _F, _I, _P], _I),
+                               ctypes.POINTER(ctypes.c_longlong), _F, _I, _I, _I, _P], _I),
     # once per device, before its first vit_attention_forward
     "vit_attention_prepare": ([], _I),
     # x, q, s, bias, out, the splits' scratch, their counters, N, K, K_pad,

@@ -108,7 +108,8 @@ def _qkv(shape, dtype, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(16, 16, 257, 64), (1, 16, 257, 64)]
-                         + [(2, 16, t, 64) for t in (1, 7, 128, 129, 784, 1600)])
+                         + [(2, 16, t, 64) for t in (1, 7, 128, 129, 784, 1600)]
+                         + [(1, 16, 2040, 64)])
 def test_vit_attention_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = _qkv(shape, dtype, seed=shape[2])
     before = tattn.mha_flash.launches
@@ -120,13 +121,69 @@ def test_vit_attention_kernel_matches_plain(cuda, shape, dtype):
     assert (got.float() - ref.float()).abs().max().item() < ATTN_TOL[dtype]
 
 
-def test_vit_attention_kernel_reads_strided_heads(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_attention_kernel_reads_strided_heads(cuda, dtype):
     """The heads of a fused qkv projection, read in place, with a scale."""
-    qkv = _qkv((2, 257, 3 * 1024), torch.float32, seed=5)[0]
+    qkv = _qkv((2, 257, 3 * 1024), dtype, seed=5)[0]
     q, k, v = (t.view(2, 257, 16, 64).transpose(1, 2) for t in qkv.chunk(3, -1))
     got = tattn.mha_flash(q, k, v, sm_scale=0.1)
     ref = tattn.mha_reference(q, k, v, sm_scale=0.1)
-    assert (got - ref).abs().max().item() < ATTN_TOL[torch.float32]
+    assert got.dtype == dtype
+    assert (got.float() - ref.float()).abs().max().item() < ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_attention_is_bitwise_deterministic_and_replays_in_a_cuda_graph(cuda, dtype):
+    """Two eager calls give the same bits; so do CUDA-graph replays of two
+    interleaved shapes (CLIP's and a summary frame's, two plans) with new
+    q, k, v written in place between replays."""
+    rng = np.random.default_rng(9)
+    shapes = [(4, 16, 257, 64), (1, 16, 2040, 64)]
+    assert len({tattn.plan(b, h, t, dtype) for b, h, t, _ in shapes}) == 2
+    ins = [_qkv(shape, dtype, seed=i) for i, shape in enumerate(shapes)]
+    first = [tattn.mha_flash(*x) for x in ins]
+    again = [tattn.mha_flash(*x) for x in ins]
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                   # warm-up outside the capture
+        for x in ins:
+            tattn.mha_flash(*x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [tattn.mha_flash(*x) for x in ins] + [tattn.mha_flash(*ins[0])]
+    for fresh in (True, True, False):              # the last: the first inputs again
+        for i, x in enumerate(ins):
+            new = _qkv(shapes[i], dtype, seed=int(rng.integers(1 << 30)) if fresh else i)
+            for t, n in zip(x, new):
+                t.copy_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = [tattn.mha_flash(*x) for x in ins]
+        assert torch.equal(outs[0], eager[0]) and torch.equal(outs[2], eager[0])
+        assert torch.equal(outs[1], eager[1])
+        for x, o in zip(ins, outs):
+            ref = tattn.mha_reference(*x)
+            assert (o.float() - ref.float()).abs().max().item() < ATTN_TOL[dtype]
+    assert all(torch.equal(a, b) for a, b in zip(first, outs))
+
+
+def test_vit_attention_refuses_what_cp_async_cannot_copy(cuda):
+    """The kernel copies 16-byte chunks: bf16 strides must be multiples of
+    8 elements and the base 16-byte aligned (4 elements and 8 bytes passed
+    before the tensor-core design); the fused-qkv heads always are."""
+    buf = _qkv((1, 2, 9, 3 * 64 + 4), torch.bfloat16, seed=2)[0]
+    q = buf[..., :64]                            # t stride 196: a multiple of 4, not 8
+    with pytest.raises(ValueError, match="16 bytes"):
+        tattn.mha_flash(q, q, q)
+    flat = torch.zeros(2 * 9 * 64 + 8, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[4:-4].view(1, 2, 9, 64)       # base 8 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16 bytes"):
+        tattn.mha_flash(shifted, shifted, shifted)
+    fine = flat[8:].view(1, 2, 9, 64)            # 16 bytes past: taken
+    assert tattn.mha_flash(fine, fine, fine).shape == (1, 2, 9, 64)
 
 
 def test_vit_attention_kernel_raises_on_bad_input(cuda):
