@@ -14,12 +14,17 @@ so the script exits non-zero:
   0  the card: nvidia-smi name and power limit, torch, nvcc; TF32 off
   1  build csrc/*.cu with nvcc for sm_90a, timed
   2  stem kernel vs its plain version (stem_reference, cuDNN) at the main
-     path's shapes: bf16 max|d| < 0.05, f32 max|d| < 1e-4; timed with CUDA
-     events
+     path's shapes, a ragged width and an input 2 bytes past a 4-byte
+     boundary: bf16 max|d| < 0.05, f32 max|d| < 1e-4; the packed-operand
+     call equal to the HWIO one and its gap to gemm_reference; then
+     [8|128,384,640,3] bf16 timed as CUDA-graph replays over distinct
+     inputs and outputs larger than L2, plain, kernel, kernel, plain, with
+     GB/s and the share of the bytes bound
   3  YOLOv9-t 640 on 8 random 1080p frames: GPU f32 vs CPU f32 (forward_raw
      rtol/atol 2e-3, NMS on one head output, detect rows under
      clearcam_tpu_torch.testing's rule), the bf16 default path through
-     BatchDetector, and frames/s at batch 1, 8, 32
+     BatchDetector, and frames/s at batch 1, 8, 32; at 32 one step's
+     kernel time and the stem kernel's share of it (torch.profiler)
   4  `python -m clearcam_tpu_torch` on an empty data directory, set up
      through its API as a user does (/edit_settings to YOLOv9-t 640, then
      use_clip and use_face on; /add_camera for two synthetic 1080p
@@ -266,15 +271,60 @@ def _plain_pair(torch, x, w1, b1, w2, b2):
     return plain
 
 
+# phase 2's correctness cases: the served shapes (one frame, a CROP_BATCH of
+# frames at 384x640), a ragged width whose rows are not 16-byte runs (23
+# pixels: 138 bytes), a one-pixel row, and f32 at the GPU-against-CPU shapes
+STEM_CASES = [((1, 384, 640, 3), "bfloat16"), ((8, 384, 640, 3), "bfloat16"),
+              ((1, 17, 23, 3), "bfloat16"), ((3, 1, 2, 3), "bfloat16"),
+              ((2, 100, 68, 3), "bfloat16"), ((2, 100, 68, 3), "float32"),
+              ((2, 640, 640, 3), "float32"), ((1, 17, 23, 3), "float32")]
+
+
+def _stem_timed(torch, mod, b):
+    """The stem at [b,384,640,3] bf16 as phase 2 times it: (kernel calls,
+    plain calls, bytes a call), one call per distinct input, enough inputs
+    that their bytes in and out pass L2_FLUSH; each call keeps its output,
+    so a CUDA graph writes every output to a buffer of its own. The kernel
+    is called on operands packed once where the package has
+    ``stem_packed`` (the served route), else (a package from before it,
+    ``--package``) on the f32 HWIO operands the model kept for it then."""
+    from clearcam_tpu_torch.ops.stem import out_hw
+    h2, w2 = out_hw(384, 640)
+    _, *hwio = _stem_inputs(torch, (1, 4, 4, 3), torch.bfloat16, seed=9)
+    packed = mod.pack(*hwio) if hasattr(mod, "stem_packed") else None
+    read = (packed.w1k, packed.b1, packed.w2k, packed.b2) if packed else hwio
+    wbytes = sum(t.numel() * t.element_size() for t in read)
+    nbytes = b * 384 * 640 * 3 * 2 + b * h2 * w2 * 32 * 2 + wbytes
+    gen = torch.Generator("cuda").manual_seed(b)
+    xs = [torch.rand((b, 384, 640, 3), generator=gen, device="cuda").to(torch.bfloat16)
+          for _ in range(max(2, -(-L2_FLUSH // nbytes)))]
+    if packed is not None:
+        kernel = _kept([lambda x=x: mod.stem_packed(x, packed) for x in xs])
+    else:
+        kernel = _kept([lambda x=x: mod.stem(x, *hwio) for x in xs])
+    plain = _kept([_plain_pair(torch, x, *hwio) for x in xs])
+    return kernel, plain, nbytes
+
+
+def _kept(calls: list) -> list:
+    """The calls, each keeping its last output alive until its next call,
+    so that outputs made in a CUDA graph's capture do not share memory."""
+    outs = [None] * len(calls)
+
+    def call(i):
+        outs[i] = calls[i]()
+        return outs[i]
+    return [lambda i=i: call(i) for i in range(len(calls))]
+
+
 def phase2(torch):
     log("== phase 2: stem kernel vs plain (cuDNN pair) on the card")
+    from clearcam_tpu_torch.ops import stem as mod
     from clearcam_tpu_torch.ops.stem import out_hw, stem, stem_reference
     max_err = 0.0
-    cases = [((1, 384, 640, 3), torch.bfloat16, BF16_TOL),
-             ((8, 384, 640, 3), torch.bfloat16, BF16_TOL),
-             ((2, 100, 68, 3), torch.float32, F32_TOL),
-             ((2, 640, 640, 3), torch.float32, F32_TOL)]
-    for i, (shape, dtype, tol) in enumerate(cases):
+    for i, (shape, dname) in enumerate(STEM_CASES):
+        dtype = getattr(torch, dname)
+        tol = BF16_TOL if dname == "bfloat16" else F32_TOL
         args = _stem_inputs(torch, shape, dtype, seed=i)
         got = stem(*args)
         ref = stem_reference(*args)
@@ -284,33 +334,49 @@ def phase2(torch):
             raise AssertionError(f"stem {shape}: got {tuple(got.shape)} {got.dtype}")
         err = (got.float() - ref.float()).abs().max().item()
         max_err = max(max_err, err)
-        log(f"stem {list(shape)} {str(dtype)[6:]}: max|kernel - plain| = {err:.3e} "
-            f"(bound {tol})")
+        extra = ""
+        if dname == "bfloat16" and hasattr(mod, "stem_packed"):
+            packed = mod.pack(*args[1:])
+            if not torch.equal(mod.stem_packed(args[0], packed), got):
+                raise AssertionError(f"stem {shape}: packed and HWIO calls differ")
+            gerr = (got.float() - mod.gemm_reference(args[0], packed).float()).abs().max()
+            extra = (f"; packed call equal; max|kernel - gemm_reference| "
+                     f"{gerr.item():.3e}")
+        log(f"stem {list(shape)} {dname}: max|kernel - plain| = {err:.3e} "
+            f"(bound {tol}){extra}")
         if not err < tol:
             raise AssertionError(f"stem {shape} {dtype}: max|d| {err} >= {tol}")
+    # an input 2 bytes past a 4-byte boundary: the second image of a batch
+    # of 17x23 frames (2346 bytes each)
+    args = _stem_inputs(torch, (3, 17, 23, 3), torch.bfloat16, seed=11)
+    x = args[0][1:]
+    err = (stem(x, *args[1:]).float() - stem_reference(x, *args[1:]).float()).abs().max()
+    log(f"stem [2,17,23,3] bfloat16 at data_ptr % 4 = {x.data_ptr() % 4}: "
+        f"max|kernel - plain| = {err.item():.3e} (bound {BF16_TOL})")
+    if not err.item() < BF16_TOL:
+        raise AssertionError(f"stem at an odd offset: max|d| {err.item()}")
+    max_err = max(max_err, err.item())
+
     times = {}
+    h1, w1 = (384 + 1) // 2, (640 + 1) // 2
+    h2, w2 = out_hw(384, 640)
     for b in (8, 128):
-        args = _stem_inputs(torch, (b, 384, 640, 3), torch.bfloat16, seed=9)
-        plain = _plain_pair(torch, *args)
-        err = (stem(*args).float() - plain().float()).abs().max().item()
+        kernel, plain, nbytes = _stem_timed(torch, mod, b)
+        err = (kernel[0]().float() - plain[0]().float()).abs().max().item()
         if not err < BF16_TOL:
             raise AssertionError(f"stem [{b},384,640,3]: timed plain pair off by {err}")
-        # plain, kernel, kernel, plain: drift on the card hits both alike
-        p1 = cuda_ms(plain)
-        k1 = cuda_ms(lambda: stem(*args))
-        k2 = cuda_ms(lambda: stem(*args))
-        p2 = cuda_ms(plain)
-        times[b] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        h2, w2 = out_hw(384, 640)
-        h1, w1 = (384 + 1) // 2, (640 + 1) // 2
-        nbytes = sum(t.numel() * t.element_size() for t in args) + b * h2 * w2 * 32 * 2
+        ms, pms, (k1, k2, p1, p2) = _pair_ms(plain, kernel)
         ops = 2 * b * (h1 * w1 * 16 * 27 + h2 * w2 * 32 * 144)
-        times[b] += bound(nbytes, ops, PEAK["bfloat16"])
-        log(f"stem [{b},384,640,3] bf16: kernel {times[b][0]:.4f} ms "
-            f"(runs {k1:.4f}, {k2:.4f}), plain {times[b][1]:.4f} ms "
-            f"(runs {p1:.4f}, {p2:.4f}), {b / times[b][0] * 1e3:.0f} vs "
-            f"{b / times[b][1] * 1e3:.0f} frames/s")
-        del args, plain
+        bms, by = bound(nbytes, ops, PEAK["bfloat16"])
+        times[b] = (ms, pms, bms, by)
+        log(f"stem [{b},384,640,3] bf16: kernel {ms:.4f} ms (runs {k1:.4f}, {k2:.4f}) "
+            f"= {nbytes / ms / 1e6:.0f} GB/s, {bms / ms:.1%} of the {by} bound "
+            f"({bms:.4f} ms); plain {pms:.4f} ms (runs {p1:.4f}, {p2:.4f}) = "
+            f"{pms / ms:.2f}x the kernel's time; {b / ms * 1e3:.0f} vs "
+            f"{b / pms * 1e3:.0f} frames/s; one PyTorch call: none; CUDA graphs "
+            f"over {len(kernel)} distinct inputs and outputs, "
+            f"{len(kernel) * nbytes / 1e6:.0f} MB")
+        del kernel, plain
     return max_err, times
 
 
@@ -384,6 +450,14 @@ def phase3(torch):
             log(f"detect bf16 batch {b}: {ms:.3f} ms/step on device = "
                 f"{out[b][0]:.1f} frames/s (frames resident); detect_many "
                 f"(numpy in, rows out) {e2e * 1e3:.3f} ms = {out[b][1]:.1f} frames/s")
+            if b == 32:
+                n, kms, sms = _kernels(
+                    torch, lambda: yolov9.detect(p_bf16, fb, size="t", res=640,
+                                                 compute_dtype=torch.bfloat16), ("stem",))
+                out["profile_b32"] = (n, kms, sms)
+                log(f"detect bf16 batch 32, one step under torch.profiler: {n} kernels, "
+                    f"{kms:.3f} ms of kernel time, the stem kernel {sms:.4f} ms = "
+                    f"{sms / kms:.1%} of it")
             del fb, host
     return out
 
@@ -625,7 +699,7 @@ def phase5(torch):
         if not lib_err < ATTN_TOL[name]:
             raise AssertionError(f"SDPA yardstick off the kernel by {lib_err}")
         # plain, kernel, kernel, plain, as CUDA-graph replays over the sets
-        kt, pt = _pair_ms([lambda s=s: mha_reference(*s) for s in sets],
+        kt, pt, _ = _pair_ms([lambda s=s: mha_reference(*s) for s in sets],
                           [lambda s=s: mha_flash(*s) for s in sets])
         lib = _yardstick(lambda: graph_ms([lambda s=s: sdpa(*s) for s in sets]))
         flop = 4 * b * 16 * t * t * 64
@@ -804,12 +878,13 @@ def graph_ms(calls, reps: int = 5) -> float:
 
 
 def _pair_ms(plain, kernel):
-    """plain, kernel, kernel, plain (lists of calls); mean per side."""
+    """plain, kernel, kernel, plain (lists of calls), so drift on the card
+    hits both alike: (kernel mean, plain mean, (k1, k2, p1, p2))."""
     p1 = graph_ms(plain)
     k1 = graph_ms(kernel)
     k2 = graph_ms(kernel)
     p2 = graph_ms(plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
 
 
 def _copies(torch, ql, nbytes: int) -> list:
@@ -898,7 +973,7 @@ def phase7(torch):
                             out["qm_err"][bits], (got - ref).abs().max().item())
                         out["qm_rel"] = max(out.get("qm_rel", 0.0), rel)
                     if dtype == torch.float32 or rows == 8:
-                        k, p = _pair_ms(
+                        k, p, _ = _pair_ms(
                             [lambda c=c: qm.quant_linear_reference(x, c) for c in qls],
                             [lambda c=c: qm.quant_linear(x, c) for c in qls])
                         lib = None
@@ -962,7 +1037,7 @@ def _phase7_decode(torch, gen, out):
             npos = int((pos - pads + 1).sum().item())
             live = npos * kvh * d * 2 * k.element_size()
             caches = _distinct(pool, make, live)
-            kt, pt = _pair_ms(
+            kt, pt, _ = _pair_ms(
                 [lambda c=c: dec.decode_attention_batch_reference(q, *c, pos, pads)
                  for c in caches],
                 [lambda c=c: dec.decode_attention_batch(q, *c, pos, pads) for c in caches])
@@ -1393,7 +1468,7 @@ def _phase10_times(torch, gen, out):
     kv = _distinct([], lambda: tuple(torch.randn((kvh, s, d), generator=gen,
                                                  device="cuda").bfloat16()
                                      for _ in range(2)), live1 * d * 2 * 2)
-    kt, pt = _pair_ms([lambda c=c: dec.decode_attention_reference(q, *c, p1) for c in kv],
+    kt, pt, _ = _pair_ms([lambda c=c: dec.decode_attention_reference(q, *c, p1) for c in kv],
                       [lambda c=c: dec.decode_attention(q, *c, p1) for c in kv])
     mask = (torch.arange(s, device="cuda") <= p1)[None, None, None]
     qq = q.bfloat16()[None, :, None]
@@ -1407,7 +1482,7 @@ def _phase10_times(torch, gen, out):
     del kv
     q8 = _distinct([], lambda: tuple(t[0] for t in _q8_operands(torch, gen, 1, kvh, s)),
                    live1 * (d * 2 + 8))
-    kt, pt = _pair_ms(
+    kt, pt, _ = _pair_ms(
         [lambda c=c: dec.decode_attention_q8_reference(q, *c, p1) for c in q8],
         [lambda c=c: dec.decode_attention_q8(q, *c, p1) for c in q8])
     nb = live1 * (d * 2 + 8) + 2 * q.numel() * 4
@@ -1419,7 +1494,7 @@ def _phase10_times(torch, gen, out):
     pos = torch.full((8,), 256, dtype=torch.int32, device="cuda")
     liveb = 8 * 257 * kvh
     qb8 = _distinct([], lambda: _q8_operands(torch, gen, 8, kvh, s), liveb * (d * 2 + 8))
-    kt, pt = _pair_ms(
+    kt, pt, _ = _pair_ms(
         [lambda c=c: dec.decode_attention_batch_q8_reference(qb, *c, pos) for c in qb8],
         [lambda c=c: dec.decode_attention_batch_q8(qb, *c, pos) for c in qb8])
     nb = liveb * (d * 2 + 8) + 2 * qb.numel() * 4
@@ -1671,9 +1746,10 @@ def _summary_layers(torch, qwen, lang, img, prompt, steps: int = 32) -> dict:
             "decode_attention_ms_per_decode_step": per_step[2]}
 
 
-def _kernels(torch, fn) -> tuple:
-    """(kernels launched, their device ms, the decode-attention kernels'
-    device ms) in one call of ``fn``, from torch.profiler's CUDA rows."""
+def _kernels(torch, fn, match=("decode_split", "decode_merge")) -> tuple:
+    """(kernels launched, their device ms, the device ms of the kernels
+    whose name holds one of ``match``, by default the decode-attention
+    ones) in one call of ``fn``, from torch.profiler's CUDA rows."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
@@ -1683,7 +1759,7 @@ def _kernels(torch, fn) -> tuple:
     return (sum(e.count for e in rows),
             sum(e.self_device_time_total for e in rows) / 1e3,
             sum(e.self_device_time_total for e in rows
-                if "decode_split" in e.key or "decode_merge" in e.key) / 1e3)
+                if any(m in e.key for m in match)) / 1e3)
 
 
 def phase12(torch):

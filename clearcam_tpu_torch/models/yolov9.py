@@ -9,8 +9,8 @@ flat dict keyed by the reference checkpoint names. ``init_params`` and
 ``convert_state_dict`` return numpy arrays in the JAX layout (HWIO), equal
 to the JAX package's, and ``params_from_jax`` turns such a dict into torch
 tensors once (OIHW filters stored ``channels_last``, on one device, in one
-dtype; for the stem kernel, its float32 HWIO operands besides). Activations
-are NHWC throughout.
+dtype; for the stem kernel, its float32 HWIO operands and its bf16 GEMM
+operands besides). Activations are NHWC throughout.
 
 Blocks 0-1 of the graphs whose stem is conv 3->16 s2 then 16->32 s2 (size
 ``t`` and ``dryrun``) run in the hand-written CUDA stem kernel
@@ -30,7 +30,7 @@ from ..nn import functional as F
 from ..ops import boxes as box_ops
 from ..ops import image as image_ops
 from ..ops.nms import yolo_postprocess
-from ..ops.stem import stem
+from ..ops import stem as stem_ops
 
 # channel hyperparameters per size: a..w (architecture facts)
 SIZES = {
@@ -156,9 +156,11 @@ def layer_graph(size: str) -> list[Layer]:
 
 _STEM_ARGS = (dict(cin=3, cout=16, k=3, s=2, pad=1),
               dict(cin=16, cout=32, k=3, s=2, pad=1))
-# the stem kernel's operands, made once by params_from_jax: f32, HWIO, contiguous
+# the stem kernel's operands, made once by params_from_jax with ops.stem.pack:
+# its f32 HWIO ones (from these layers), then the bf16 route's, in Packed's order
 STEM_KEYS = {"stem.w1": "model.0.conv.weight", "stem.b1": "model.0.conv.bias",
              "stem.w2": "model.1.conv.weight", "stem.b2": "model.1.conv.bias"}
+STEM_PACKED_KEYS = (*STEM_KEYS, "stem.w1k", "stem.w2k")
 
 
 def uses_stem_kernel(size: str) -> bool:
@@ -279,15 +281,14 @@ def params_from_jax(params: dict, device="cpu", dtype=torch.float32) -> dict:
 
     When layers 0-1 have the stem kernel's shapes (sizes ``t`` and
     ``dryrun``), the dict also holds the kernel's operands under
-    ``STEM_KEYS``: the same values rounded to ``dtype``, then widened to
-    float32 HWIO, so no step re-packs them."""
+    ``STEM_PACKED_KEYS``: ``ops.stem.pack`` of the same values rounded to
+    ``dtype`` (float32 HWIO, and bf16 K-major), so no step re-packs them."""
     out = F.tensors_from_numpy(params, resolve_device(device), dtype)
     w1, w2 = params.get("model.0.conv.weight"), params.get("model.1.conv.weight")
     if (np.shape(w1), np.shape(w2)) == ((3, 3, 3, 16), (3, 3, 16, 32)):
-        for k, src in STEM_KEYS.items():
-            t = out[src]
-            t = F.oihw_to_hwio(t) if t.ndim == 4 else t
-            out[k] = t.to(torch.float32).contiguous()
+        hwio = (F.oihw_to_hwio(out[src]) if out[src].ndim == 4 else out[src]
+                for src in STEM_KEYS.values())
+        out.update(zip(STEM_PACKED_KEYS, stem_ops.pack(*hwio)))
     return out
 
 
@@ -429,7 +430,8 @@ def forward_raw(params, x, size: str = "t"):
     y: list = []
     cur = x
     if uses_stem_kernel(size):
-        cur = stem(x, *(params[k] for k in STEM_KEYS))
+        cur = stem_ops.stem_packed(
+            x, stem_ops.Packed(*(params[k] for k in STEM_PACKED_KEYS)))
         y = [None, cur]          # no later layer reads layer 0 of t/dryrun
     for idx in range(len(y), len(graph)):
         layer = graph[idx]

@@ -44,7 +44,8 @@ def _inputs(shape, seed=0):
 @pytest.mark.parametrize("shape,dtype,tol", [
     ((2, 64, 64, 3), torch.bfloat16, 0.05), ((1, 384, 640, 3), torch.bfloat16, 0.05),
     ((2, 100, 68, 3), torch.float32, 1e-4), ((1, 17, 23, 3), torch.float32, 1e-4),
-    ((3, 1, 2, 3), torch.float32, 1e-4)])
+    ((3, 1, 2, 3), torch.float32, 1e-4), ((8, 384, 640, 3), torch.bfloat16, 0.05),
+    ((1, 17, 23, 3), torch.bfloat16, 0.05), ((3, 1, 2, 3), torch.bfloat16, 0.05)])
 def test_stem_kernel_matches_plain(cuda, shape, dtype, tol):
     args = [torch.from_numpy(a).to(cuda) for a in _inputs(shape, seed=2)]
     args[0], args[1], args[3] = (args[i].to(dtype) for i in (0, 1, 3))
@@ -67,6 +68,78 @@ def test_stem_kernel_raises_on_bad_input(cuda):
         tstem.stem(x, w1, b1, w2[..., :16], b2)
     with pytest.raises(ValueError, match="on cpu"):
         tstem.stem(x, w1.cpu(), b1, w2, b2)
+
+
+def _bf16_args(cuda, shape, seed):
+    x, *w = (torch.from_numpy(a).to(cuda) for a in _inputs(shape, seed=seed))
+    return x.to(torch.bfloat16), [t.to(torch.bfloat16).float() for t in w]
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 3), (1, 17, 23, 3), (2, 100, 68, 3)])
+def test_stem_packed_equals_hwio_call(cuda, shape):
+    """The served route (operands packed once) and the HWIO call launch the
+    same kernel: equal outputs; both within bf16 rounding of the GEMM's
+    plain version (f32 sums in another order may flip a conv1 rounding)."""
+    x, w = _bf16_args(cuda, shape, seed=6)
+    packed = tstem.pack(*w)
+    before = tstem.stem.launches
+    got = tstem.stem_packed(x, packed)
+    assert tstem.stem.launches == before + 1
+    assert torch.equal(got, tstem.stem(x, *w))
+    ref = tstem.gemm_reference(x, packed)
+    assert (got.float() - ref.float()).abs().max().item() < 0.05
+
+
+def test_stem_kernel_input_at_odd_offset(cuda):
+    """x 2 bytes past a 4-byte boundary (the second of a batch of 17x23
+    frames, 2346 bytes each): the halo's 4-byte loads shift, no narrower
+    path."""
+    x, w = _bf16_args(cuda, (3, 17, 23, 3), seed=7)
+    x = x[1:]
+    assert x.data_ptr() % 4 == 2 and x.is_contiguous()
+    got = tstem.stem(x, *w)
+    ref = tstem.stem_reference(x, *w)
+    assert (got.float() - ref.float()).abs().max().item() < 0.05
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stem_kernel_graph_replay_bitwise_equal(cuda, dtype):
+    """Calls and CUDA-graph replays of the stem give the same bits (the
+    kernel allocates nothing and its launch sizes come from the shapes)."""
+    x, w = _bf16_args(cuda, (2, 96, 160, 3), seed=8)
+    x, ops = x.to(dtype), tstem.pack(*w)
+    eager = tstem.stem_packed(x, ops)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tstem.stem_packed(x, ops)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tstem.stem_packed(x, ops)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert torch.equal(tstem.stem_packed(x, ops), eager)
+
+
+def test_stem_packed_raises_on_bad_operands(cuda):
+    x, w = _bf16_args(cuda, (1, 16, 16, 3), seed=0)
+    packed = tstem.pack(*w)
+    with pytest.raises(TypeError):
+        tstem.stem_packed(x.half(), packed)
+    with pytest.raises(ValueError, match="packed w1k"):
+        tstem.stem_packed(x, packed._replace(w1k=packed.w1k.float()))
+    with pytest.raises(ValueError, match="packed w1 "):
+        tstem.stem_packed(x.float(), packed._replace(w1=packed.w1.bfloat16()))
+    with pytest.raises(ValueError, match="aligned"):
+        buf = torch.empty(16 * 48 + 1, dtype=torch.bfloat16, device=cuda)
+        shifted = buf[1:].view(16, 48).copy_(packed.w1k)
+        tstem.stem_packed(x, packed._replace(w1k=shifted))
+    with pytest.raises(ValueError, match="on cpu"):
+        tstem.stem_packed(x, packed._replace(b1=packed.b1.cpu()))
 
 
 @pytest.mark.parametrize("size", ["dryrun", "t"])

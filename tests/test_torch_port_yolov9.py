@@ -38,7 +38,7 @@ def test_layer_graphs_equal_jax(size):
 def test_params_from_jax_roundtrip():
     params = T.init_params("dryrun", seed=1)
     tp = T.params_from_jax(params, "cpu", torch.float32)
-    assert tp.keys() == params.keys() | T.STEM_KEYS.keys()
+    assert tp.keys() == params.keys() | set(T.STEM_PACKED_KEYS)
     for k, src in T.STEM_KEYS.items():      # the stem kernel's operands
         assert tp[k].dtype == torch.float32 and tp[k].is_contiguous()
         np.testing.assert_array_equal(tp[k].numpy(), params[src], err_msg=k)
@@ -127,7 +127,7 @@ def test_module_matches_functional_detect():
     frames = np.random.default_rng(4).integers(0, 256, (2, 96, 128, 3), np.uint8)
     model = T.YOLOv9("dryrun", res=64, device="cpu")
     params = model.flat_params()
-    assert params.keys() == T.init_params("dryrun").keys() | T.STEM_KEYS.keys()
+    assert params.keys() == T.init_params("dryrun").keys() | set(T.STEM_PACKED_KEYS)
     ref = T.detect(params, torch.from_numpy(frames), size="dryrun", res=64)
     np.testing.assert_array_equal(model(frames).numpy(), ref.numpy())
     np.testing.assert_array_equal(model(frames[0]).numpy(), ref[0].numpy())
