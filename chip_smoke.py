@@ -53,7 +53,8 @@ so the script exits non-zero:
      each timed form with its split plan, GB/s and share of the bound
      (bytes at 3.35 TB/s or bf16 tensor-core operations, / 3 for f32 x);
      one-call yardsticks torch._weight_int8pack_mm at 8, 256 and 520 rows
-     and torch._weight_int4pack_mm at 8 rows (bf16 x);
+     and torch._weight_int4pack_mm at 8, 256 and 520 rows (bf16 x, the
+     kernel timed on the same bf16 x);
      batched decode attention at B=8 H=16 KvH=8 S=8192 D=128, bf16 and
      f32 caches, per-row positions and pads, f32 q (max|d| < 1e-4) and
      bf16 q (< 2e-2); device times from CUDA-graph replays over operands
@@ -122,6 +123,27 @@ so the script exits non-zero:
      spec_lookup=4 and without, tokens per dispatch, and the int8 cache
      through the q8 kernel, its decode step; (c) `python -m clearcam_tpu_torch.tools.llm_bench --blocks 28 --modes
      int8,int8+kv8+pallas --decode-batch 1,8 --steps 32`, its JSON lines
+ 15  the MoE, MLA and GatedDeltaNet-hybrid stacks: (a) card vs CPU, f32
+     weights drawn on the card from a torch.Generator, f32 and int8 (the
+     MoE int4 too),
+     prefill_slot, prefill_many and 3 teacher-forced decode_all steps, at
+     full width and 2 blocks (the hybrid 4, to hold an attention block):
+     Qwen/Qwen3-30B-A3B's widths (through the decode kernel),
+     deepseek-ai/DeepSeek-V2-Lite's (MLA + MoE; its YaRN rope scaling has
+     no field in TransformerConfig, so both packages run plain RoPE) and
+     the JAX package's qwen3_next_cfg: logprob rows and logits within
+     phase 8's bounds, greedy tokens equal; (b) each family's 8-slot
+     engine at its published depth (48, 27 and 28 blocks), int8 weights
+     quantized tensor by tensor as they are drawn on the card, bf16 KV,
+     ctx 2048, one 32-token prefill chunk at B = 1, then 8 requests of
+     24-88 tokens admitted two a tick, 24 new: decode tokens/s, the decode
+     step's ms after a sync, kernel launches a step, the busy share and
+     the expert path's device time (torch.profiler), and the quant and
+     decode-attention kernels' launches over the run (the MoE plain, with
+     --pallas and with --kv-quant --pallas; MLA with its bf16 and int8
+     latent caches; the hybrid plain); (c) `python -m
+     clearcam_tpu_torch.tools.llm_bench --ssm --blocks 8 --ctx 512 --modes
+     int8 --decode-batch 1,8 --steps 16`, its JSON lines
 
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on a served path (phases 4, 9, 12
@@ -182,7 +204,7 @@ ATTN_TIMED = [(1, 257, "float32"), (16, 257, "float32"), (64, 257, "float32"),
               (16, 257, "bfloat16"), (1, 2040, "float32")]
 TOWER_COS = 1 - 1e-5                # towers, GPU vs CPU, cosine per row
 # BPE merges for the server's tokenizer: the real vocab is not in the repo
-ALL_PHASES = tuple(range(15))
+ALL_PHASES = tuple(range(16))
 MERGES = [("h", "e"), ("l", "l"), ("he", "ll"), ("hell", "o</w>"),
           ("w", "o"), ("r", "l"), ("wo", "rl"), ("worl", "d</w>")]
 
@@ -972,14 +994,15 @@ def phase7(torch):
                         out["qm_err"][bits] = max(
                             out["qm_err"][bits], (got - ref).abs().max().item())
                         out["qm_rel"] = max(out.get("qm_rel", 0.0), rel)
-                    if dtype == torch.float32 or rows == 8:
+                    if dtype == torch.float32 or rows == 8 or (
+                            bits == 4 and name == "bfloat16" and (o, i, rows) in QM_YARDSTICK):
                         k, p, _ = _pair_ms(
                             [lambda c=c: qm.quant_linear_reference(x, c) for c in qls],
                             [lambda c=c: qm.quant_linear(x, c) for c in qls])
                         lib = None
                         if (o, i, rows) in QM_YARDSTICK and bits == 8 and name == "float32":
                             lib = _int8pack_ms(torch, qls, x, ref)
-                        elif (o, i, rows) == (6144, 2048, 8) and bits == 4 and name == "bfloat16":
+                        elif (o, i, rows) in QM_YARDSTICK and bits == 4 and name == "bfloat16":
                             lib = _int4pack_ms(torch, qls, x, ref)
                         nb = wbytes + x.numel() * x.element_size() + rows * o * x.element_size()
                         bms, by = bound(nb, 2 * rows * i * o, QM_PEAK[name])
@@ -1140,30 +1163,33 @@ def _same_tensors(torch, a: dict, b: dict) -> bool:
     return a.keys() == b.keys() and all(torch.equal(a[k], b[k].cpu()) for k in a)
 
 
-def _llm_2block_run(torch, llm, cfg, p, dev, state_dtype, pallas, inputs=None):
+def _llm_2block_run(torch, llm, cfg, p, dev, state_dtype, pallas, inputs=None,
+                    prompt_len=40, kv_quant=False, rows=4):
     """prefill_slot, prefill_many and 3 decode_all steps of a 2-block
-    full-width model on ``dev``, the decode steps fed ``inputs`` (teacher
-    forcing; None takes the run's own tokens); then one decode forward's
-    full logits, through the decode kernel on the card (pallas) or the
-    plain attention."""
-    from clearcam_tpu_torch.ops.decode_attention import decode_attention_batch
-    n = 4
-    prompts = np.random.default_rng(1).integers(1, cfg.vocab_size, (n, 40))
+    full-width model on ``dev`` over ``rows`` slots, the decode steps fed
+    ``inputs`` (teacher forcing; None takes the run's own tokens); then one
+    decode forward's full logits, through the decode kernel (pallas; its
+    int8-cache form under kv_quant; on the CPU the kernel's plain version)
+    or the plain attention. "sampled" holds the tokens each decode step
+    drew."""
+    n, plen = rows, prompt_len
+    prompts = np.random.default_rng(1).integers(1, cfg.vocab_size, (n, plen))
     samp = np.zeros((n, llm.SAMP_W), np.float32)
     samp[:, 1] = samp[:, 6] = 1.0
-    fns = llm.make_serving_fns(cfg, use_pallas_decode=pallas)
-    st = llm.init_state(cfg, n, dtype=state_dtype, device=dev)
+    fns = llm.make_serving_fns(cfg, use_pallas_decode=pallas, kv_quant=kv_quant)
+    st = llm.init_state(cfg, n, dtype=state_dtype, kv_quant=kv_quant, device=dev)
     ft = torch.zeros(n, dtype=torch.int32, device=dev)
     fl = torch.zeros((n, 1 + 2 * llm.LP_K), device=dev)
     cp = torch.zeros((n, cfg.vocab_size), dtype=torch.int32, device=dev)
     co, bias = torch.zeros_like(cp), torch.zeros((n, cfg.vocab_size), device=dev)
-    # slot 0: two chunks through prefill_slot; slots 1-3 through prefill_many
-    for c in range(2):
-        m = min(32, 40 - 32 * c)
+    # slot 0: its chunks through prefill_slot; the others through prefill_many
+    chunks = -(-plen // 32)
+    for c in range(chunks):
+        m = min(32, plen - 32 * c)
         chunk = np.pad(prompts[0:1, 32 * c:32 * c + m], ((0, 0), (0, 32 - m)))
         ft, fl, st = fns[0](p, st, ft, fl, chunk, 0, 32 * c, m, samp[0], 1, 0, cp, co, bias)
-    for c in range(2):
-        m = min(32, 40 - 32 * c)
+    for c in range(chunks):
+        m = min(32, plen - 32 * c)
         toks = np.zeros((n, 32), np.int32)
         toks[1:, :m] = prompts[1:, 32 * c:32 * c + m]
         meta = np.zeros((4, n), np.int32)
@@ -1172,21 +1198,23 @@ def _llm_2block_run(torch, llm, cfg, p, dev, state_dtype, pallas, inputs=None):
     rows = [fl.cpu().numpy()]
     own = inputs is None
     inputs = [ft.cpu().numpy()] if own else inputs
+    sampled = [ft.cpu().numpy()]
     for step in range(3):
         meta = np.zeros((5, n), np.int32)
-        meta[0], meta[1], meta[4] = 40 + step, 1, 40     # no inject: forced input
+        meta[0], meta[1], meta[4] = plen + step, 1, plen  # no inject: forced input
         tok, st, co, lp = fns[1](p, st, torch.from_numpy(inputs[step]).to(dev), ft,
                                  meta, samp, 0, co, cp, bias)
         rows.append(lp.cpu().numpy())
+        sampled.append(tok.cpu().numpy())
         if own:
             inputs.append(tok.cpu().numpy())
-    impl = None if dev == "cpu" or not pallas else (
-        lambda q, s_, pos, pads: decode_attention_batch(
-            q[:, :, 0].contiguous(), s_["k"], s_["v"], pos, pads)[:, :, None])
+    # the decode steps' route: the kernel (its plain version on the CPU) or
+    # the plain attention
+    impl = llm.decode_attn_impl(True, kv_quant) if pallas else None
     hidden, _ = llm.forward(p, cfg, st, torch.from_numpy(inputs[3]).to(dev)[:, None],
-                            torch.full((n,), 43, device=dev), llm.freqs_for(cfg, dev),
+                            torch.full((n,), plen + 3, device=dev), llm.freqs_for(cfg, dev),
                             decode_attn=impl)
-    return {"inputs": inputs, "rows": np.stack(rows),
+    return {"inputs": inputs, "rows": np.stack(rows), "sampled": sampled,
             "logits": llm.logits_at(p, cfg, hidden, 0).float().cpu().numpy()}
 
 
@@ -2083,6 +2111,395 @@ def phase14(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the MoE, MLA and GatedDeltaNet-hybrid stacks
+
+# engine depths: every family at its published depth (Qwen3-30B-A3B's 48
+# blocks are ~31 GB in int8, quantized tensor by tensor as they are drawn)
+FAMILY_BLOCKS = {"moe": 48, "mla": 27, "hybrid": 28}
+# card vs CPU: 2 blocks of each family (the hybrid 4, so that its first
+# attention block is in)
+FAMILY_CHECK_BLOCKS = {"moe": 2, "mla": 2, "hybrid": 4}
+
+
+def qwen3_30b_a3b_cfg(llm, blocks: int = 48, ctx: int = 2048):
+    """Qwen/Qwen3-30B-A3B's config.json: hidden 2048, 48 layers, 32 query
+    and 4 KV heads of 128 with qk-norm, 128 experts of 768 with 8 a token
+    (norm_topk_prob), vocab 151936, rope theta 1e6, RMS eps 1e-6."""
+    return llm.TransformerConfig(
+        num_blocks=blocks, dim=2048, hidden_dim=768, n_heads=32, n_kv_heads=4,
+        norm_eps=1e-6, vocab_size=151936, head_dim=128, rope_theta=1e6, rope_dim=128,
+        v_head_dim=128, max_context=ctx, qk_norm=128, num_experts=128,
+        num_experts_per_tok=8, norm_topk_prob=True)
+
+
+def deepseek_v2_lite_cfg(llm, blocks: int = 27, ctx: int = 2048):
+    """deepseek-ai/DeepSeek-V2-Lite's config.json: hidden 2048, 27 layers, 16
+    heads, MLA with kv_lora_rank 512 and no q-LoRA, qk 128 nope + 64 rope, v
+    128; 64 routed experts of 1408 with 6 a token (softmax over all, no
+    renormalization, scale 1.0), 2 shared experts (2816, no gate), the
+    first block dense with FFN 10944; vocab 102400, rope theta 1e4, RMS eps
+    1e-6. Its YaRN rope scaling has no field in TransformerConfig (nor in
+    the JAX package's): both run plain RoPE."""
+    return llm.TransformerConfig(
+        num_blocks=blocks, dim=2048, hidden_dim=1408, n_heads=16, n_kv_heads=16,
+        norm_eps=1e-6, vocab_size=102400, head_dim=192, rope_theta=1e4, rope_dim=64,
+        v_head_dim=128, max_context=ctx, num_experts=64, num_experts_per_tok=6,
+        norm_topk_prob=False, kv_lora_rank=512, q_lora_rank=0, shared_expert_dim=2816,
+        shared_expert_gate=False, leading_dense_blocks=1, dense_hidden_dim=10944)
+
+
+def _family_cfg(llm, family: str, blocks: int, ctx: int = 2048):
+    return {"moe": qwen3_30b_a3b_cfg, "mla": deepseek_v2_lite_cfg,
+            "hybrid": lambda _, b, c: llm.qwen3_next_cfg(b, c)}[family](llm, blocks, ctx)
+
+
+FAMILY_NAMES = {"moe": "Qwen3-30B-A3B widths", "mla": "DeepSeek-V2-Lite widths (MLA + MoE)",
+                "hybrid": "the Qwen3-Next-class hybrid (qwen3_next_cfg)"}
+
+
+def _family_card_vs_cpu(torch, llm, family: str) -> dict:
+    """(a) One family at full width, FAMILY_CHECK_BLOCKS deep, f32 weights
+    drawn on the card (a torch.Generator) and copied to the CPU; f32 and
+    int8 weights, and int4 on the MoE (quantized on each side, the same
+    bytes), through
+    prefill_slot, prefill_many and 3 teacher-forced decode_all steps, the
+    card (the decode kernel on the MoE's attention) against the CPU (plain
+    versions): logprob rows and the last logits within phase 8's bounds,
+    the greedy tokens of every step equal."""
+    from clearcam_tpu_torch.ops import quant_matmul as qm
+    cfg = _family_cfg(llm, family, FAMILY_CHECK_BLOCKS[family], 512)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    p_gpu = llm.init_params(cfg, device="cuda", generator=gen)
+    p_cpu = {k: v.cpu() for k, v in p_gpu.items()}
+    pallas = cfg.ssm is None            # the hybrid refuses the decode kernel
+    out = {}
+    with torch.inference_mode():
+        for quant in (None, "int8") + (("int4",) if family == "moe" else ()):
+            fn = getattr(llm, f"quantize_params_{quant}") if quant else dict
+            q_cpu, q_gpu = fn(p_cpu), fn(p_gpu)
+            apart = [k for k, w in q_cpu.items()
+                     if not torch.is_tensor(w) and not _same_bytes(torch, w, q_gpu[k])]
+            if apart:
+                raise AssertionError(f"{family} {quant}: card and CPU quantized {apart} apart")
+            ref = _llm_2block_run(torch, llm, cfg, q_cpu, "cpu", torch.float32, pallas,
+                                  prompt_len=24)
+            n0 = qm.quant_linear.launches
+            got = _llm_2block_run(torch, llm, cfg, q_gpu, "cuda", torch.float32, pallas,
+                                  ref["inputs"], prompt_len=24)
+            lp_err, logit_err, same_ids = _llm_gap(ref, got, llm.LP_K)
+            scale = float(np.abs(ref["logits"]).max())
+            same_tok = all(np.array_equal(a, b) for a, b in zip(got["sampled"], ref["inputs"]))
+            what = f"f32{' ' + quant if quant else ''}"
+            log(f"{cfg.num_blocks}-block {FAMILY_NAMES[family]}, {what}, card vs CPU: logprob "
+                f"rows max|d| {lp_err:.2e} (bound {LLM_LP_TOL}), logits max|d| {logit_err:.2e} "
+                f"(bound {LLM_LOGIT_TOL}) = {logit_err / scale:.2e} of max|logit| "
+                f"{scale:.3f}; greedy tokens of 4 steps x 4 rows "
+                f"{'equal' if same_tok else 'DIFFER'}, top-8 ids "
+                f"{'equal' if same_ids else 'DIFFER'}; quant launches "
+                f"{qm.quant_linear.launches - n0}")
+            if not (lp_err < LLM_LP_TOL and logit_err < LLM_LOGIT_TOL and same_tok
+                    and np.isfinite(got["logits"]).all()):
+                raise AssertionError(f"{family} {what}: card vs CPU off")
+            if quant and qm.quant_linear.launches == n0:
+                raise AssertionError(f"{family} {what}: no quant kernel launch on the card")
+            out[quant or "f32"] = {"lp": lp_err, "logits": logit_err,
+                                   "rel": logit_err / scale,
+                                   "quant_launches": qm.quant_linear.launches - n0}
+            del q_cpu, q_gpu
+        out.update(_family_cache_routes(torch, llm, family, p_cpu, p_gpu))
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+# the engines' caches card vs CPU (f32 weights), the same route on both
+# sides (over a bf16 cache the kernel takes q and the probabilities in f32,
+# the plain attention rounds them to bf16, in the JAX package as here; a
+# difference that large can flip a token's experts): the card's and the
+# CPU's f32 K/V may round one bf16 ulp or one int8 step apart where they
+# straddle a rounding boundary (phase 11's int8-cache bound); logits and
+# logprob rows
+FAMILY_CACHE_TOL = 2e-2
+# the routes the engines of (b) serve over a bf16 or int8 cache, held card
+# vs CPU at the engines' ctx and slots: (label, state dtype, kv_quant, the
+# decode kernel, its launch counter)
+FAMILY_CACHE_ROUTES = {
+    "moe": [("bf16 KV, decode kernel", "bfloat16", False, True, "decode_attention_batch"),
+            ("int8 KV, decode kernel", "float32", True, True, "decode_attention_batch_q8")],
+    "mla": [("int8 latent cache", "float32", True, False, None)],
+    "hybrid": []}
+
+
+def _family_cache_routes(torch, llm, family, p_cpu, p_gpu) -> dict:
+    """(a) The engines' cache routes of one family (FAMILY_CACHE_ROUTES),
+    f32 weights, 2048 positions and 8 rows as the engines run them: card
+    (the MoE's attention through decode_attention_batch or _q8 at H 32,
+    KvH 4) against the CPU on the same route (the kernels' plain versions)
+    within FAMILY_CACHE_TOL; greedy tokens equal, or the CPU's top two
+    within the bound."""
+    from clearcam_tpu_torch.ops import decode_attention as dec
+    cfg = _family_cfg(llm, family, FAMILY_CHECK_BLOCKS[family], 2048)
+    out = {}
+    for label, sdt, q8, pallas, counter in FAMILY_CACHE_ROUTES[family]:
+        sdt = getattr(torch, sdt)
+        ref = _llm_2block_run(torch, llm, cfg, p_cpu, "cpu", sdt, pallas, prompt_len=24,
+                              kv_quant=q8, rows=8)
+        n0 = getattr(dec, counter).launches if counter else 0
+        got = _llm_2block_run(torch, llm, cfg, p_gpu, "cuda", sdt, pallas, ref["inputs"],
+                              prompt_len=24, kv_quant=q8, rows=8)
+        n_dec = getattr(dec, counter).launches - n0 if counter else 0
+        lp_err, logit_err, same_ids = _llm_gap(ref, got, llm.LP_K)
+        # where the CPU's top two logprobs are within the bound either is right
+        top2 = np.sort(ref["rows"][..., 1:1 + llm.LP_K], -1)[..., -2:]
+        near = top2[..., 1] - top2[..., 0] < FAMILY_CACHE_TOL
+        flips = sum(int(((a != b) & ~t).sum())
+                    for a, b, t in zip(got["sampled"], ref["inputs"], near))
+        scale = float(np.abs(ref["logits"]).max())
+        log(f"{cfg.num_blocks}-block {FAMILY_NAMES[family]}, f32 weights, {label}, ctx "
+            f"{cfg.max_context}, 8 rows, card vs CPU: logprob rows max|d| {lp_err:.2e}, "
+            f"logits max|d| {logit_err:.2e} (bounds {FAMILY_CACHE_TOL}) = "
+            f"{logit_err / scale:.2e} of max|logit| {scale:.3f}; greedy tokens of 4 steps x "
+            f"8 rows {'equal' if flips == 0 else f'{flips} DIFFER'} (near ties "
+            f"{int(near.sum())}), top-8 ids {'equal' if same_ids else 'differ'}"
+            + (f"; {counter} launches {n_dec}" if counter else ""))
+        if not (lp_err < FAMILY_CACHE_TOL and logit_err < FAMILY_CACHE_TOL and flips == 0
+                and np.isfinite(got["logits"]).all()):
+            raise AssertionError(f"{family} {label}: card vs CPU off")
+        if counter and n_dec < 1:
+            raise AssertionError(f"{family} {label}: no {counter} launch on the card")
+        out[label] = {"lp": lp_err, "logits": logit_err, "rel": logit_err / scale,
+                      "decode_launches": n_dec}
+    return out
+
+
+def _moe_decode_kernels(torch) -> dict:
+    """The batched decode kernels at the shape the MoE engine gives them
+    (q [8,32,128] f32 and bf16, caches [8,4,2048,128] bf16 or int8 with
+    their scales) against their plain versions, phase 7's and phase 10's
+    bounds, over spread positions, left pads with a row of no live column,
+    and the last column."""
+    from clearcam_tpu_torch.ops import decode_attention as dec
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    b, h, kvh, s, d = 8, 32, 4, 2048, 128
+    q = torch.randn((b, h, d), generator=gen, device="cuda")
+    k, v = (torch.randn((b, kvh, s, d), generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    kq, ks, vq, vs = _q8_operands(torch, gen, b, kvh, s)
+    spread = torch.tensor([0, 17, 255, 256, 1000, 2047, 1500, 600], dtype=torch.int32,
+                          device="cuda")
+    pads = torch.tensor([0, 5, 200, 0, 999, 1, 1024, 700], dtype=torch.int32, device="cuda")
+    cases = {"spread": (spread, None), "pads": (spread, pads),
+             "last": (torch.full_like(spread, s - 1), None)}
+    err = {"decode_attention_batch": 0.0, "decode_attention_batch_q8": 0.0}
+    for case, (pos, pd) in cases.items():
+        for qn, qq in (("float32", q), ("bfloat16", q.bfloat16())):
+            for name, got, ref, tol in (
+                    ("decode_attention_batch", dec.decode_attention_batch(qq, k, v, pos, pd),
+                     dec.decode_attention_batch_reference(qq, k, v, pos, pd), DEC_TOL[qn]),
+                    ("decode_attention_batch_q8",
+                     dec.decode_attention_batch_q8(qq, kq, ks, vq, vs, pos, pd),
+                     dec.decode_attention_batch_q8_reference(qq, kq, ks, vq, vs, pos, pd),
+                     DEC_Q8_TOL if qn == "float32" else DEC_TOL[qn])):
+                e = (got.float() - ref.float()).abs().max().item()
+                if not (got.dtype == qq.dtype and torch.isfinite(got).all() and e < tol):
+                    raise AssertionError(f"{name} at B 8 H 32 KvH 4 S 2048, {case}, q {qn}: "
+                                         f"max|d| {e} >= {tol}")
+                if qn == "float32":
+                    err[name] = max(err[name], e)
+    log(f"decode_attention_batch (bf16 cache) and _q8 at the MoE engine's shape, q "
+        f"[8,32,128] over [8,4,2048,128], {'/'.join(cases)}, f32 and bf16 q, vs plain: f32 "
+        f"q max|d| {err['decode_attention_batch']:.2e} (bound {DEC_TOL['float32']}) and "
+        f"{err['decode_attention_batch_q8']:.2e} (bound {DEC_Q8_TOL}); bf16 q within "
+        f"{DEC_TOL['bfloat16']}")
+    del k, v, kq, ks, vq, vs
+    torch.cuda.empty_cache()
+    return err
+
+
+def _profile_steps(torch, llm, fn) -> dict:
+    """torch.profiler over ``fn`` with the MoE expert path
+    (``llm._moe_experts``) in a record_function range: kernels launched,
+    their device ms, the device ms of the kernels launched inside the
+    range, and the five kernels of most device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    moe = llm._moe_experts
+
+    def annotated(*a):
+        with record_function("moe_experts"):
+            return moe(*a)
+    llm._moe_experts = annotated
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        llm._moe_experts = moe
+    rows = prof.key_averages()
+    cuda = [e for e in rows if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key != "moe_experts"]
+    top = sorted(cuda, key=lambda e: -e.self_device_time_total)[:5]
+    return {"launches": sum(e.count for e in cuda),
+            "kernel_ms": sum(e.self_device_time_total for e in cuda) / 1e3,
+            "experts_ms": sum(e.device_time_total for e in rows if e.key == "moe_experts"
+                              and e.device_type == torch.autograd.DeviceType.CPU) / 1e3,
+            "top": [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top]}
+
+
+def _family_engine(torch, llm, family, cfg, params, label, **kw) -> dict:
+    """(b) One 8-slot engine (int8 weights, bf16 KV, ctx 2048): 8 requests
+    of 24-88 tokens admitted two a tick, 24 new tokens each. Once all
+    decode: 4 engine steps timed after a sync (the decode step's ms), 4
+    under torch.profiler (kernels launched a step, their device time and
+    its share of the step: the busy share; the expert path's device time),
+    then decode tokens/s to the end. Kernel launch counts over the run,
+    counters zeroed before it."""
+    from clearcam_tpu_torch.ops import decode_attention as dec
+    from clearcam_tpu_torch.ops import quant_matmul as qm
+    from clearcam_tpu_torch.serving import ServingEngine
+    rng = np.random.default_rng(16)
+    eng = ServingEngine(params, cfg, n_slots=8, state_dtype=torch.bfloat16, **kw)
+    warm = [eng.submit(rng.integers(1, cfg.vocab_size, 8).tolist(), max_new=3)
+            for _ in range(2)]
+    eng.run_until_idle()
+    assert all(len(w.tokens) == 3 for w in warm)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in np.linspace(24, 88, 8)]
+    qm.quant_linear.launches = dec.decode_attention_batch.launches = 0
+    dec.decode_attention_batch_q8.launches = 0
+    t_run = time.perf_counter()
+    reqs = []
+    for i, pr in enumerate(prompts):
+        reqs.append(eng.submit(pr, max_new=24))
+        if i % 2:
+            eng.step()
+    while any(len(r.tokens) == 0 for r in reqs):
+        eng.step()
+    torch.cuda.synchronize()
+    admit_s = time.perf_counter() - t_run
+    d0 = eng.stats["decode_steps"]
+    t0 = time.perf_counter()
+    for _ in range(4):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 4 * 1e3
+    prof = _profile_steps(torch, llm, lambda: [eng.step() for _ in range(4)])
+    n_k, kern_ms = prof["launches"], prof["kernel_ms"]
+    if eng.stats["decode_steps"] - d0 != 8:
+        raise AssertionError(f"{label}: the timed steps were not all decode steps")
+    torch.cuda.synchronize()
+    t1, toks1 = time.perf_counter(), sum(len(r.tokens) for r in reqs)
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rate = (sum(len(r.tokens) for r in reqs) - toks1) / (t2 - t1)
+    launches = {"quant_matmul": qm.quant_linear.launches,
+                "decode_attention_batch": dec.decode_attention_batch.launches,
+                "decode_attention_batch_q8": dec.decode_attention_batch_q8.launches}
+    if not all(len(r.tokens) == 24 and all(0 <= t < cfg.vocab_size for t in r.tokens)
+               for r in reqs):
+        raise AssertionError(f"{label}: a request did not finish 24 tokens")
+    out = {"decode_tok_s": rate, "step_ms": step_ms, "launches_per_step": n_k / 4,
+           "kernel_ms_per_step": kern_ms / 4, "busy": kern_ms / 4 / step_ms,
+           "experts_ms_per_step": prof["experts_ms"] / 4, "admit_s": admit_s,
+           "prefill_tokens": int(sum(map(len, prompts))), "run_s": t2 - t_run,
+           "launches": launches}
+    log(f"{label}: decode {rate:.1f} tokens/s, decode step {step_ms:.2f} ms after a sync, "
+        f"{n_k / 4:.0f} kernel launches a step, {kern_ms / 4:.2f} ms of kernel time "
+        f"(busy {kern_ms / 4 / step_ms:.1%}), of it the expert path "
+        + (f"{prof['experts_ms'] / 4:.2f} ms" if prof["experts_ms"] else
+           "not measured (no kernel attributed to its range)" if cfg.num_experts else
+           "none (no experts)")
+        + "; top kernels a step "
+        + "; ".join(f"{k} x{c / 4:.0f} {ms / 4:.2f} ms" for k, c, ms in prof["top"])
+        + f"; the 8 prompts ({out['prefill_tokens']} tokens) admitted to their first "
+        f"token in {admit_s:.2f} s; kernel launches over the run {launches}; "
+        f"run {t2 - t_run:.1f} s")
+    eng.close()
+    return out
+
+
+def _prefill_chunk_ms(torch, llm, cfg, params) -> float:
+    """One CHUNK-token prefill chunk at B = 1 (``llm._prefill_hidden``, bf16
+    KV), device ms, the mean of 3 calls after a warm-up: one T = CHUNK
+    forward on attention and MLA stacks, CHUNK T = 1 forwards on the
+    hybrid."""
+    st = llm.init_state(cfg, 1, dtype=torch.bfloat16, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(17).integers(
+        1, cfg.vocab_size, (1, llm.CHUNK))).cuda()
+    freqs = llm.freqs_for(cfg, "cuda")
+    with torch.inference_mode():
+        return cuda_ms(lambda: llm._prefill_hidden(params, cfg, st, toks, 0, llm.CHUNK,
+                                                   freqs), iters=3, warmup=1)
+
+
+def phase15(torch):
+    log("== phase 15: MoE (Qwen3-30B-A3B widths), MLA (DeepSeek-V2-Lite widths; its YaRN "
+        "rope scaling has no field in TransformerConfig, so both packages run plain RoPE) "
+        "and the GatedDeltaNet hybrid (qwen3_next_cfg): card vs CPU at "
+        f"{FAMILY_CHECK_BLOCKS['moe']} blocks (the hybrid {FAMILY_CHECK_BLOCKS['hybrid']}); "
+        "the 8-slot engines at full depth ("
+        + ", ".join(str(FAMILY_BLOCKS[f]) for f in ("moe", "mla", "hybrid"))
+        + " blocks, no cut); llm_bench --ssm")
+    from clearcam_tpu_torch.models import llm
+    out = {"check": {}, "engine": {}, "prefill_chunk_ms": {}}
+    t0 = time.time()
+    out["moe_decode_kernels"] = _moe_decode_kernels(torch)
+    for family in ("moe", "mla", "hybrid"):
+        out["check"][family] = _family_card_vs_cpu(torch, llm, family)
+    log(f"(a) card vs CPU: {time.time() - t0:.1f} s")
+    # (b) the engines at each family's depth, int8 weights drawn on the card
+    # and quantized tensor by tensor as they are drawn
+    for family in ("moe", "mla", "hybrid"):
+        cfg = _family_cfg(llm, family, FAMILY_BLOCKS[family])
+        t0 = time.time()
+        gen = torch.Generator(device="cuda").manual_seed(16)
+        params = llm.init_params(cfg, dtype=torch.bfloat16, device="cuda", quantize="int8",
+                                 generator=gen)
+        torch.cuda.synchronize()
+        log(f"{cfg.num_blocks}-block {FAMILY_NAMES[family]}, int8 weights drawn and "
+            f"quantized on the card in {time.time() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+        routes = {"moe": [("plain attention", {}), ("--pallas", {"use_pallas_decode": True}),
+                          ("--kv-quant --pallas", {"use_pallas_decode": True,
+                                                   "kv_quant": True})],
+                  "mla": [("bf16 latent cache", {}), ("int8 latent cache", {"kv_quant": True})],
+                  "hybrid": [("plain attention", {})]}[family]
+        chunk_ms = _prefill_chunk_ms(torch, llm, cfg, params)
+        out["prefill_chunk_ms"][family] = chunk_ms
+        log(f"{cfg.num_blocks}-block {FAMILY_NAMES[family]}, int8: one {llm.CHUNK}-token "
+            f"prefill chunk at B = 1 {chunk_ms:.1f} ms ({chunk_ms / llm.CHUNK:.2f} ms a token)")
+        for route, kw in routes:
+            label = f"{cfg.num_blocks}-block {FAMILY_NAMES[family]}, 8 slots, int8, {route}"
+            r = _family_engine(torch, llm, family, cfg, params, label, **kw)
+            out["engine"][family, route] = r
+            n = r["launches"]
+            if n["quant_matmul"] < 1:
+                raise AssertionError(f"{label}: no quant kernel launch")
+            if family == "moe" and kw.get("use_pallas_decode") and \
+                    n["decode_attention_batch_q8" if kw.get("kv_quant")
+                      else "decode_attention_batch"] < 1:
+                raise AssertionError(f"{label}: no decode-attention kernel launch")
+        del params
+        torch.cuda.empty_cache()
+    # (c) the micro-benchmark's hybrid as a user runs it
+    t0 = time.time()
+    cmd = [sys.executable, "-m", "clearcam_tpu_torch.tools.llm_bench", "--ssm", "--blocks",
+           "8", "--ctx", "512", "--modes", "int8", "--decode-batch", "1,8", "--steps", "16"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=str(ROOT),
+                          env=dict(os.environ, PYTHONPATH=str(PKG_ROOT)))
+    if proc.returncode != 0:
+        raise AssertionError(f"llm_bench --ssm: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    for x in proc.stdout.splitlines():
+        log(f"  llm_bench --ssm| {x}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    if len(lines) != 3 or not all(x.get("decode_tok_s", 0) > 0 for x in lines):
+        raise AssertionError(f"llm_bench --ssm: {proc.stdout[-2000:]}")
+    out["llm_bench_ssm"] = lines
+    log(f"(c) llm_bench --ssm: {time.time() - t0:.1f} s")
+    return out
+
+
 def _post_json(url, body, timeout=300.0):
     return json.loads(_post(url, json.dumps(body).encode(), timeout))
 
@@ -2243,7 +2660,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     build_s = max_err = times = fps = launches = attn_err = attn_times = clip_fps = None
     kern = llm_errs = llm_tps = int4_launches = served = k10 = vl_errs = vlm = None
-    probe = spec = None
+    probe = spec = fam = None
     phase_s = {}
 
     def run(n, fn, *a):
@@ -2282,6 +2699,8 @@ def main(argv=None) -> int:
         probe = run(13, phase13, torch)
     if 14 in phases:
         spec = run(14, phase14, torch)
+    if 15 in phases:
+        fam = run(15, phase15, torch)
     log(f"== done in {time.time() - t0:.1f} s (phases {phase_s}); build {build_s} s; detect "
         f"fps {fps}; image tower img/s (kernel, plain) {clip_fps}; 28-block int4 engine "
         f"decode tokens/s (kernel: True, plain: False) {llm_tps}; summaries "
@@ -2292,6 +2711,13 @@ def main(argv=None) -> int:
         print(json.dumps({"summary_layers_ms": vlm["layers"]}))
     if vl_errs is not None:
         print(json.dumps({"qwen3vl_2block_card_vs_cpu": vl_errs}))
+    if fam is not None:
+        print(json.dumps({"families": {
+            "card_vs_cpu": fam["check"],
+            "moe_decode_kernels_max_abs_err": fam["moe_decode_kernels"],
+            "engines": {f"{f}, {r}": v for (f, r), v in fam["engine"].items()},
+            "prefill_chunk_ms": fam["prefill_chunk_ms"],
+            "llm_bench_ssm": fam["llm_bench_ssm"]}}))
     if phases != set(ALL_PHASES):
         return 0
     # the attention row: f32, the CLIP tower's dtype; times at one CROP_BATCH.

@@ -1,18 +1,25 @@
-"""The LLM runtime for dense GQA decoders (the Qwen3 family) over torch,
-the counterpart of ``clearcam_tpu.models.llm``: the model, its sampler,
+"""The LLM runtime over torch, the counterpart of ``clearcam_tpu.models.llm``:
+the model (dense, MoE, MLA and GatedDeltaNet-hybrid blocks), its sampler,
 and the continuous-batching serving graphs that ``serving.engine`` drives.
 
 Covered: GQA attention blocks with qk-norm (per head or over the whole
 projection), qkv bias, the output gate and RoPE (half-split layout); the
-dense SwiGLU FFN; f32, bf16 or int8 (per-token scales) KV caches; int8 and
-int4 weight-only quantized linears (``ops.quant_matmul``); the batched
-decode-attention kernel as the decode step's attention
-(``use_pallas_decode``, ``ops.decode_attention``); penalties, logit bias,
-top-k/top-p/min-p, grammar masks and Gumbel-max sampling; echo logprob
-scoring; speculative serving graphs (prompt-lookup verify windows drafted
-on the card, ``make_serving_fns(spec_lookup=G)``); GGUF loading through
-the port's copy of ``io.gguf``. MoE, MLA and the GatedDeltaNet hybrid
-raise ``NotImplementedError`` (ROADMAP queue 1 item 4).
+dense SwiGLU FFN and the MoE FFN (softmax or sigmoid routers, the
+expert-bias term, ``routed_scaling_factor``, a shared expert with or
+without its gate, leading dense blocks), run grouped by expert; DeepSeek
+MLA latent-KV attention (q_nope absorbed through ``attn_k_b``, one cache
+row of [c_kv || k_rope] per position); GatedDeltaNet linear-attention
+blocks stepped one token at a time (conv window and f32 delta-rule state);
+f32, bf16 or int8 (per-token scales) KV caches; int8 and int4 weight-only
+quantized linears (``ops.quant_matmul``) and int8 expert stacks
+(``QuantExpert``); the batched decode-attention kernel as the attention
+blocks' decode step (``use_pallas_decode``, ``ops.decode_attention``;
+MLA blocks keep the plain product, SSM stacks refuse it); penalties,
+logit bias, top-k/top-p/min-p, grammar masks and Gumbel-max sampling;
+echo logprob scoring; speculative serving graphs (prompt-lookup verify
+windows drafted on the card, ``make_serving_fns(spec_lookup=G)``,
+attention and MLA stacks); GGUF loading through the port's copy of
+``io.gguf``.
 
 Where the JAX package threads a functional copy of the state through a
 jitted step and donates the old one (llm.py:1321-1326), the port writes the
@@ -32,15 +39,15 @@ packages the same noise.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..nn import functional as F
-from ..ops.quant_matmul import (QuantLinear, QuantLinear4, quantize_int4, quantize_int8,
-                                true_div)
+from ..ops.quant_matmul import (QuantExpert, QuantLinear, QuantLinear4,
+                                quantize_experts_int8, quantize_int4, quantize_int8, true_div)
 
 # Prefill chunk width (the JAX package's CLEARCAM_CHUNK, llm.py:39).
 CHUNK = int(os.environ.get("CLEARCAM_CHUNK", "32"))
@@ -90,6 +97,24 @@ class TransformerConfig:
     qkv_bias: bool = False
     expert_bias: bool = False
 
+    def block_kind(self, i: int) -> str:
+        """"ssm", "mla" or "attn": a hybrid's every
+        ``full_attention_interval``-th block is attention."""
+        if self.ssm and (i + 1) % max(self.full_attention_interval, 1) != 0:
+            return "ssm"
+        if self.kv_lora_rank > 0:
+            return "mla"
+        return "attn"
+
+    def block_cfg(self, i: int) -> "TransformerConfig":
+        """Block i's config: the leading dense blocks of an MoE stack have no
+        experts and ``dense_hidden_dim`` for their FFN."""
+        if i < self.leading_dense_blocks:
+            return replace(self, num_experts=0, num_experts_per_tok=0,
+                           shared_expert_dim=0,
+                           hidden_dim=self.dense_hidden_dim or self.hidden_dim)
+        return self
+
 
 def qwen3_2b_cfg(blocks: int = 28, ctx: int = 8192) -> TransformerConfig:
     """Qwen/Qwen3-1.7B's published widths (its config.json): hidden 2048,
@@ -103,15 +128,19 @@ def qwen3_2b_cfg(blocks: int = 28, ctx: int = 8192) -> TransformerConfig:
         qk_norm=128)
 
 
-def check_supported(cfg: TransformerConfig) -> None:
-    """Raise for the block families the port does not run yet."""
-    for what, on in (("MoE feed-forward blocks", cfg.num_experts > 0),
-                     ("MLA latent-KV attention", cfg.kv_lora_rank > 0),
-                     ("GatedDeltaNet (SSM) blocks", cfg.ssm is not None)):
-        if on:
-            raise NotImplementedError(
-                f"{what} are not in clearcam_tpu_torch yet (ROADMAP queue 1 "
-                "item 4): the port runs dense GQA attention stacks")
+def qwen3_next_cfg(blocks: int = 28, ctx: int = 2048) -> TransformerConfig:
+    """The JAX package's Qwen3-Next-class hybrid (clearcam_tpu/tools/
+    llm_bench.py:42-54): GatedDeltaNet blocks with every 4th block full
+    attention (output-gated, qk-norm per head), hidden 2048, 16/4 heads of
+    128 (rope on 64), FFN 5120, vocab 151936; the SSM's 32 value heads and
+    16 key groups of 128, conv kernel 4."""
+    return TransformerConfig(
+        num_blocks=blocks, dim=2048, hidden_dim=5120, n_heads=16,
+        n_kv_heads=4, norm_eps=1e-6, vocab_size=151936, head_dim=128,
+        rope_theta=1e6, rope_dim=64, v_head_dim=128, max_context=ctx,
+        qk_norm=128, full_attention_interval=4,
+        ssm=SSMConfig(conv_kernel=4, state_size=128, group_count=16,
+                      time_step_rank=32, inner_size=4096))
 
 
 def precompute_freqs(dim: int, end: int, theta: float) -> np.ndarray:
@@ -158,8 +187,98 @@ def _is_vec(start_pos) -> bool:
 # blocks
 # ---------------------------------------------------------------------------
 
+def _route(p, pre, cfg: TransformerConfig, x):
+    """The MoE router: (expert ids [..., k], their weights [..., k]). The
+    softmax router takes the top-k logits, weighted by the softmax of
+    those k (norm_topk_prob) or of all experts; the sigmoid router
+    (expert_bias) picks by sigmoid + ``exp_probs_b`` and weights by the
+    unbiased sigmoid. Ties between router scores have no promised order
+    (``torch.topk``)."""
+    logits = F.linear(x, p[f"{pre}.ffn_gate_inp.weight"])
+    k = cfg.num_experts_per_tok
+    if cfg.expert_bias:
+        probs = torch.sigmoid(logits)
+        sel = torch.topk(probs + p[f"{pre}.exp_probs_b.bias"], k).indices
+        probs = probs.gather(-1, sel)
+        if cfg.norm_topk_prob:
+            probs = probs / probs.sum(-1, keepdim=True)
+    else:
+        vals, sel = torch.topk(logits, k)
+        probs = torch.softmax(vals, -1) if cfg.norm_topk_prob else \
+            torch.softmax(logits, -1).gather(-1, sel)
+    return sel, probs * cfg.routed_scaling_factor
+
+
+def _expert_products(xs, w, used):
+    """xs [U, C, I] times the used experts' weights (w [E, O, I], a tensor
+    or a QuantExpert; ``used`` [U] expert ids) -> [U, C, O] in xs's dtype.
+    An int8 stack is widened exactly to f32 and its per-output scale applied
+    after the product; a float stack of another dtype than xs multiplies xs
+    rounded to it, as ``nn.functional.linear`` does."""
+    if isinstance(w, QuantExpert):
+        q = w.q[used].float()
+        return (torch.matmul(xs.float(), q.transpose(1, 2))
+                * w.s[used].transpose(1, 2)).to(xs.dtype)
+    wu = w[used]
+    if xs.dtype != wu.dtype:
+        return torch.matmul(xs.to(wu.dtype), wu.transpose(1, 2)).to(xs.dtype)
+    return torch.matmul(xs, wu.transpose(1, 2))
+
+
+def _moe_experts(p, pre, cfg: TransformerConfig, x2, sel, probs):
+    """The routed experts' SwiGLU outputs summed with their weights:
+    x2 [N, D], sel and probs [N, k] -> [N, D].
+
+    The JAX package gathers each (token, choice)'s three weight slices,
+    [N, k, hid, dim] apiece; at 8 slots x a 32-token chunk, 8 of 128
+    experts and 768 x 2048 that is ~13 GB of f32 per weight. Here the
+    pairs are sorted by expert instead, each expert used is read and
+    widened once, and one batched product per weight runs over [used
+    experts, most pairs of one expert, D], short groups padded with zero
+    rows. The group sizes are read back to the host once a call. The
+    weighted sum runs over the k choices in their order, as the JAX
+    package's does."""
+    n, k = sel.shape
+    dev, d = x2.device, x2.shape[-1]
+    flat = sel.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=cfg.num_experts)
+    counts_h = counts.cpu()
+    used_h = torch.nonzero(counts_h).flatten()
+    used = used_h.to(dev)
+    e_sorted = flat[order]
+    group = torch.zeros(cfg.num_experts, dtype=torch.long, device=dev)
+    group[used] = torch.arange(used_h.numel(), device=dev)
+    g = group[e_sorted]                                     # each pair's group
+    row = torch.arange(n * k, device=dev) - (torch.cumsum(counts, 0) - counts)[e_sorted]
+    xs = x2.new_zeros((used_h.numel(), int(counts_h.max()), d))
+    xs[g, row] = x2[order // k]
+    gate = _expert_products(xs, p[f"{pre}.ffn_gate_exps.weight"], used)
+    up = _expert_products(xs, p[f"{pre}.ffn_up_exps.weight"], used)
+    down = _expert_products(F.silu(gate) * up, p[f"{pre}.ffn_down_exps.weight"], used)
+    y = torch.empty((n * k, d), dtype=down.dtype, device=dev)
+    y[order] = down[g, row]
+    return (y.reshape(n, k, d) * probs[..., None]).sum(1)
+
+
 def _ffn(p, pre, cfg: TransformerConfig, x):
-    """Dense SwiGLU feed-forward."""
+    """Dense SwiGLU or MoE feed-forward (clearcam_tpu/models/llm.py:123-161):
+    the routed experts (``_moe_experts``) plus the shared expert, scaled
+    by its sigmoid gate where the block has one."""
+    if cfg.num_experts > 0 and f"{pre}.ffn_gate_exps.weight" in p:
+        sel, probs = _route(p, pre, cfg, x)
+        out = _moe_experts(p, pre, cfg, x.reshape(-1, x.shape[-1]),
+                           sel.reshape(-1, sel.shape[-1]),
+                           probs.reshape(-1, probs.shape[-1])).reshape(x.shape)
+        if f"{pre}.ffn_gate_shexp.weight" in p:
+            sh = F.linear(F.silu(F.linear(x, p[f"{pre}.ffn_gate_shexp.weight"]))
+                          * F.linear(x, p[f"{pre}.ffn_up_shexp.weight"]),
+                          p[f"{pre}.ffn_down_shexp.weight"])
+            if f"{pre}.ffn_gate_inp_shexp.weight" in p:
+                sh = sh * torch.sigmoid((x * p[f"{pre}.ffn_gate_inp_shexp.weight"])
+                                        .sum(-1, keepdim=True))
+            out = out + sh
+        return out
     gate = F.linear(x, p[f"{pre}.ffn_gate.weight"])
     up = F.linear(x, p[f"{pre}.ffn_up.weight"])
     return F.linear(F.silu(gate) * up, p[f"{pre}.ffn_down.weight"])
@@ -199,8 +318,7 @@ def _row_index(write_mask, device):
     """Row indices of a write mask (numpy/list on the host: no device sync)."""
     if isinstance(write_mask, torch.Tensor):
         return torch.nonzero(write_mask.to(device)).flatten()
-    rows = np.nonzero(np.asarray(write_mask, bool))[0]
-    return torch.from_numpy(rows).to(device)
+    return upload(np.nonzero(np.asarray(write_mask, bool))[0], device)
 
 
 def _cache_update(cache, new, start_pos, write_mask=None):
@@ -242,6 +360,19 @@ def _product_f32(a, b):
     return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
+def _rope_rows(freqs, start_pos, t: int):
+    """The rope rows of positions start_pos .. start_pos + t - 1: [T,D] for
+    a shared position, [B,T,D] per row (junk rows parked near the table's
+    end clamp)."""
+    s_len = freqs.shape[0]
+    if _is_vec(start_pos):
+        idx = torch.clamp(start_pos[:, None] + torch.arange(t, device=freqs.device),
+                          max=s_len - 1)
+        return freqs[idx]
+    p0 = max(0, min(int(start_pos), s_len - t))
+    return freqs[p0:p0 + t]
+
+
 def _attention_block(p, pre, cfg: TransformerConfig, x, state, start_pos, freqs,
                      decode_attn=None, pad_start=None, write_mask=None):
     """GQA attention with a KV cache written in place. decode_attn, when
@@ -266,15 +397,7 @@ def _attention_block(p, pre, cfg: TransformerConfig, x, state, start_pos, freqs,
     if cfg.qk_norm == hd:
         q = F.rms_norm(q, p[f"{pre}.attn_q_norm.weight"], cfg.norm_eps)
         k = F.rms_norm(k, p[f"{pre}.attn_k_norm.weight"], cfg.norm_eps)
-    s_len = freqs.shape[0]
-    if _is_vec(start_pos):
-        # per-row rope rows; junk rows parked near the table end clamp
-        idx = torch.clamp(start_pos[:, None] + torch.arange(t, device=x.device),
-                          max=s_len - 1)
-        fr = freqs[idx]                                              # [B,T,D]
-    else:
-        p0 = max(0, min(int(start_pos), s_len - t))
-        fr = freqs[p0:p0 + t]
+    fr = _rope_rows(freqs, start_pos, t)
     rd = cfg.rope_dim
     q = torch.cat([apply_rope(q[..., :rd], fr), q[..., rd:]], -1)
     k = torch.cat([apply_rope(k[..., :rd], fr), k[..., rd:]], -1)
@@ -313,59 +436,211 @@ def _attention_block(p, pre, cfg: TransformerConfig, x, state, start_pos, freqs,
     return F.linear(out, p[f"{pre}.attn_output.weight"]), state
 
 
+def _mla_block(p, pre, cfg: TransformerConfig, x, state, start_pos, freqs,
+               pad_start=None, write_mask=None):
+    """DeepSeek MLA latent-KV attention (clearcam_tpu/models/llm.py:316-365),
+    in the latent-absorbed form: q_nope is projected through ``attn_k_b``
+    into the latent space, each position's cache row is [c_kv || k_rope]
+    (kv_lora_rank + rope_dim wide, one head), V is the row's latent slice,
+    and the attended latent goes out through ``attn_v_b``; the scale is
+    head_dim ** -0.5 with head_dim = nope + rope. A state with "kv_s" holds
+    the rows in int8 with one scale per position, for K and V at once.
+    The products run in f32 (the JAX package widens the bf16 3-D
+    projections and the cache)."""
+    b, t, _ = x.shape
+    nope = cfg.head_dim - cfg.rope_dim
+    if cfg.q_lora_rank > 0:
+        qa = F.rms_norm(F.linear(x, p[f"{pre}.attn_q_a.weight"]),
+                        p[f"{pre}.attn_q_a_norm.weight"], cfg.norm_eps)
+        qp = F.linear(qa, p[f"{pre}.attn_q_b.weight"])
+    else:
+        qp = F.linear(x, p[f"{pre}.attn_q.weight"])
+    q = qp.reshape(b, t, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+    fr = _rope_rows(freqs, start_pos, t)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    # [B,H,T,nope] through attn_k_b [H, lora, nope] -> [B,H,T,lora]
+    q_lat = torch.einsum("bhtn,hln->bhtl", q_nope.float(),
+                         p[f"{pre}.attn_k_b.weight"].float())
+    q = torch.cat([q_lat, apply_rope(q_rope.float(), fr)], -1)
+
+    kv_a = F.linear(x, p[f"{pre}.attn_kv_a_mqa.weight"])
+    lora = cfg.kv_lora_rank
+    c_kv = F.rms_norm(kv_a[..., :lora], p[f"{pre}.attn_kv_a_norm.weight"], cfg.norm_eps)
+    k_rope = apply_rope(kv_a[..., lora:].reshape(b, t, 1, cfg.rope_dim).transpose(1, 2), fr)
+    k_new = torch.cat([c_kv[:, None], k_rope], -1)               # [B,1,T,lora+rope]
+    if "kv_s" in state:
+        kq, ks = _kv_quantize(k_new)
+        _cache_update(state["kv"], kq, start_pos, write_mask)
+        _cache_update(state["kv_s"], ks, start_pos, write_mask)
+        k = state["kv"].float() * state["kv_s"][..., None]
+    else:
+        _cache_update(state["kv"], k_new, start_pos, write_mask)
+        k = state["kv"].float()
+    v = k[..., :lora]
+    mask = _attn_mask(start_pos, t, cfg.max_context, pad_start, x.device)
+    # the one latent head serves all H query heads: [B,1,H*T,.] products,
+    # not a broadcast over H (which would copy the cache H times)
+    h = cfg.n_heads
+    scores = torch.matmul(q.reshape(b, 1, h * t, -1), k.transpose(-1, -2)) \
+        .reshape(b, h, t, -1) * (cfg.head_dim ** -0.5) + mask
+    ctx_lat = torch.matmul(torch.softmax(scores, -1).reshape(b, 1, h * t, -1), v) \
+        .reshape(b, h, t, lora)
+    # through attn_v_b [H, v, lora] -> [B,H,T,v]
+    out = torch.einsum("bhtl,hvl->bhtv", ctx_lat, p[f"{pre}.attn_v_b.weight"].float())
+    out = out.transpose(1, 2).reshape(b, t, -1).to(x.dtype)
+    return F.linear(out, p[f"{pre}.attn_output.weight"]), state
+
+
+def _as_mask(m, device) -> torch.Tensor:
+    """A [B] bool mask (host bools or a tensor) on ``device``."""
+    if isinstance(m, torch.Tensor):
+        return m.to(device=device, dtype=torch.bool)
+    return upload(np.asarray(m, bool), device)
+
+
+def _ssm_block(p, pre, cfg: TransformerConfig, x, state, start_pos, freqs, live=None):
+    """One GatedDeltaNet step, T = 1 (clearcam_tpu/models/llm.py:368-420):
+    the causal conv over a window of conv_kernel - 1 earlier rows and this
+    one, L2-normed q and k tiled over the nv // nk value heads, the gated
+    delta rule on rec [B, nv, dv, dv] in f32 (stored in the state's dtype),
+    an RMS norm and the SiLU output gate. The state is written in place;
+    rows where ``live`` [B] is False keep their conv window and recurrent
+    state bit for bit (the left pads of a batched prompt, slots not
+    prefilling or decoding), as a recurrence would ingest junk forever."""
+    ssm = cfg.ssm
+    b = x.shape[0]
+    nk, nv = ssm.group_count, ssm.time_step_rank
+    dk, dv = ssm.state_size, ssm.inner_size // nv
+    conv_ch = ssm.inner_size + 2 * nk * dk
+    q_dim = nk * dk
+
+    out_gate = F.linear(x, p[f"{pre}.attn_gate.weight"]).reshape(b, 1, nv, dv)
+    beta = torch.sigmoid(F.linear(x, p[f"{pre}.ssm_beta.weight"])).reshape(b, nv, 1, 1)
+    alpha_in = F.linear(x, p[f"{pre}.ssm_alpha.weight"]).float()
+    alpha = torch.exp((torch.nn.functional.softplus(alpha_in + p[f"{pre}.ssm_dt.bias"])
+                       * p[f"{pre}.ssm_a"]).reshape(b, nv, 1, 1))
+
+    qkv = F.linear(x, p[f"{pre}.attn_qkv.weight"])                  # [B,1,conv_ch]
+    conv, rec0 = state["conv"], state["rec"]
+    wdt = torch.promote_types(conv.dtype, qkv.dtype)
+    window = torch.cat([conv.to(wdt), qkv.reshape(b, 1, conv_ch).to(wdt)], 1)
+    conv_out = F.silu((window * p[f"{pre}.ssm_conv1d.weight"].T[None]).sum(1))
+    q, k, v = (conv_out[:, :q_dim], conv_out[:, q_dim:2 * q_dim],
+               conv_out[:, 2 * q_dim:])
+
+    def _norm(u):
+        return u / torch.sqrt((u ** 2).sum(-1, keepdim=True) + 1e-6)
+
+    q = _norm(q.reshape(b, nk, dk)).repeat(1, nv // nk, 1) * dk ** -0.5
+    k = _norm(k.reshape(b, nk, dk)).repeat(1, nv // nk, 1)
+    v = v.reshape(b, nv, dv)
+    q, k, v = q[..., None], k[..., None], v[..., None]
+
+    rec = rec0.float() * alpha
+    rec = rec + ((v - rec @ k) * beta) @ k.transpose(-1, -2)
+    core = (rec @ q)[..., 0].reshape(b, 1, nv, dv)
+    core = F.rms_norm(core, p[f"{pre}.ssm_norm.weight"], cfg.norm_eps)
+    out = F.linear((core * F.silu(out_gate)).reshape(b, 1, -1).to(x.dtype),
+                   p[f"{pre}.ssm_out.weight"])
+    new_conv, new_rec = window[:, 1:].to(conv.dtype), rec.to(rec0.dtype)
+    if live is not None:
+        lv = _as_mask(live, x.device)
+        new_conv = torch.where(lv[:, None, None], new_conv, conv)
+        new_rec = torch.where(lv[:, None, None, None], new_rec, rec0)
+    conv.copy_(new_conv)
+    rec0.copy_(new_rec)
+    return out, state
+
+
 # ---------------------------------------------------------------------------
 # full model step
 # ---------------------------------------------------------------------------
 
 def init_state(cfg: TransformerConfig, batch: int = 1, dtype=torch.float32,
                kv_quant: bool = False, device="cpu") -> list:
-    """Preallocated [B,KvH,S,D] K/V caches per block, zero-filled: f32, bf16,
-    or int8 with f32 per-token scales [B,KvH,S] (kv_quant)."""
-    check_supported(cfg)
+    """Preallocated per-block states, zero-filled: attention blocks a
+    [B,KvH,S,D] K/V cache (f32, bf16, or int8 with f32 per-token scales
+    [B,KvH,S] under kv_quant); MLA blocks one [B,1,S,lora+rope] latent
+    cache (int8 with one scale per position [B,1,S] under kv_quant);
+    GatedDeltaNet blocks a conv window [B,conv_kernel-1,conv channels] and
+    a recurrent state [B,nv,dv,dv] in ``dtype``."""
     dev = resolve_device(device)
-    shape = (batch, cfg.n_kv_heads, cfg.max_context, cfg.head_dim)
+
+    def z(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
     state = []
-    for _ in range(cfg.num_blocks):
-        if kv_quant:
-            state.append({"k": torch.zeros(shape, dtype=torch.int8, device=dev),
-                          "k_s": torch.zeros(shape[:3], device=dev),
-                          "v": torch.zeros(shape, dtype=torch.int8, device=dev),
-                          "v_s": torch.zeros(shape[:3], device=dev)})
+    for i in range(cfg.num_blocks):
+        kind = cfg.block_kind(i)
+        if kind == "attn":
+            shape = (batch, cfg.n_kv_heads, cfg.max_context, cfg.head_dim)
+            if kv_quant:
+                state.append({"k": z(shape, torch.int8), "k_s": z(shape[:3], torch.float32),
+                              "v": z(shape, torch.int8), "v_s": z(shape[:3], torch.float32)})
+            else:
+                state.append({"k": z(shape), "v": z(shape)})
+        elif kind == "mla":
+            shape = (batch, 1, cfg.max_context, cfg.kv_lora_rank + cfg.rope_dim)
+            if kv_quant:
+                state.append({"kv": z(shape, torch.int8), "kv_s": z(shape[:3], torch.float32)})
+            else:
+                state.append({"kv": z(shape)})
         else:
-            state.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
-                          "v": torch.zeros(shape, dtype=dtype, device=dev)})
+            ssm = cfg.ssm
+            conv_ch = ssm.inner_size + 2 * ssm.group_count * ssm.state_size
+            dv = ssm.inner_size // ssm.time_step_rank
+            state.append({"conv": z((batch, ssm.conv_kernel - 1, conv_ch)),
+                          "rec": z((batch, ssm.time_step_rank, dv, dv))})
     return state
 
 
 def reset_recurrent(cfg: TransformerConfig, state: list) -> list:
-    """Zero the recurrent (SSM) states after a prefix-cache divergence: the
-    port runs attention stacks only, whose caches need no reset."""
-    check_supported(cfg)
+    """Zero the GatedDeltaNet states in place after a prefix-cache
+    divergence; attention caches need no reset (their rows are rewritten
+    before any causal mask reaches them)."""
+    for i, s in enumerate(state):
+        if cfg.block_kind(i) == "ssm":
+            for t in s.values():
+                t.zero_()
     return state
 
 
 def forward(p: dict, cfg: TransformerConfig, state: list, tokens, start_pos,
             freqs, hidden_override=None, deepstack=None, decode_attn=None,
-            pad_start=None, write_mask=None):
+            pad_start=None, write_mask=None, row_live=None):
     """Embeds -> blocks -> final hidden states [B,T,D] (f32), and ``state``
     written in place. start_pos: an int, or a [B] tensor of per-row
     positions; write_mask [B] keeps masked rows' caches untouched (batched
     multi-slot prefill). hidden_override [B,T,D] replaces the token
     embeddings (the VLM image splice); deepstack {block index: [B,T,D]} is
     added to the residual after that block (qwen3vl's deepstack features,
-    as the JAX package's forward adds them)."""
-    check_supported(cfg)
+    as the JAX package's forward adds them). GatedDeltaNet blocks step one
+    token (T = 1); row_live [B] keeps a row's recurrence where it is, and
+    an SSM stack with pad_start or write_mask needs it (the recurrence
+    would ingest the pads or the masked rows' junk)."""
     x = hidden_override if hidden_override is not None else \
         F.embedding(p["token_embd.weight"], tokens).float()
     for i in range(cfg.num_blocks):
+        bc = cfg.block_cfg(i)
         pre = f"blk.{i}"
+        kind = cfg.block_kind(i)
         h = F.rms_norm(x, p[f"{pre}.attn_norm.weight"], cfg.norm_eps)
-        attn_out, _ = _attention_block(p, pre, cfg, h, state[i], start_pos, freqs,
-                                       decode_attn=decode_attn, pad_start=pad_start,
-                                       write_mask=write_mask)
+        if kind == "attn":
+            attn_out, _ = _attention_block(p, pre, bc, h, state[i], start_pos, freqs,
+                                           decode_attn=decode_attn, pad_start=pad_start,
+                                           write_mask=write_mask)
+        elif kind == "mla":
+            attn_out, _ = _mla_block(p, pre, bc, h, state[i], start_pos, freqs,
+                                     pad_start=pad_start, write_mask=write_mask)
+        else:
+            assert write_mask is None or row_live is not None, \
+                "a write-masked forward over SSM blocks needs row_live"
+            assert pad_start is None or row_live is not None, \
+                "left-padded rows over SSM blocks need row_live"
+            attn_out, _ = _ssm_block(p, pre, bc, h, state[i], start_pos, freqs,
+                                     live=row_live)
         x = x + attn_out
-        x = x + _ffn(p, pre, cfg, F.rms_norm(x, p[f"{pre}.ffn_norm.weight"],
-                                             cfg.norm_eps))
+        x = x + _ffn(p, pre, bc, F.rms_norm(x, p[f"{pre}.ffn_norm.weight"],
+                                            cfg.norm_eps))
         if deepstack is not None and i in deepstack:
             x = x + deepstack[i]
     return x, state
@@ -380,8 +655,8 @@ def make_score_fn(cfg: TransformerConfig):
     """Chunked teacher-forcing scorer (the OpenAI completions ``echo``
     surface): ``score(params, tokens) -> [N-1] rows`` where row i-1 is
     (chosen_lp, [(alt_id, alt_lp) x LP_K]) scoring tokens[i] given
-    tokens[:i]."""
-    check_supported(cfg)
+    tokens[:i]. SSM stacks step each chunk a token at a time, its padding
+    included (it follows the last real token, so nothing reads it)."""
     kk = min(LP_K, cfg.vocab_size)
     sc = 128 if cfg.max_context % 128 == 0 else CHUNK
 
@@ -400,9 +675,12 @@ def make_score_fn(cfg: TransformerConfig):
         for c in range(n_chunks):
             lo = c * sc
             tgt = torch.tensor([(padded + [0])[lo + 1:lo + 1 + sc]], device=dev)
-            hidden, _ = forward(params, cfg, state,
-                                torch.tensor([padded[lo:lo + sc]], device=dev),
-                                lo, freqs)
+            toks = torch.tensor([padded[lo:lo + sc]], device=dev)
+            if cfg.ssm is None:
+                hidden, _ = forward(params, cfg, state, toks, lo, freqs)
+            else:       # the recurrence steps the chunk one token at a time
+                hidden = torch.cat([forward(params, cfg, state, toks[:, j:j + 1], lo + j,
+                                            freqs)[0] for j in range(sc)], 1)
             h = F.rms_norm(hidden, params["output_norm.weight"], cfg.norm_eps)
             lp = torch.log_softmax(F.linear(h, params["output.weight"]).float(), -1)
             chosen = lp.gather(-1, tgt[..., None])[..., 0]
@@ -609,6 +887,13 @@ def make_serving_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
         advances every valid row by a chunk in one weight sweep; invalid
         rows' caches stay bit-identical (write_mask).
 
+    GatedDeltaNet stacks (clearcam_tpu/models/llm.py:1333-1341, 1437-1500):
+    a slot's first chunk (start_pos 0) zeroes its recurrent state, since a
+    new occupant must not inherit the retired request's; decode_all steps
+    only live rows' recurrences; prefill_many steps the chunk one token at
+    a time over every valid row, row_live and write_mask both
+    valid & (t < n_real) per token, up to the longest valid n_real.
+
     constraints=True: the graphs also take (ctab [S,V] int16, cinit [B],
     cstate [B]) — decode_all only (ctab, cstate) — mask disallowed tokens
     and return the advanced grammar states last (serving/constrain.py).
@@ -622,11 +907,17 @@ def make_serving_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
     engine's plain int8 route).
 
     spec_lookup keeps the reference's exclusions (llm.py:1280-1288): no
-    constraints and no use_pallas_decode (a verify window has G+1 queries,
-    the decode kernels take one); SSM stacks are refused by
-    check_supported.
+    constraints, no use_pallas_decode (a verify window has G+1 queries, the
+    decode kernels take one) and no SSM stack (a rejected draft's
+    recurrent-state update cannot be rolled back). use_pallas_decode is
+    refused on SSM stacks, as the JAX package asserts (llm.py:1314).
     """
-    check_supported(cfg)
+    if spec_lookup and cfg.ssm is not None:
+        raise ValueError("spec_lookup needs attention or MLA blocks only: a rejected "
+                         "draft's GatedDeltaNet state update cannot be rolled back")
+    if use_pallas_decode and cfg.ssm is not None:
+        raise ValueError("use_pallas_decode serves attention-only stacks (as "
+                         "clearcam_tpu/models/llm.py:1314 asserts), not GatedDeltaNet ones")
     if spec_lookup:
         if use_pallas_decode:
             raise ValueError(
@@ -660,16 +951,41 @@ def make_serving_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
                                  f"with {'an int8' if 'k_s' in st else 'a float'} KV cache")
             return batch_impl(q, st, pos_vec, pads)
 
+    def _prefill_many_ssm(params, state, toks, meta, freqs):
+        """prefill_many's hidden states [B,CHUNK,D] on a GatedDeltaNet
+        stack: fresh valid rows' recurrences zeroed, then the chunk one
+        token at a time, row_live = write_mask = valid & (t < n_real);
+        steps past the longest valid row are not run (zero rows)."""
+        valid_np = meta[2] != 0
+        fresh = np.nonzero(valid_np & (meta[0] == 0))[0]
+        if len(fresh):
+            rows = upload(fresh, toks.device)
+            for i, s in enumerate(state):
+                if cfg.block_kind(i) == "ssm":
+                    for t in s.values():
+                        t.index_fill_(0, rows, 0)
+        b_n, width = toks.shape
+        hidden = torch.zeros((b_n, width, cfg.dim), device=toks.device)
+        for t in range(int(np.max(np.where(valid_np, meta[1], 0), initial=0))):
+            # row_live goes to every SSM block: one upload a token, not one a block
+            live_t = valid_np & (t < meta[1])
+            pos_t = upload(np.minimum(meta[0] + t, cfg.max_context - 1), toks.device)
+            hidden[:, t] = forward(params, cfg, state, toks[:, t:t + 1], pos_t, freqs,
+                                   row_live=upload(live_t, toks.device),
+                                   write_mask=live_t)[0][:, 0]
+        return hidden
+
     @torch.inference_mode()
     def prefill_slot_c(params, state, first_tok, first_lp, tokens, slot, start_pos,
                        n_real, samp, seed, base_seed, cnt_p, cnt_o, bias, ctab,
                        cinit, cstate):
         dev = first_tok.device
         st_b = [{k: v[slot:slot + 1] for k, v in s.items()} for s in state]
-        hidden, _ = forward(params, cfg, st_b, upload(np.asarray(tokens, np.int64), dev),
-                            int(start_pos), _freqs(dev))
-        h = F.rms_norm(hidden[:, int(n_real) - 1], params["output_norm.weight"],
-                       cfg.norm_eps)
+        if int(start_pos) == 0:
+            reset_recurrent(cfg, st_b)      # a new occupant's recurrence starts at 0
+        h, _ = _prefill_hidden(params, cfg, st_b, upload(np.asarray(tokens, np.int64), dev),
+                               int(start_pos), int(n_real), _freqs(dev))
+        h = F.rms_norm(h, params["output_norm.weight"], cfg.norm_eps)
         # constraint context from the admission state: every chunk re-derives
         # "state after the first generated token", so the final chunk lands it
         ci = cinit[slot:slot + 1]
@@ -701,7 +1017,8 @@ def make_serving_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
         cnt_o.index_put_((torch.arange(b_n, device=dev), token[:, 0].long()),
                          live.to(cnt_o.dtype), accumulate=True)
         hidden, _ = forward(params, cfg, state, token, pos, _freqs(dev),
-                            decode_attn=attn_impl)
+                            decode_attn=attn_impl,
+                            row_live=live if cfg.ssm is not None else None)
         logits = logits_at(params, cfg, hidden, 0)
         cmask, con, crow = _con_mask(ctab, cstate, live)
         samp_np = np.asarray(samp, np.float32).reshape(-1, SAMP_W)
@@ -719,8 +1036,12 @@ def make_serving_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
         valid_np = meta[2] != 0
         m = upload(meta, dev)
         starts, n_real, valid = m[0], m[1], m[2] != 0
-        hidden, _ = forward(params, cfg, state, upload(np.asarray(tokens, np.int64), dev),
-                            starts, _freqs(dev), write_mask=valid_np)
+        toks = upload(np.asarray(tokens, np.int64), dev)
+        if cfg.ssm is None:
+            hidden, _ = forward(params, cfg, state, toks, starts, _freqs(dev),
+                                write_mask=valid_np)
+        else:
+            hidden = _prefill_many_ssm(params, state, toks, meta, _freqs(dev))
         h = hidden.gather(1, torch.clamp_min(n_real - 1, 0).long()[:, None, None]
                           .expand(-1, 1, hidden.shape[-1]))[:, 0]
         h = F.rms_norm(h, params["output_norm.weight"], cfg.norm_eps)
@@ -948,72 +1269,136 @@ def _make_spec_serving_fns(cfg: TransformerConfig, g: int):
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: TransformerConfig, seed: int = 0, dtype=torch.float32,
-                device="cpu") -> dict:
-    """Random GGUF-named params: the JAX package's init_params, the same
-    numpy draws in the same order, uploaded tensor by tensor so the host
-    holds one tensor at a time (values pass through f32 on the way to
-    ``dtype``)."""
-    check_supported(cfg)
+                device="cpu", quantize: str | None = None,
+                generator: torch.Generator | None = None) -> dict:
+    """Random GGUF-named params for every block family: the JAX package's
+    init_params (llm.py:1900-1976), the same numpy draws in the same order,
+    uploaded tensor by tensor so the host holds one tensor at a time
+    (values pass through f32 on the way to ``dtype``).
+
+    generator: a torch.Generator on ``device`` draws the values there
+    instead (``torch.randn``, in the same order; not the JAX package's
+    values): full-width stacks have billions of weights, minutes of numpy
+    draws. quantize "int8" or "int4" quantizes each tensor as soon as it is
+    drawn by the rules of quantize_params_int8 / int4, which are per
+    tensor: the result equals init_params then quantize_params_*, with one
+    float tensor alive at a time."""
     dev = resolve_device(device)
-    rng = np.random.default_rng(seed)
-    p: dict[str, torch.Tensor] = {}
+    rng = np.random.default_rng(seed) if generator is None else None
+    bits = {None: 0, "int8": 8, "int4": 4}[quantize]
+    p: dict = {}
+
+    def put(key, w):
+        p[key] = _quantize_one(key, w, bits) if bits else w
 
     def t(key, *shape, scale=0.05):
-        a = rng.normal(0, scale, shape).astype(np.float32)
-        p[key] = torch.from_numpy(a).to(dev).to(dtype)
+        if generator is None:
+            a = torch.from_numpy(rng.normal(0, scale, shape).astype(np.float32)).to(dev)
+        else:
+            a = torch.randn(shape, generator=generator, device=dev) * scale
+        put(key, a.to(dtype))
 
     def ones(key, *shape):
         p[key] = torch.ones(shape, dtype=dtype, device=dev)
+
+    def full(key, n, value):
+        p[key] = torch.full((n,), value, dtype=dtype, device=dev)
 
     t("token_embd.weight", cfg.vocab_size, cfg.dim)
     ones("output_norm.weight", cfg.dim)
     t("output.weight", cfg.vocab_size, cfg.dim)
     for i in range(cfg.num_blocks):
+        bc = cfg.block_cfg(i)
         pre = f"blk.{i}"
         ones(pre + ".attn_norm.weight", cfg.dim)
         ones(pre + ".ffn_norm.weight", cfg.dim)
-        qd = cfg.head_dim * cfg.n_heads * (2 if cfg.attn_output_gate else 1)
-        t(pre + ".attn_q.weight", qd, cfg.dim)
-        t(pre + ".attn_k.weight", cfg.head_dim * cfg.n_kv_heads, cfg.dim)
-        t(pre + ".attn_v.weight", cfg.head_dim * cfg.n_kv_heads, cfg.dim)
-        t(pre + ".attn_output.weight", cfg.dim, cfg.head_dim * cfg.n_heads)
-        if cfg.qkv_bias:
-            for n in ("q", "k", "v"):
-                d = qd if n == "q" else cfg.head_dim * cfg.n_kv_heads
-                p[f"{pre}.attn_{n}.bias"] = torch.zeros((d,), dtype=dtype, device=dev)
-        if cfg.qk_norm:
-            ones(pre + ".attn_q_norm.weight", cfg.qk_norm)
-            ones(pre + ".attn_k_norm.weight", cfg.qk_norm)
-        t(pre + ".ffn_gate.weight", cfg.hidden_dim, cfg.dim)
-        t(pre + ".ffn_up.weight", cfg.hidden_dim, cfg.dim)
-        t(pre + ".ffn_down.weight", cfg.dim, cfg.hidden_dim)
+        kind = cfg.block_kind(i)
+        if kind == "attn":
+            qd = bc.head_dim * bc.n_heads * (2 if bc.attn_output_gate else 1)
+            t(pre + ".attn_q.weight", qd, bc.dim)
+            t(pre + ".attn_k.weight", bc.head_dim * bc.n_kv_heads, bc.dim)
+            t(pre + ".attn_v.weight", bc.head_dim * bc.n_kv_heads, bc.dim)
+            t(pre + ".attn_output.weight", bc.dim, bc.head_dim * bc.n_heads)
+            if bc.qkv_bias:
+                for n in ("q", "k", "v"):
+                    full(f"{pre}.attn_{n}.bias",
+                         qd if n == "q" else bc.head_dim * bc.n_kv_heads, 0.0)
+            if bc.qk_norm:
+                ones(pre + ".attn_q_norm.weight", bc.qk_norm)
+                ones(pre + ".attn_k_norm.weight", bc.qk_norm)
+        elif kind == "mla":
+            nope = bc.head_dim - bc.rope_dim
+            if bc.q_lora_rank > 0:
+                t(pre + ".attn_q_a.weight", bc.q_lora_rank, bc.dim)
+                ones(pre + ".attn_q_a_norm.weight", bc.q_lora_rank)
+                t(pre + ".attn_q_b.weight", bc.n_heads * bc.head_dim, bc.q_lora_rank)
+            else:
+                t(pre + ".attn_q.weight", bc.n_heads * bc.head_dim, bc.dim)
+            t(pre + ".attn_kv_a_mqa.weight", bc.kv_lora_rank + bc.rope_dim, bc.dim)
+            ones(pre + ".attn_kv_a_norm.weight", bc.kv_lora_rank)
+            t(pre + ".attn_k_b.weight", bc.n_heads, bc.kv_lora_rank, nope)
+            t(pre + ".attn_v_b.weight", bc.n_heads, bc.v_head_dim, bc.kv_lora_rank)
+            t(pre + ".attn_output.weight", bc.dim, bc.n_heads * bc.v_head_dim)
+        else:
+            ssm = bc.ssm
+            conv_ch = ssm.inner_size + 2 * ssm.group_count * ssm.state_size
+            t(pre + ".attn_qkv.weight", conv_ch, bc.dim)
+            t(pre + ".attn_gate.weight", ssm.inner_size, bc.dim)
+            t(pre + ".ssm_alpha.weight", ssm.time_step_rank, bc.dim)
+            t(pre + ".ssm_beta.weight", ssm.time_step_rank, bc.dim)
+            t(pre + ".ssm_conv1d.weight", conv_ch, ssm.conv_kernel)
+            full(pre + ".ssm_dt.bias", ssm.time_step_rank, 0.0)
+            full(pre + ".ssm_a", ssm.time_step_rank, -0.1)
+            ones(pre + ".ssm_norm.weight", ssm.inner_size // ssm.time_step_rank)
+            t(pre + ".ssm_out.weight", bc.dim, ssm.inner_size)
+        if bc.num_experts > 0:
+            t(pre + ".ffn_gate_inp.weight", bc.num_experts, bc.dim)
+            t(pre + ".ffn_gate_exps.weight", bc.num_experts, bc.hidden_dim, bc.dim)
+            t(pre + ".ffn_up_exps.weight", bc.num_experts, bc.hidden_dim, bc.dim)
+            t(pre + ".ffn_down_exps.weight", bc.num_experts, bc.dim, bc.hidden_dim)
+            if bc.expert_bias:
+                full(pre + ".exp_probs_b.bias", bc.num_experts, 0.0)
+            if bc.shared_expert_dim > 0:
+                t(pre + ".ffn_gate_shexp.weight", bc.shared_expert_dim, bc.dim)
+                t(pre + ".ffn_up_shexp.weight", bc.shared_expert_dim, bc.dim)
+                t(pre + ".ffn_down_shexp.weight", bc.dim, bc.shared_expert_dim)
+                if bc.shared_expert_gate:
+                    t(pre + ".ffn_gate_inp_shexp.weight", bc.dim)
+        else:
+            t(pre + ".ffn_gate.weight", bc.hidden_dim, bc.dim)
+            t(pre + ".ffn_up.weight", bc.hidden_dim, bc.dim)
+            t(pre + ".ffn_down.weight", bc.dim, bc.hidden_dim)
     return p
 
 
+def _quantize_one(key: str, w, bits: int, min_dim: int = 256):
+    """One tensor by the JAX package's rules (llm.py:1983-2017): a 2-D
+    ``*.weight`` with both dims >= min_dim (``token_embd.weight`` excepted,
+    it is gathered) becomes a QuantLinear (bits 8) or QuantLinear4 (bits
+    4); a 3-D ``*_exps.weight`` expert stack a QuantExpert, int8 under
+    either; everything else (norms, biases, routers and SSM gates under
+    min_dim, MLA's 3-D attn_k_b / attn_v_b, the SSM conv and decay
+    vectors) stays as it is."""
+    if not isinstance(w, torch.Tensor):
+        return w
+    if (key.endswith(".weight") and key != "token_embd.weight" and w.dim() == 2
+            and min(w.shape) >= min_dim):
+        return quantize_int8(w) if bits == 8 else quantize_int4(w)
+    if key.endswith("_exps.weight") and w.dim() == 3:
+        return quantize_experts_int8(w)
+    return w
+
+
 def quantize_params_int8(p: dict, min_dim: int = 256) -> dict:
-    """Weight-only int8 of every large dense matmul weight (2-D ``*.weight``
-    with both dims >= min_dim, except ``token_embd.weight``, which is
-    gathered): the JAX package's skip rules, on each tensor's device."""
-    out = {}
-    for k, v in p.items():
-        if k.endswith("_exps.weight"):
-            raise NotImplementedError("MoE expert stacks are not in "
-                                      "clearcam_tpu_torch yet (ROADMAP queue 1 item 4)")
-        if (k.endswith(".weight") and k != "token_embd.weight"
-                and isinstance(v, torch.Tensor) and v.dim() == 2
-                and min(v.shape) >= min_dim):
-            out[k] = quantize_int8(v)
-        else:
-            out[k] = v
-    return out
+    """Weight-only int8 of every large dense matmul weight and every MoE
+    expert stack (``_quantize_one``), on each tensor's device."""
+    return {k: _quantize_one(k, v, 8, min_dim) for k, v in p.items()}
 
 
 def quantize_params_int4(p: dict, min_dim: int = 256) -> dict:
-    """Packed int4 (group-128 scales) in place of each int8 choice of
-    quantize_params_int8."""
-    out = quantize_params_int8(p, min_dim)
-    return {k: (quantize_int4(p[k]) if isinstance(v, QuantLinear) else v)
-            for k, v in out.items()}
+    """Packed int4 (group-128 scales) in place of each QuantLinear of
+    quantize_params_int8; expert stacks stay int8."""
+    return {k: _quantize_one(k, v, 4, min_dim) for k, v in p.items()}
 
 
 def _to_torch(a) -> torch.Tensor:
@@ -1025,9 +1410,10 @@ def _to_torch(a) -> torch.Tensor:
 
 
 def params_from_jax(params: dict, device="cpu", dtype=None) -> dict:
-    """The JAX package's params (arrays, QuantLinear, QuantLinear4) as the
-    port's: dense tensors on ``device`` (cast to ``dtype`` when given),
-    quantized weights carried across byte for byte."""
+    """The JAX package's params (arrays, QuantLinear, QuantLinear4,
+    QuantExpert) as the port's: dense tensors on ``device`` (cast to
+    ``dtype`` when given), quantized weights carried across byte for
+    byte."""
     dev = resolve_device(device)
     out = {}
     for k, v in params.items():
@@ -1039,8 +1425,7 @@ def params_from_jax(params: dict, device="cpu", dtype=None) -> dict:
             out[k] = QuantLinear4(_to_torch(v.packed), _to_torch(v.s),
                                   v.out_features, v.in_features).to(dev)
         elif kind == "QuantExpert":
-            raise NotImplementedError("MoE expert stacks are not in "
-                                      "clearcam_tpu_torch yet (ROADMAP queue 1 item 4)")
+            out[k] = QuantExpert(_to_torch(v.q), _to_torch(v.s)).to(dev)
         else:
             t = _to_torch(v).to(dev)
             out[k] = t.to(dtype) if dtype is not None and t.is_floating_point() else t
@@ -1166,7 +1551,6 @@ def load_gguf(path, max_context: int | None = None, dtype=torch.bfloat16,
     from ..io import gguf
     kv, sd = gguf.load(path)
     cfg = config_from_gguf(kv, sd, max_context)
-    check_supported(cfg)
     return cfg, convert_state_dict(sd, kv, dtype, device), kv
 
 
@@ -1204,6 +1588,26 @@ def decode_attn_impl(batched: bool, kv_quant: bool):
     return impl
 
 
+def _prefill_hidden(params, cfg: TransformerConfig, state, tokens, start_pos,
+                    n_real: int, freqs, pad_start=None):
+    """One chunk of prefill -> (pre-norm hidden [B,D] at token n_real - 1,
+    state) (clearcam_tpu/models/llm.py:871-902). Attention and MLA stacks
+    run the chunk in one forward; SSM stacks step it a token at a time,
+    and the padded steps t >= n_real are not run; with pad_start, a row's
+    recurrence advances only once the position clears its left pad. A
+    Python loop of T = 1 forwards, where the JAX package scans them inside
+    one compiled program."""
+    if cfg.ssm is None:
+        hidden, state = forward(params, cfg, state, tokens, start_pos, freqs,
+                                pad_start=pad_start)
+        return hidden[:, n_real - 1], state
+    for t in range(n_real):
+        live = None if pad_start is None else (start_pos + t) >= pad_start
+        hidden, state = forward(params, cfg, state, tokens[:, t:t + 1], start_pos + t,
+                                freqs, pad_start=pad_start, row_live=live)
+    return hidden[:, 0], state
+
+
 def make_step_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
                   kv_quant: bool = False):
     """-> (prefill, decode), the single-stream steps of ``Transformer``
@@ -1218,17 +1622,19 @@ def make_step_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
     Gumbel noise is drawn from. use_pallas_decode runs the decode step's
     attention through the single-stream decode kernel (``decode_attention``,
     or ``decode_attention_q8`` on an int8 cache with kv_quant), whose reads
-    scale with the live context; B = 1."""
-    check_supported(cfg)
+    scale with the live context; B = 1. On a hybrid stack it serves the
+    attention blocks (the JAX package's make_step_fns asserts nothing of
+    the stack)."""
     _freqs = _freqs_per_device(cfg)
     attn_impl = decode_attn_impl(False, kv_quant) if use_pallas_decode else None
 
     @torch.inference_mode()
     def prefill(params, state, tokens, start_pos, n_real, samp, gen):
         tokens = torch.as_tensor(tokens).to(params["output_norm.weight"].device)
-        hidden, state = forward(params, cfg, state, tokens, int(start_pos),
-                                _freqs(tokens.device))
-        logits = logits_at(params, cfg, hidden, int(n_real) - 1)
+        h, state = _prefill_hidden(params, cfg, state, tokens, int(start_pos),
+                                   int(n_real), _freqs(tokens.device))
+        logits = F.linear(F.rms_norm(h, params["output_norm.weight"], cfg.norm_eps),
+                          params["output.weight"])
         return sample_filtered(logits, samp, _gumbel_like(logits, gen)), state
 
     @torch.inference_mode()
@@ -1249,7 +1655,6 @@ def make_verify_fn(cfg: TransformerConfig):
     the accepted prefix are junk the caller's position bookkeeping never
     attends to (the causal mask is position-based) and later steps
     overwrite."""
-    check_supported(cfg)
     _freqs = _freqs_per_device(cfg)
 
     @torch.inference_mode()
@@ -1302,8 +1707,11 @@ def generate_batch(params, cfg: TransformerConfig, prompts: list, max_new: int,
     ``seed``, so a seeded row equals that engine request at equal batch
     width. Without, a torch.Generator seeded with ``seed`` draws it.
 
+    SSM stacks step the prompt a token at a time, each row's recurrence
+    held still over its left pads, and refuse use_pallas_decode (as the
+    JAX package asserts, llm.py:1019).
+
     Returns [B] lists of up to max_new token ids (truncated at eos_id)."""
-    check_supported(cfg)
     b_n = len(prompts)
     if min(len(p) for p in prompts) < 1:
         raise ValueError("empty prompt row: its first sample would come from a "
@@ -1315,6 +1723,9 @@ def generate_batch(params, cfg: TransformerConfig, prompts: list, max_new: int,
         raise ValueError("prompts + max_new overflow max_context")
     if seeds is not None and len(seeds) != b_n:
         raise ValueError("seeds must give one seed per prompt")
+    if use_pallas_decode and cfg.ssm is not None:
+        raise ValueError("use_pallas_decode serves attention-only stacks (as "
+                         "clearcam_tpu/models/llm.py:1019 asserts), not GatedDeltaNet ones")
     dev = params["output_norm.weight"].device
     pad = [longest - len(p) for p in prompts]
     rows = [[0] * d + list(p) for d, p in zip(pad, prompts)]
@@ -1347,14 +1758,16 @@ def generate_batch(params, cfg: TransformerConfig, prompts: list, max_new: int,
         return sample_filtered(logits, samp, noise, cnt_p, cnt_o, bias, flags=flags)
 
     state = init_state(cfg, b_n, dtype=state_dtype, kv_quant=kv_quant, device=dev)
+    all_live = None if cfg.ssm is None else torch.ones(b_n, dtype=torch.bool, device=dev)
     pos = 0
     tok = None
     while pos < longest:
         n = min(CHUNK, longest - pos)
         chunk = [r[pos:pos + n] + [0] * (CHUNK - n) for r in rows]
-        hidden, _ = forward(params, cfg, state, torch.tensor(chunk, device=dev), pos,
-                            freqs, pad_start=pads)
-        tok = sample(logits_at(params, cfg, hidden, n - 1), 0)
+        h, _ = _prefill_hidden(params, cfg, state, torch.tensor(chunk, device=dev), pos, n,
+                               freqs, pad_start=pads)
+        tok = sample(F.linear(F.rms_norm(h, params["output_norm.weight"], cfg.norm_eps),
+                              params["output.weight"]), 0)
         pos += n
     out: list = [[] for _ in range(b_n)]
     done = [False] * b_n
@@ -1372,7 +1785,7 @@ def generate_batch(params, cfg: TransformerConfig, prompts: list, max_new: int,
         if cnt_o is not None:           # the consumed token joins the histogram
             cnt_o[torch.arange(b_n, device=dev), token[:, 0]] += 1
         hidden, _ = forward(params, cfg, state, token, pos, freqs,
-                            decode_attn=attn_impl, pad_start=pads)
+                            decode_attn=attn_impl, pad_start=pads, row_live=all_live)
         tok = sample(logits_at(params, cfg, hidden, 0), gi)
         pos += 1
         gi += 1
@@ -1394,9 +1807,12 @@ class Transformer:
     def __init__(self, params: dict, cfg: TransformerConfig, seed: int = 0,
                  state_dtype=torch.float32, kv_quant: bool = False,
                  use_pallas_decode: bool = False, spec_lookup: int = 0):
-        check_supported(cfg)
         if cfg.max_context % CHUNK:
             raise ValueError("max_context must be CHUNK-aligned")
+        if spec_lookup and cfg.ssm is not None:
+            # the JAX package's Transformer turns spec off here silently
+            raise ValueError("spec_lookup needs attention or MLA blocks only: a rejected "
+                             "draft's GatedDeltaNet state update cannot be rolled back")
         self.params = params
         self.cfg = cfg
         self.state_dtype, self.kv_quant = state_dtype, kv_quant
@@ -1458,6 +1874,8 @@ class Transformer:
             if a != b:
                 break
             n += 1
+        if self.cfg.ssm is not None and n != len(self._cached_tokens):
+            return 0            # a recurrent state cannot be partly reused
         return n
 
     def generate(self, tokens: list[int], temperature: float = 0.0,

@@ -17,6 +17,8 @@ tensors across unchanged:
                 byte j holds element j (low nibble) and j + 512 (high
                 nibble); s [I_pad/128, O_pad] f32, group-major; W = q * s
                 per (group of 128 inputs, output)
+  QuantExpert   q [E, O, I] int8, s [E, O, 1] f32, unpadded; W = q * s
+                (MoE expert stacks; no kernel reads them)
 
 O is padded to 256 and I to 1024 at quantization time; symmetric scales
 (amax/127, amax/7), values rounded half to even. Semantics of
@@ -112,6 +114,31 @@ class QuantLinear4:
                             self.out_features, self.in_features)
 
 
+@dataclass
+class QuantExpert:
+    """An int8 stack of per-expert weights [E, O, I] with per-(expert,
+    output) f32 scales [E, O, 1], byte for byte the JAX package's
+    QuantExpert. The MoE feed-forward (``models.llm._moe_experts``) reads
+    the experts it routes to and widens them in plain torch: the JAX
+    package runs this as plain XLA too, with no kernel."""
+    q: torch.Tensor      # [E, O, I] int8
+    s: torch.Tensor      # [E, O, 1] f32
+
+    @property
+    def shape(self):
+        return tuple(self.q.shape)
+
+    def __getitem__(self, sel) -> torch.Tensor:
+        """The selected experts dequantized, f32 [..., O, I]."""
+        return self.q[sel].float() * self.s[sel]
+
+    def dequantize(self) -> torch.Tensor:
+        return self.q.float() * self.s
+
+    def to(self, device) -> "QuantExpert":
+        return QuantExpert(self.q.to(device), self.s.to(device))
+
+
 def _pad_to(x: torch.Tensor, m: int, dim: int) -> torch.Tensor:
     pad = (-x.shape[dim]) % m
     if pad == 0:
@@ -155,6 +182,16 @@ def quantize_int4(w: torch.Tensor) -> QuantLinear4:
     lo, hi = q[..., :TI // 2], q[..., TI // 2:]
     packed = ((hi << 4) | (lo & 0xF)).to(torch.int8).reshape(o_pad, i_pad // 2)
     return QuantLinear4(packed.contiguous(), s[..., 0].T.contiguous(), o, i)
+
+
+def quantize_experts_int8(w: torch.Tensor) -> QuantExpert:
+    """Symmetric per-(expert, output) int8 of an [E, O, I] stack, on w's
+    device, rounded half to even as ``jnp.round``."""
+    w = w.float()
+    amax = w.abs().amax(2, keepdim=True)                           # [E, O, 1]
+    s = torch.where(amax > 0, true_div(amax, 127.0), torch.ones_like(amax))
+    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    return QuantExpert(q.contiguous(), s.contiguous())
 
 
 def quant_linear_reference(x, w, b=None):

@@ -39,7 +39,9 @@ state is preallocated and written in place (no donation); the scheduler
 thread sets its CUDA device before its first launch; ``kv_quant`` with
 ``use_pallas_decode`` runs the int8 decode kernel with the cache's scales
 (the JAX engine's graphs drop them); ``spec_lookup`` with
-``use_pallas_decode`` raises where the JAX engine turns spec off.
+``use_pallas_decode`` or on a GatedDeltaNet (SSM) stack raises where the
+JAX engine turns spec off. SSM stacks serve without prefix reuse, as in
+the JAX engine (a recurrent state cannot be reused in part).
 """
 from __future__ import annotations
 
@@ -183,9 +185,8 @@ class ServingEngine:
                  constraints: dict | None = None, constraint_rows: int = 0,
                  device=None):
         assert cfg.max_context % llm.CHUNK == 0
-        llm.check_supported(cfg)
         # device-drafted (G+1)-token verify windows, 1..G+1 tokens a dispatch;
-        # make_serving_fns refuses them with use_pallas_decode
+        # make_serving_fns refuses them with use_pallas_decode or SSM blocks
         self.spec = int(spec_lookup)
         self.params = params
         self.cfg = cfg
@@ -193,7 +194,9 @@ class ServingEngine:
             params["output_norm.weight"].device
         self.n_slots = n_slots
         self.sync_lag = sync_lag
-        self.prefix_cache = prefix_cache
+        # prefix reuse needs the recurrent state at the reuse boundary, which
+        # no position-addressed cache holds: attention and MLA stacks only
+        self.prefix_cache = prefix_cache and cfg.ssm is None
         dev = self.device
         with torch.inference_mode():
             # grammar constraints: every registered automaton packs into ONE

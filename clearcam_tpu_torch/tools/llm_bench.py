@@ -2,9 +2,11 @@
 the port's LLM paths, the counterpart of ``clearcam_tpu.tools.llm_bench``
 with its flags and JSON keys.
 
-The model has Qwen/Qwen3-1.7B's published widths (``models.llm.qwen3_2b_cfg``)
-and random bf16 weights from seed 0 (throughput depends on the shapes,
-not the values). One JSON line per measurement:
+The model has Qwen/Qwen3-1.7B's published widths (``models.llm.qwen3_2b_cfg``),
+or with ``--ssm`` the JAX tool's Qwen3-Next-class GatedDeltaNet hybrid
+(``models.llm.qwen3_next_cfg``), and random bf16 weights from seed 0
+(throughput depends on the shapes, not the values). One JSON line per
+measurement:
 
   * ``--modes`` (``bench_mode``): chunked-prefill tokens/s up to ctx-64 and
     single-stream decode tokens/s per mode, '+'-joined flags: bf16, int8 or
@@ -104,9 +106,9 @@ def bench_batched(cfg, params, batches, steps: int, pos: int = 256,
     attn_impl = llm.decode_attn_impl(True, False) if pallas else None
 
     @torch.inference_mode()
-    def decode(state, token, start_pos, pads):
+    def decode(state, token, start_pos, pads, live):
         hidden, state = llm.forward(params, cfg, state, token, start_pos, freqs,
-                                    pad_start=pads, decode_attn=attn_impl)
+                                    pad_start=pads, decode_attn=attn_impl, row_live=live)
         return torch.argmax(llm.logits_at(params, cfg, hidden, 0), -1), state
 
     out = []
@@ -114,11 +116,13 @@ def bench_batched(cfg, params, batches, steps: int, pos: int = 256,
         state = llm.init_state(cfg, batch=b, dtype=torch.bfloat16, device=dev)
         tok = torch.zeros((b, 1), dtype=torch.int64, device=dev)
         pads = torch.zeros((b,), dtype=torch.int32, device=dev)
-        decode(state, tok, pos, pads)
+        # a hybrid's recurrences step every row (no pads in the ladder)
+        live = None if cfg.ssm is None else torch.ones(b, dtype=torch.bool, device=dev)
+        decode(state, tok, pos, pads, live)
         _sync(dev)
         t0 = time.perf_counter()
         for i in range(steps):
-            decode(state, tok, pos + i, pads)
+            decode(state, tok, pos + i, pads, live)
         _sync(dev)
         dt = time.perf_counter() - t0
         r = {"batch": b, "pos": pos, "pallas": pallas,
@@ -273,17 +277,17 @@ def main(argv=None):
     ap.add_argument("--score", type=int, default=0,
                     help="teacher-forced scoring tokens/s over an N-token prompt")
     ap.add_argument("--ssm", action="store_true",
-                    help="the Qwen3-Next-class GatedDeltaNet hybrid (not in the port)")
+                    help="the Qwen3-Next-class hybrid (GatedDeltaNet + every-4th-block "
+                         "attention) instead of the dense config; --serving keeps its "
+                         "weights bf16")
     ap.add_argument("--no-prefill-batch", action="store_true",
                     help="with --serving: one prefill_slot call per slot and chunk")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a GPU) or cpu")
     args = ap.parse_args(argv)
-    if args.ssm:
-        raise NotImplementedError("--ssm: GatedDeltaNet hybrids are not in "
-                                  "clearcam_tpu_torch yet (ROADMAP queue 1 item 4)")
     dev = resolve_device(args.device)
-    cfg = llm.qwen3_2b_cfg(args.blocks, args.ctx)
+    cfg = (llm.qwen3_next_cfg(args.blocks, args.ctx) if args.ssm
+           else llm.qwen3_2b_cfg(args.blocks, args.ctx))
     params = llm.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     n_params = sum(v.numel() for v in params.values())
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -293,7 +297,9 @@ def main(argv=None):
         if args.score:
             return bench_score(cfg, params, args.score)
         if args.serving:
-            return bench_serving(cfg, llm.quantize_params_int8(params), args.slots,
+            # as the JAX tool: the hybrid serves its bf16 weights
+            return bench_serving(cfg, params if args.ssm else
+                                 llm.quantize_params_int8(params), args.slots,
                                  args.requests, args.prompt_len, args.max_new,
                                  pallas=args.pallas, shared_prefix=args.shared_prefix,
                                  prefix_cache=not args.no_prefix_cache,

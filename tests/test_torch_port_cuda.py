@@ -7,6 +7,8 @@ machine without jax it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -794,6 +796,35 @@ def test_engine_kv_quant_decode_kernel_gpu_matches_cpu(cuda):
         outs[dev, pallas] = [r.wait(1) for r in reqs]
     assert outs["cpu", True] == outs["cuda", True] == outs["cuda", False]
     assert tdec.decode_attention_batch_q8.launches > before
+
+
+@pytest.mark.parametrize("family", ["moe", "hybrid"])
+def test_moe_and_hybrid_engines_gpu_match_cpu(cuda, family):
+    """A tiny MoE stack (through the decode kernel) and a tiny
+    GatedDeltaNet hybrid, int8 weights, on the card: the CPU engine's
+    greedy tokens, with the quant kernel launched (the expert stacks are
+    plain torch, the other products the kernel)."""
+    from clearcam_tpu_torch.ops import decode_attention as tdec
+    from clearcam_tpu_torch.ops import quant_matmul as tqm
+    from clearcam_tpu_torch.serving import ServingEngine
+    extra = (dict(num_experts=8, num_experts_per_tok=2, norm_topk_prob=True,
+                  hidden_dim=256, shared_expert_dim=256) if family == "moe" else
+             dict(full_attention_interval=2, ssm=tllm.SSMConfig(
+                 conv_kernel=4, state_size=64, group_count=2, time_step_rank=4,
+                 inner_size=256)))
+    cfg = dataclasses.replace(_small_llm_cfg(), **extra)
+    prompts = [[1, 2, 3, 4, 5], list(range(10, 50)), [7, 7, 7]]
+    outs = {}
+    before = (tqm.quant_linear.launches, tdec.decode_attention_batch.launches)
+    for dev in ("cpu", "cuda"):
+        p = tllm.quantize_params_int8(tllm.init_params(cfg, seed=5, device=dev))
+        eng = ServingEngine(p, cfg, n_slots=2, use_pallas_decode=family == "moe")
+        reqs = [eng.submit(pr, max_new=6) for pr in prompts]
+        eng.run_until_idle()
+        outs[dev] = [r.wait(1) for r in reqs]
+    assert outs["cpu"] == outs["cuda"]
+    assert tqm.quant_linear.launches > before[0]
+    assert (tdec.decode_attention_batch.launches > before[1]) == (family == "moe")
 
 
 def test_spec_engine_gpu_matches_cpu(cuda):

@@ -1,7 +1,8 @@
 """The port's LLM (clearcam_tpu_torch.models.llm) against the JAX package's,
 on the CPU at tiny widths: init_params, forward and logits over the dense
 variants, the GGUF path, the scorer, and sampling fed the same Gumbel
-noise. Serving is in test_torch_port_serving.py.
+noise. Serving is in test_torch_port_serving.py; the MoE, MLA and
+GatedDeltaNet stacks are in test_torch_port_llm_families.py.
 """
 from dataclasses import asdict
 
@@ -261,18 +262,3 @@ def test_row_noise_depends_on_seed_and_index_only():
     assert torch.equal(both[1], tllm.row_noise(5, [7, 12], [9, 0], V, "cpu")[1])
     assert not torch.equal(both[0], tllm.row_noise(5, [11], [4], V, "cpu")[0])
     assert not torch.equal(both[0], tllm.row_noise(6, [11], [3], V, "cpu")[0])
-
-
-@pytest.mark.parametrize("kw", [
-    dict(num_experts=4, num_experts_per_tok=2),
-    dict(kv_lora_rank=16, q_lora_rank=24, head_dim=12, rope_dim=4, v_head_dim=12),
-    dict(ssm=jllm.SSMConfig(conv_kernel=4, state_size=8, group_count=2,
-                            time_step_rank=4, inner_size=32),
-         full_attention_interval=2),
-])
-def test_other_block_families_raise(kw):
-    cfg = port_cfg(tiny_cfg(**kw))
-    for fn in (lambda: tllm.init_params(cfg), lambda: tllm.init_state(cfg),
-               lambda: tllm.make_serving_fns(cfg)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-            fn()

@@ -17,7 +17,8 @@ from clearcam_tpu_torch.testing import torch_threads
 from clearcam_tpu_torch.tools import llm_bench as tbench
 
 from test_llm import tiny_cfg
-from test_torch_port_serving import port_cfg
+from test_torch_port_llm import port_cfg
+from test_torch_port_llm_families import NEXT
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -92,8 +93,11 @@ def test_main_runs_modes_and_the_ladder_on_cpu(monkeypatch, capsys):
     assert [r.get("batch", r.get("mode")) for r in out] == [1, 2, "bf16", "int8+kv8+pallas"]
     text = capsys.readouterr().out
     assert text.startswith("# 1 blocks") and "device cpu" in text.splitlines()[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        tbench.main(["--device", "cpu", "--ssm"])
+    # --ssm: the hybrid from qwen3_next_cfg (here a tiny one, one block of each kind)
+    monkeypatch.setattr(tllm, "qwen3_next_cfg", lambda blocks, ctx: port_cfg(NEXT))
+    out = tbench.main(["--device", "cpu", "--ssm", "--blocks", "2", "--ctx", "256",
+                       "--steps", "2", "--modes", "bf16"])
+    assert [r["mode"] for r in out] == ["bf16"] and out[0]["decode_tok_s"] > 0
 
 
 def test_main_without_a_card_raises(monkeypatch):

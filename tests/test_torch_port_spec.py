@@ -1,9 +1,9 @@
 """Speculative serving in the port's engine (``ServingEngine(spec_lookup=G)``,
 ``llm.make_serving_fns(spec_lookup=G)``) against the JAX package's, on the
 CPU at tiny widths, f32, greedy: one case for each case of
-tests/test_serving_spec.py that the port runs (MLA waits for ROADMAP
-queue 1 item 4). Every request's tokens equal the JAX spec engine's and its
-solo generation; the draft lookup equals the JAX function on random
+tests/test_serving_spec.py (MLA's is in test_torch_port_serving_families.py).
+Every request's tokens equal the JAX spec engine's and its solo
+generation; the draft lookup equals the JAX function on random
 histories.
 """
 import dataclasses
@@ -218,16 +218,16 @@ def test_spec_max_new_mid_window():
 
 
 def test_spec_refused_for_ssm_and_the_decode_kernel():
-    """SSM stacks are refused by the port as a whole (the JAX engine turns
-    spec off on them); spec with use_pallas_decode raises where the JAX
-    engine turns spec off, since a window has G+1 queries and the decode
-    kernels take one; constraints, logprobs and seeds raise as in the
-    reference."""
+    """Spec on an SSM stack raises where the JAX engine turns spec off (a
+    rejected draft's recurrent update cannot be rolled back); spec with
+    use_pallas_decode raises where the JAX engine turns spec off, since a
+    window has G+1 queries and the decode kernels take one; constraints,
+    logprobs and seeds raise as in the reference."""
     ssm = tllm.SSMConfig(conv_kernel=3, state_size=8, group_count=2, time_step_rank=4,
                          inner_size=32)
     scfg = dataclasses.replace(port_cfg(tiny_cfg(full_attention_interval=2, qk_norm=8)),
                                ssm=ssm)
-    with pytest.raises(NotImplementedError, match="GatedDeltaNet"):
+    with pytest.raises(ValueError, match="GatedDeltaNet state update cannot be rolled back"):
         tllm.make_serving_fns(scfg, spec_lookup=4)
     cfg, _, tp = _pair(96)
     with pytest.raises(ValueError, match="use_pallas_decode"):
