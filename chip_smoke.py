@@ -5,8 +5,10 @@ Drives clearcam_tpu_torch's paths, the NVR detect tick (YOLOv9-t, res
 image and text towers, BlazeFace and AdaFace IR-50, random weights from
 seed 0), the LLM serving daemon (Qwen3-1.7B widths, random weights from
 seed 0, int8 and int4) and the NVR's Qwen3-VL alert summaries (Qwen3-VL-2B
-widths, random weights from seed 0), speculative serving and the
-FMA-rate probe, and the hand-written kernels (stem, ViT attention,
+widths, random weights from seed 0), speculative serving, the FMA-rate
+probe, RF-DETR nano with the MOT and evaluation tools, the measurement
+tools (latency_probe, clip_bench, clip_probe, cotenancy_bench), and the
+hand-written kernels (stem, ViT attention,
 quant-matmul, decode attention in its batched, single-stream and
 int8-cache forms, the probe) on the card. Every phase raises on failure,
 so the script exits non-zero:
@@ -144,6 +146,22 @@ so the script exits non-zero:
      latent caches; the hybrid plain); (c) `python -m
      clearcam_tpu_torch.tools.llm_bench --ssm --blocks 8 --ctx 512 --modes
      int8 --decode-batch 1,8 --steps 16`, its JSON lines
+ 16  RF-DETR and the tools: (a) RF-DETR nano at its published widths (res
+     384, 12 ViT blocks of 192, 300 queries), 4 random 1080p frames, f32,
+     card vs CPU: the proposal index sets equal (a set may differ only at a
+     near tie of the 300th score, in one frame at most), logits and boxes
+     max|d| <= 2e-3 in location order, detect rows under testing's rule;
+     RFDETR.detect_many frames/s at batch 1 and 8, and at 8 one step's
+     kernels and kernel time (torch.profiler); (b) tools/mot.run_mot on a
+     60-frame synthetic 1080p clip through the YOLOv9-t BatchDetector and
+     RF-DETR: every frame out, the stem kernel launched on the yolo route;
+     (c) tools/evaluate.main on 8 synthetic YOLO-format images through both
+     detectors, the AP dict; (d) `python -m clearcam_tpu_torch.tools.X` for
+     latency_probe (its five stages), clip_bench --batches 1,16,64,
+     clip_probe --batches 16 (the attention kernel launched under
+     full_flash and nowhere else) and cotenancy_bench --streams 16 --ticks
+     80 --quant int8 (both ladders and the overhead line; the stem, ViT
+     attention and quant-matmul kernels launched)
 
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on a served path (phases 4, 9, 12
@@ -204,7 +222,7 @@ ATTN_TIMED = [(1, 257, "float32"), (16, 257, "float32"), (64, 257, "float32"),
               (16, 257, "bfloat16"), (1, 2040, "float32")]
 TOWER_COS = 1 - 1e-5                # towers, GPU vs CPU, cosine per row
 # BPE merges for the server's tokenizer: the real vocab is not in the repo
-ALL_PHASES = tuple(range(16))
+ALL_PHASES = tuple(range(17))
 MERGES = [("h", "e"), ("l", "l"), ("he", "ll"), ("hell", "o</w>"),
           ("w", "o"), ("r", "l"), ("wo", "rl"), ("worl", "d</w>")]
 
@@ -2620,6 +2638,232 @@ def phase9():
     return launches, result
 
 
+# ---------------------------------------------------------------------------
+# RF-DETR, the MOT and evaluation tools, and the measurement tools
+# ---------------------------------------------------------------------------
+
+# RF-DETR nano card vs CPU, f32 with TF32 off, max |d| of the forward's
+# logits and boxes; a proposal set may differ only where the CPU's scores of
+# the swapped locations sit within RF_TIE of the 300th score (a near tie)
+RF_TOL, RF_TIE = 2e-3, 1e-5
+# the frames a proposal near tie may reorder, of the 4
+RF_MAX_SWAPPED = 1
+
+
+def _rf_proposals(rfdetr, p, x, cfg):
+    """The two-stage head's (scores [B, N], top-Q indices [B, Q])."""
+    taps, hw = rfdetr.backbone_forward(p, x, cfg)
+    scores, top, _ = rfdetr.proposals(p, rfdetr.projector_forward(p, taps, hw, cfg), cfg)
+    return scores.cpu(), top.cpu()
+
+
+def _phase16_rfdetr(torch) -> dict:
+    """(a) RF-DETR nano at its published widths on the card."""
+    from clearcam_tpu_torch.models import rfdetr
+    from clearcam_tpu_torch.testing import compared_rows, detection_mismatches
+    cfg = rfdetr.VARIANTS["nano"]
+    params = rfdetr.init_params(cfg, seed=0)
+    p_cpu = rfdetr.params_from_jax(params, "cpu")
+    p_gpu = rfdetr.params_from_jax(params, "cuda")
+    frames = np.random.default_rng(0).integers(0, 256, (4, 1080, 1920, 3), np.uint8)
+    out = {}
+    with torch.inference_mode():
+        x_cpu = rfdetr.preprocess(torch.from_numpy(frames), cfg.resolution)
+        x_gpu = rfdetr.preprocess(torch.from_numpy(frames).cuda(), cfg.resolution)
+        log(f"RF-DETR nano: letterbox 1080p -> {list(x_gpu.shape)} (square canvas), "
+            f"preprocess card vs CPU max|d| {(x_gpu.cpu() - x_cpu).abs().max().item():.2e}")
+        rl, rb = rfdetr.forward(p_cpu, x_cpu, cfg)
+        gl, gb = (t.cpu() for t in rfdetr.forward(p_gpu, x_gpu, cfg))
+        scores, rt = _rf_proposals(rfdetr, p_cpu, x_cpu, cfg)
+        _, gt = _rf_proposals(rfdetr, p_gpu, x_gpu, cfg)
+        same = []
+        for i in range(len(frames)):
+            a, b = set(rt[i].tolist()), set(gt[i].tolist())
+            if a == b:
+                same.append(i)
+                continue
+            kth = scores[i].sort(descending=True).values[cfg.num_queries - 1].item()
+            gaps = [abs(scores[i, j].item() - kth) for j in a ^ b]
+            log(f"frame {i}: proposal sets differ in {len(a ^ b)} locations, CPU scores "
+                f"{max(gaps):.2e} from the 300th at most")
+            if max(gaps) > RF_TIE:
+                raise AssertionError(f"RF-DETR proposals, frame {i}: not a near tie ({gaps})")
+        if len(frames) - len(same) > RF_MAX_SWAPPED:
+            raise AssertionError(f"RF-DETR proposals differ in {len(frames) - len(same)} "
+                                 f"of {len(frames)} frames")
+        # rows in location order, so a reordered near tie compares like with like
+        errs = []
+        for i in same:
+            ro, go = rt[i].argsort(), gt[i].argsort()
+            errs += [(gl[i, go] - rl[i, ro]).abs().max().item(),
+                     (gb[i, go] - rb[i, ro]).abs().max().item()]
+        err = max(errs)
+        log(f"RF-DETR nano forward, 4 frames, f32, card vs CPU: proposal index sets equal in "
+            f"{len(same)} of 4 ({sum(torch.equal(rt[i], gt[i]) for i in same)} in the same "
+            f"order); logits and boxes max|d| {err:.2e} (bound {RF_TOL})")
+        if not err <= RF_TOL:
+            raise AssertionError(f"RF-DETR forward card vs CPU: max|d| {err}")
+        out["max_abs_err"] = err
+        d_cpu = rfdetr.detect(p_cpu, torch.from_numpy(frames), cfg=cfg,
+                              conf_threshold=0.0).numpy()[same]
+        d_gpu = rfdetr.detect(p_gpu, torch.from_numpy(frames).cuda(), cfg=cfg,
+                              conf_threshold=0.0).cpu().numpy()[same]
+        bad = detection_mismatches(d_cpu, d_gpu, conf_threshold=0.0)
+        if bad:
+            raise AssertionError("RF-DETR detect card vs CPU:\n" + "\n".join(bad[:20]))
+        log(f"RF-DETR detect card vs CPU (threshold 0): rows agree "
+            f"({compared_rows(d_cpu, conf_threshold=0.0)} clear of ties compared)")
+
+        det = rfdetr.RFDETR("nano", params=params, device="cuda")
+        for b in (1, 8):
+            host = list(np.random.default_rng(b).integers(0, 256, (b, 1080, 1920, 3),
+                                                          np.uint8))
+            det.detect_many(host)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                rows = det.detect_many(host)
+            e2e = (time.perf_counter() - t0) / 5
+            if not all(r.shape == (300, 6) and np.isfinite(r).all() for r in rows):
+                raise AssertionError("RF-DETR detect_many rows not finite [300, 6]")
+            fb = torch.from_numpy(np.stack(host)).cuda()
+            step = lambda: rfdetr.detect(det.params, fb, cfg=cfg)      # noqa: E731
+            ms = cuda_ms(step, iters=10, warmup=2)
+            out[b] = {"detect_many_fps": b / e2e, "step_ms": ms}
+            msg = (f"RF-DETR nano f32 batch {b}: detect_many (numpy in, rows out) "
+                   f"{e2e * 1e3:.2f} ms = {b / e2e:.1f} frames/s; one step on resident "
+                   f"frames {ms:.3f} ms")
+            if b == 8:
+                n, kms, _ = _kernels(torch, step, ())
+                out[b].update(kernels=n, kernel_ms=kms, busy=kms / ms)
+                msg += (f"; under torch.profiler (CUDA rows): {n} kernels, {kms:.3f} ms of "
+                        f"kernel time = {kms / ms:.1%} of the step")
+            log(msg)
+    return out
+
+
+def _synthetic_clip(path: Path, n_frames: int = 60):
+    """A 1080p mp4 of three coloured boxes moving over noise."""
+    import cv2
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 30, (1920, 1080))
+    base = np.random.default_rng(1).integers(0, 60, (1080, 1920, 3), np.uint8)
+    for t in range(n_frames):
+        f = base.copy()
+        for k, colour in enumerate(((40, 180, 240), (240, 40, 180), (180, 240, 40))):
+            x, y = 100 + 400 * k + 12 * t, 200 + 250 * k
+            f[y:y + 360, x:x + 180] = colour
+        vw.write(f)
+    vw.release()
+
+
+def _synthetic_dataset(root: Path, n: int = 8):
+    """YOLO-format images/ + labels/: one bright box per 640x480 image."""
+    import cv2
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(n):
+        img = rng.integers(0, 60, (480, 640, 3), np.uint8)
+        cx, cy, w, h = 0.3 + 0.05 * i, 0.5, 0.25, 0.5
+        img[int((cy - h / 2) * 480):int((cy + h / 2) * 480),
+            int((cx - w / 2) * 640):int((cx + w / 2) * 640)] = (40, 180, 240)
+        cv2.imwrite(str(root / "images" / f"im{i}.jpg"), img)
+        (root / "labels" / f"im{i}.txt").write_text(f"0 {cx} {cy} {w} {h}\n")
+
+
+def _tool(args: list, timeout: int) -> tuple:
+    """``python -m clearcam_tpu_torch.tools.<args>`` as a user runs it ->
+    (its JSON lines, its ``# launches`` counts or None, its stdout)."""
+    proc = subprocess.run([sys.executable, "-m", f"clearcam_tpu_torch.tools.{args[0]}",
+                           *args[1:]], capture_output=True, text=True, timeout=timeout,
+                          cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(PKG_ROOT)))
+    if proc.returncode != 0:
+        raise AssertionError(f"{args[0]}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    for x in proc.stdout.splitlines():
+        log(f"  {args[0]}| {x}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    m = re.search(r"^# launches (\{.*\})$", proc.stdout, re.M)
+    return lines, (json.loads(m.group(1)) if m else None), proc.stdout
+
+
+def phase16(torch):
+    log("== phase 16: RF-DETR nano card vs CPU and its rate; tools/mot and tools/evaluate "
+        "through both detectors; latency_probe, clip_bench, clip_probe, cotenancy_bench")
+    from clearcam_tpu_torch.ops.stem import stem
+    from clearcam_tpu_torch.tools import evaluate, mot
+    t0 = time.time()
+    out = {"rfdetr": _phase16_rfdetr(torch)}
+    log(f"(a) RF-DETR: {time.time() - t0:.1f} s")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mot_"))
+    try:
+        # (b) run_mot through each detector, (c) evaluate.main through each
+        t1 = time.time()
+        _synthetic_clip(tmp / "clip.mp4")
+        _synthetic_dataset(tmp / "ds")
+        for kind in ("yolo", "rfdetr"):
+            stem.launches = 0
+            count, frames = mot.run_mot(str(tmp / "clip.mp4"), size="t", res=640,
+                                        weights_dir=str(tmp / "none"), detector_kind=kind)
+            n_stem = stem.launches
+            if len(frames) != 60:
+                raise AssertionError(f"run_mot {kind}: {len(frames)} of 60 frames came out")
+            if kind == "yolo" and n_stem < 60:
+                raise AssertionError(f"run_mot yolo launched the stem kernel {n_stem} times")
+            log(f"run_mot --detector {kind} (random weights): {len(frames)} frames, "
+                f"{sum(len(f) for f in frames)} live tracks over them, {count} unique "
+                f"persons; stem launches {n_stem}")
+            out[f"mot_{kind}"] = count
+            stem.launches = 0
+            ap = evaluate.main([str(tmp / "ds"), "--detector", kind, "--res", "640",
+                                "--weights", str(tmp / "none")])
+            n_stem = stem.launches
+            if ap.keys() != {"mAP50", "mAP50-95", "classes"} or set(ap["classes"]) != {0}:
+                raise AssertionError(f"evaluate {kind}: {ap}")
+            if kind == "yolo" and n_stem < 8:
+                raise AssertionError(f"evaluate yolo launched the stem kernel {n_stem} times")
+            log(f"evaluate --detector {kind} on 8 synthetic images (random weights): {ap}; "
+                f"stem launches {n_stem}")
+            out[f"evaluate_{kind}"] = ap
+        log(f"(b, c) MOT and evaluate: {time.time() - t1:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) the tools as users run them, each a process of its own (its kernel
+    # counts start at 0 and it prints them)
+    t1 = time.time()
+    lines, n, _ = _tool(["latency_probe"], 300)
+    stages = [x["stage"] for x in lines]
+    if stages != ["http_overhead", "device_step", "dispatch_sync", "upload_1080p",
+                  "e2e_single"] or not all(x["p50_ms"] >= 0 for x in lines) \
+            or not (n and n["stem"] >= 50):
+        raise AssertionError(f"latency_probe: {lines} {n}")
+    out["latency"] = {x["stage"]: x for x in lines}
+    lines, n, _ = _tool(["clip_bench", "--batches", "1,16,64"], 300)
+    if [x["batch"] for x in lines] != [1, 16, 64] or not (n and n["vit_attention"] > 0):
+        raise AssertionError(f"clip_bench: {lines} {n}")
+    out["clip_bench"] = lines
+    lines, _, text = _tool(["clip_probe", "--batches", "16"], 300)
+    launches = {k: int(v) for k, v in re.findall(
+        r"^# (\w+): vit_attention launches (\d+)$", text, re.M)}
+    if [x["stage"] for x in lines] != list(launches) or launches.pop("full_flash") < 1 \
+            or any(launches.values()):
+        raise AssertionError(f"clip_probe: the kernel must launch under full_flash only: "
+                             f"{text[-2000:]}")
+    out["clip_probe"] = lines
+    lines, n, _ = _tool(["cotenancy_bench", "--streams", "16", "--ticks", "80",
+                         "--quant", "int8"], 600)
+    final = lines[-1] if lines else {}
+    if final.get("metric") != "cotenancy_detect_p50_overhead_ms" \
+            or not final["full"]["summaries_done"] > 0 \
+            or not (n and all(n[k] > 0 for k in ("stem", "vit_attention", "quant_matmul"))):
+        raise AssertionError(f"cotenancy_bench: {lines} {n}")
+    log(f"co-tenancy: detect p50 +{final['value']} ms beside CLIP, faces and summaries "
+        f"({final['full']['summary_tok_s']} summary tokens/s); launches {n}")
+    out["cotenancy"] = {**final, "launches": n}
+    log(f"(d) the four tools: {time.time() - t1:.1f} s")
+    return out
+
+
 def _json_prefix(text: str) -> bool:
     """True when ``text`` is a prefix of some JSON object."""
     for end in ("", "}", "\"}", "\":0}", "0}", "]}", "\"]}", "}}", "\"}}", "]}}", "\"]}}"):
@@ -2660,7 +2904,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     build_s = max_err = times = fps = launches = attn_err = attn_times = clip_fps = None
     kern = llm_errs = llm_tps = int4_launches = served = k10 = vl_errs = vlm = None
-    probe = spec = fam = None
+    probe = spec = fam = tools = None
     phase_s = {}
 
     def run(n, fn, *a):
@@ -2701,6 +2945,8 @@ def main(argv=None) -> int:
         spec = run(14, phase14, torch)
     if 15 in phases:
         fam = run(15, phase15, torch)
+    if 16 in phases:
+        tools = run(16, phase16, torch)
     log(f"== done in {time.time() - t0:.1f} s (phases {phase_s}); build {build_s} s; detect "
         f"fps {fps}; image tower img/s (kernel, plain) {clip_fps}; 28-block int4 engine "
         f"decode tokens/s (kernel: True, plain: False) {llm_tps}; summaries "
@@ -2718,6 +2964,8 @@ def main(argv=None) -> int:
             "engines": {f"{f}, {r}": v for (f, r), v in fam["engine"].items()},
             "prefill_chunk_ms": fam["prefill_chunk_ms"],
             "llm_bench_ssm": fam["llm_bench_ssm"]}}))
+    if tools is not None:
+        print(json.dumps({"rfdetr_and_tools": tools}, default=str))
     if phases != set(ALL_PHASES):
         return 0
     # the attention row: f32, the CLIP tower's dtype; times at one CROP_BATCH.

@@ -887,3 +887,104 @@ def test_vpu_probe_kernel_raises_on_bad_input(cuda):
         tvp.probe(torch.ones((128, 8), device=cuda).t(), 8)
     with pytest.raises(ValueError, match="multiple of 8"):
         tvp.probe(x, 12)
+
+
+# ---------------------------------------------------------------------------
+# RF-DETR and the measurement, MOT and evaluation tools on the card
+# ---------------------------------------------------------------------------
+
+# tests/test_rfdetr.py's TINY config (that file imports jax)
+RF_TINY = dict(resolution=64, patch_size=16, vit_dim=32, vit_depth=4, vit_heads=2,
+               num_windows=2, global_blocks=(1, 3), out_blocks=(1, 3), d_model=32,
+               num_queries=12, dec_layers=2, sa_heads=4, ca_heads=4, ca_points=4,
+               mlp_ratio=2, projector_n=1)
+
+
+def test_rfdetr_tiny_gpu_matches_cpu(cuda):
+    """f32, TF32 off: logits and boxes within the forward's CPU bound, the
+    proposal indices equal, detect rows under testing's rule."""
+    from clearcam_tpu_torch.models import rfdetr
+    from clearcam_tpu_torch.testing import detection_mismatches
+    cfg = rfdetr.RFDETRConfig(**RF_TINY)
+    params = rfdetr.init_params(cfg, seed=0)
+    cpu, gpu = rfdetr.params_from_jax(params), rfdetr.params_from_jax(params, cuda)
+    x = np.random.default_rng(4).normal(size=(2, 64, 64, 3)).astype(np.float32)
+    def run(p, xx):
+        taps, hw = rfdetr.backbone_forward(p, xx, cfg)
+        _, top, _ = rfdetr.proposals(p, rfdetr.projector_forward(p, taps, hw, cfg), cfg)
+        return (*rfdetr.forward(p, xx, cfg), top)
+
+    with torch.inference_mode():
+        rl, rb, rt = run(cpu, torch.from_numpy(x))
+        gl, gb, gt = run(gpu, torch.from_numpy(x).to(cuda))
+    assert (gl.cpu() - rl).abs().max().item() <= 1e-4
+    assert (gb.cpu() - rb).abs().max().item() <= 1e-4
+    assert torch.equal(gt.cpu(), rt)
+    frames = np.random.default_rng(8).integers(0, 255, (2, 96, 128, 3), np.uint8)
+    ref = rfdetr.RFDETR(cfg, params, conf_threshold=0.0, device="cpu")(frames)
+    got = rfdetr.RFDETR(cfg, params, conf_threshold=0.0)(frames)
+    assert got.device.type == "cuda"
+    assert detection_mismatches(ref.numpy(), got.cpu().numpy(), conf_threshold=0.0) == []
+
+
+@pytest.fixture
+def one_block_clip(monkeypatch):
+    """The tools' CLIP tower cut to one block (the kernel route is the same
+    at any depth)."""
+    import functools
+    monkeypatch.setattr(clip, "init_params",
+                        functools.partial(clip.init_params, img_blocks=1, txt_blocks=0))
+
+
+def test_latency_probe_main_on_the_card(cuda):
+    from clearcam_tpu_torch.ops import stem as stem_ops
+    from clearcam_tpu_torch.tools import latency_probe
+    n0 = stem_ops.stem.launches
+    rows = latency_probe.main(["--reps", "2"])
+    assert [r["stage"] for r in rows] == ["http_overhead", "device_step", "dispatch_sync",
+                                          "upload_1080p", "e2e_single"]
+    assert all(r["p50_ms"] > 0 for r in rows[1:])
+    assert stem_ops.stem.launches - n0 >= 50
+
+
+def test_clip_tools_main_on_the_card(cuda, one_block_clip):
+    from clearcam_tpu_torch.tools import clip_bench, clip_probe
+    n0 = tattn.mha_flash.launches
+    rows = clip_bench.main(["--batches", "1,2", "--steps", "1"])
+    assert [r["batch"] for r in rows] == [1, 2] and tattn.mha_flash.launches > n0
+    rows = clip_probe.main(["--batches", "2", "--steps", "1"])
+    launches = {r["stage"]: r["launches"] for r in rows}
+    assert launches.pop("full_flash") > 0 and set(launches.values()) == {0}
+
+
+def test_cotenancy_bench_main_on_the_card(cuda, one_block_clip):
+    from clearcam_tpu_torch.tools import cotenancy_bench
+    final, launches = cotenancy_bench.main(
+        "--blocks 2 --ctx 256 --streams 2 --ticks 12 --crops 1 --vlm-res 64 "
+        "--quant int8".split())
+    assert final["full"]["summaries_done"] > 0
+    assert all(launches[k] > 0 for k in ("stem", "vit_attention", "quant_matmul"))
+
+
+@pytest.mark.parametrize("detector", ["yolo", "rfdetr"])
+def test_mot_and_evaluate_main_on_the_card(cuda, tmp_path, detector):
+    cv2 = pytest.importorskip("cv2")
+    from clearcam_tpu_torch.tools import evaluate, mot
+    vw = cv2.VideoWriter(str(tmp_path / "clip.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                         (320, 240))
+    rng = np.random.default_rng(1)
+    for _ in range(4):
+        vw.write(rng.integers(0, 255, (240, 320, 3), np.uint8))
+    vw.release()
+    count = mot.main([str(tmp_path / "clip.mp4"), "--detector", detector, "--res", "128",
+                      "--weights", str(tmp_path / "none")])
+    assert count >= 0
+    (tmp_path / "ds" / "images").mkdir(parents=True)
+    (tmp_path / "ds" / "labels").mkdir()
+    for i in range(2):
+        cv2.imwrite(str(tmp_path / "ds" / "images" / f"im{i}.jpg"),
+                    rng.integers(0, 255, (96, 96, 3), np.uint8))
+        (tmp_path / "ds" / "labels" / f"im{i}.txt").write_text("0 0.5 0.5 0.4 0.3\n")
+    out = evaluate.main([str(tmp_path / "ds"), "--detector", detector, "--res", "128",
+                         "--weights", str(tmp_path / "none")])
+    assert out.keys() == {"mAP50", "mAP50-95", "classes"}

@@ -1,9 +1,10 @@
 """The PyTorch/CUDA port (clearcam_tpu_torch) and chip_smoke.py import
 neither jax nor anything of the JAX package (clearcam_tpu), not even its
-jax-free modules: the port keeps its own copies of those. The test process
-has both loaded (conftest), so the import check runs in a subprocess with
-``sys.modules["jax"] = sys.modules["clearcam_tpu"] = None``, which makes
-any import of either raise."""
+jax-free modules: the port keeps its own copies of those, nor the repo-root
+``bench.py``. The test process has them loaded (conftest), so the import
+check runs in a subprocess with ``sys.modules["jax"] =
+sys.modules["clearcam_tpu"] = sys.modules["bench"] = None``, which makes any
+import of them raise."""
 import os
 import re
 import subprocess
@@ -15,7 +16,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "clearcam_tpu_torch"
 
-_BLOCK = 'import sys\nsys.modules["jax"] = None\nsys.modules["clearcam_tpu"] = None\n'
+_BLOCK = ('import sys\nsys.modules["jax"] = None\nsys.modules["clearcam_tpu"] = None\n'
+          'sys.modules["bench"] = None\n')
 
 _IMPORT_ALL = _BLOCK + r"""
 import importlib, pkgutil
@@ -26,7 +28,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 loaded = [m for m in sys.modules if sys.modules[m] is not None
-          and (m.split(".")[0] in ("jax", "clearcam_tpu"))]
+          and (m.split(".")[0] in ("jax", "clearcam_tpu", "bench"))]
 assert not loaded, loaded
 print(" ".join(sorted(m for m in sys.modules if m.startswith("clearcam_tpu_torch."))))
 """
@@ -54,7 +56,9 @@ def test_port_imports_with_jax_blocked():
         "server.http", "serving", "serving.engine", "serving.text",
         "serving.constrain", "serving.vlm", "cloud.relay", "io.gguf",
         "io.safetensors", "track.ocsort", "utils.db", "utils.llm_tokenizer",
-        "tools", "tools.serve_llm", "tools.parity", "tools.llm_bench", "tools.vpu_probe")}
+        "tools", "tools.serve_llm", "tools.parity", "tools.llm_bench", "tools.vpu_probe",
+        "models.rfdetr", "tools.latency_probe", "tools.clip_bench", "tools.clip_probe",
+        "tools.cotenancy_bench", "tools.evaluate", "tools.mot")}
     assert expected <= names, expected - names
 
 
@@ -67,6 +71,24 @@ def test_no_source_line_imports_jax():
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if JAX_IMPORT.match(line) or LOAD_BY_PATH.search(line)]
     assert not hits, hits
+
+
+# an import of the repo-root bench.py, which imports jax
+BENCH_IMPORT = re.compile(r"^\s*(import bench\b|from bench\b)")
+
+
+def test_no_source_line_imports_bench():
+    """bench.py is a JAX script: the port keeps its own copy of what it
+    needs from it (tools/cotenancy_bench.synth_tracks)."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    hits = [f"{f.relative_to(ROOT)}:{i}" for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if BENCH_IMPORT.match(line)]
+    assert not hits, hits
+    assert BENCH_IMPORT.match("    from bench import synth_tracks  # noqa: E402")
+    assert BENCH_IMPORT.match("import bench")
+    assert not BENCH_IMPORT.match("import benchmarks") and not BENCH_IMPORT.match(
+        "from .cotenancy_bench import synth_tracks")
 
 
 def test_source_line_pattern_catches_the_jax_modules():
