@@ -23,7 +23,6 @@ equal scores, which a stable descending sort reproduces on every device.
 """
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -51,7 +50,7 @@ for _c91, _y in detr_to_yolo.items():
     _REMAP[_c91] = _y
 
 
-@functools.lru_cache(maxsize=64)
+@F.device_constant(maxsize=64)
 def _on(name: str, device: torch.device, dtype=None) -> torch.Tensor:
     """A module constant as a device tensor, uploaded once per device (a
     per-call upload would make the host wait on the card's queue)."""
@@ -392,7 +391,7 @@ def sine_box_embed(boxes, dim_per_coord: int = 128, temperature: float = 10000.0
         *boxes.shape[:-1], 4 * dim_per_coord)
 
 
-@functools.lru_cache(maxsize=16)
+@F.device_constant(maxsize=16)
 def _freqs_on(half: int, temperature: float, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(
         temperature ** (np.arange(half, dtype=np.float32) / half)).to(device)

@@ -18,7 +18,6 @@ Blocks 0-1 of the graphs whose stem is conv 3->16 s2 then 16->32 s2 (size
 """
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -387,7 +386,7 @@ def _make_anchors(shapes_hw, strides=STRIDES, offset=0.5):
     return np.concatenate(pts), np.concatenate(strs)
 
 
-@functools.lru_cache(maxsize=64)
+@F.device_constant(maxsize=64)
 def _anchors_on(shapes_hw: tuple, device: torch.device):
     """Anchors as device tensors, made once per (feature shapes, device)."""
     anchors, strides = _make_anchors(shapes_hw)
@@ -423,15 +422,29 @@ def _apply_ddetect(p, pre, feats):
     return torch.cat([dbox, torch.sigmoid(cls.float())], -1)   # [B,N,4+nc]
 
 
-def forward_raw(params, x, size: str = "t"):
+def _stem(params, x, train: bool):
+    """Blocks 0-1 through the stem kernel: on the live layer weights when
+    training (``stem_train``, differentiable), else on the operands packed
+    once (``STEM_PACKED_KEYS``) through the custom op, which
+    ``torch.export`` traces as one call."""
+    if train:
+        hwio = (F.oihw_to_hwio(params[src]) if params[src].ndim == 4 else params[src]
+                for src in STEM_KEYS.values())
+        return stem_ops.stem_train(x, *hwio)
+    return stem_ops.stem_packed_op(x, *(params[k] for k in STEM_PACKED_KEYS))
+
+
+def forward_raw(params, x, size: str = "t", *, train: bool = False):
     """Letterboxed NHWC input [B,H,W,3] (RGB, 0..1) -> head output
-    [B,N,4+nc] float32."""
+    [B,N,4+nc] float32. ``train=True`` is the fine-tuning route: the stem
+    runs on the live ``model.{0,1}`` weights, differentiably, and the
+    packed stem operands are neither needed nor read (after an optimizer
+    step they would be stale)."""
     graph = layer_graph(size)
     y: list = []
     cur = x
     if uses_stem_kernel(size):
-        cur = stem_ops.stem_packed(
-            x, stem_ops.Packed(*(params[k] for k in STEM_PACKED_KEYS)))
+        cur = _stem(params, x, train)
         y = [None, cur]          # no later layer reads layer 0 of t/dryrun
     for idx in range(len(y), len(graph)):
         layer = graph[idx]
@@ -476,6 +489,14 @@ class YOLOv9(nn.Module):
         self.params = nn.ParameterDict({
             k.replace(".", "/"): nn.Parameter(v, requires_grad=False)
             for k, v in tensors.items()})
+
+    @classmethod
+    def from_safetensors(cls, path, size: str = "t", res: int = 960, **kw):
+        """A published ``yolov9-{size}.safetensors`` (or ``tools.finetune``'s
+        output) -> the module; ``kw`` as the constructor's (``device``,
+        ``dtype``)."""
+        from ..io import safetensors as st
+        return cls(size, res, params=convert_state_dict(st.load(path)), **kw)
 
     def flat_params(self) -> dict:
         return {k.replace("/", "."): v for k, v in self.params.items()}

@@ -18,6 +18,8 @@ linear weights (out, in) as in the JAX package.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as tF
@@ -193,3 +195,24 @@ def tensors_from_numpy(params: dict, device, dtype=torch.float32) -> dict:
             t = t.contiguous(memory_format=torch.channels_last)
         out[k] = t
     return out
+
+
+def device_constant(maxsize: int):
+    """``functools.lru_cache`` for a function that makes a constant table
+    on a device, bypassed while ``torch.export`` or ``torch.compile``
+    traces: a table made then is a FakeTensor, and a cache filled with it
+    would hand it to every later eager call. The tables are made outside
+    inference mode, so one made for a detect step can also serve a
+    training step (autograd cannot save an inference tensor)."""
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args):
+            if torch.compiler.is_exporting() or torch.compiler.is_compiling():
+                return fn(*args)
+            with torch.inference_mode(False):
+                return cached(*args)
+        call.cache_clear = cached.cache_clear
+        return call
+    return wrap

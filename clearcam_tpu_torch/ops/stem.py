@@ -21,6 +21,12 @@ them, so no detect step packs again. bf16 x runs an implicit GEMM on the
 tensor cores (``gemm_reference`` is its plain version), float32 x a
 direct convolution on the CUDA cores. Both accumulate, add the bias and
 take SiLU in float32, and round the conv1 output to x's dtype.
+
+Two more entry points launch the same kernel, each in its own section
+below: ``stem_train``, an autograd function for fine-tuning (the kernel
+forward on the live HWIO weights, a plain PyTorch backward), and the
+custom op ``torch.ops.clearcam.stem_packed``, which ``torch.export`` can
+trace (a ctypes launch cannot run on FakeTensors).
 """
 from __future__ import annotations
 
@@ -201,3 +207,61 @@ def stem_packed(x, ops: Packed):
 
 
 stem.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# training: the kernel forward under autograd
+# ---------------------------------------------------------------------------
+
+class _StemTrain(torch.autograd.Function):
+    """The kernel forward on the live HWIO weights, so a step after an
+    optimizer update reads the updated values (the operands ``pack`` made
+    once, as ``params_from_jax`` keeps them, would be stale). The backward
+    is plain PyTorch: the JAX package has no backward kernel to port (its
+    stem has no custom_vjp, and its training forward never calls the
+    Pallas kernel), so the gradient recomputes ``stem_reference`` under
+    autograd and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return stem(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            out = stem_reference(*leaves)
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad))
+        return tuple(next(grads) if n else None for n in need)
+
+
+def stem_train(x, w1, b1, w2, b2):
+    """Differentiable stem for fine-tuning: x NHWC [B,H,W,3], live HWIO
+    weights -> NHWC [B,H2,W2,32]. The forward is ``stem`` (the kernel on
+    a CUDA tensor, counted in ``stem.launches``; ``stem_reference`` on
+    the CPU); a rematerialized forward (``torch.utils.checkpoint``)
+    launches, and counts, once more."""
+    return _StemTrain.apply(x, w1, b1, w2, b2)
+
+
+# ---------------------------------------------------------------------------
+# export: the packed-operand call as a custom op torch.export can trace
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("clearcam::stem_packed", mutates_args=())
+def stem_packed_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor, w1k: torch.Tensor,
+                   w2k: torch.Tensor) -> torch.Tensor:
+    """``stem_packed`` on ``Packed``'s fields, in their order: the kernel
+    on a CUDA tensor (counted, refusing what it does not take),
+    ``stem_reference`` on the CPU. An exported program calls it by name,
+    so replaying one needs only this module imported."""
+    return stem_packed(x, Packed(w1, b1, w2, b2, w1k, w2k))
+
+
+@stem_packed_op.register_fake
+def _(x, w1, b1, w2, b2, w1k, w2k):
+    return x.new_empty((x.shape[0], *out_hw(x.shape[1], x.shape[2]), 32))

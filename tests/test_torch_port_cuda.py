@@ -988,3 +988,109 @@ def test_mot_and_evaluate_main_on_the_card(cuda, tmp_path, detector):
     out = evaluate.main([str(tmp_path / "ds"), "--detector", detector, "--res", "128",
                          "--weights", str(tmp_path / "none")])
     assert out.keys() == {"mAP50", "mAP50-95", "classes"}
+
+
+# ---------------------------------------------------------------------------
+# fine-tuning through the stem kernel, and the exported program's replay
+# ---------------------------------------------------------------------------
+
+def test_stem_train_grads_match_plain_on_the_card(cuda):
+    """The autograd stem's forward launches the kernel; its four weight
+    gradients (and x's) equal the plain version's within 1e-4 of max |g|."""
+    x, w1, b1, w2, b2 = (torch.from_numpy(a).to(cuda) for a in _inputs((2, 64, 96, 3), seed=4))
+    leaves = [t.requires_grad_() for t in (x, w1, b1, w2, b2)]
+    g = torch.randn((2, 16, 24, 32), device=cuda)
+    before = tstem.stem.launches
+    out = tstem.stem_train(*leaves)
+    assert tstem.stem.launches == before + 1
+    got = torch.autograd.grad(out, leaves, g)
+    ref_out = tstem.stem_reference(*leaves)
+    ref = torch.autograd.grad(ref_out, leaves, g)
+    assert (out - ref_out).abs().max().item() < 1e-4
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def test_stem_train_reads_updated_weights_on_the_card(cuda):
+    x, w1, b1, w2, b2 = (torch.from_numpy(a).to(cuda) for a in _inputs((1, 40, 56, 3), seed=5))
+    first = tstem.stem_train(x, w1, b1, w2, b2)
+    w2.mul_(1.5)
+    b1.add_(0.25)
+    second = tstem.stem_train(x, w1, b1, w2, b2)
+    assert (second - tstem.stem_reference(x, w1, b1, w2, b2)).abs().max().item() < 1e-4
+    assert (second - first).abs().max().item() > 1e-2
+
+
+def _tiny_dataset(root, n=4, size=96):
+    cv2 = pytest.importorskip("cv2")
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(n):
+        img = rng.integers(0, 40, (size, size, 3), np.uint8)
+        img[33:62, 19:77] = (40, 180, 240)
+        cv2.imwrite(str(root / "images" / f"im{i}.jpg"), img)
+        (root / "labels" / f"im{i}.txt").write_text("0 0.5 0.5 0.6 0.3\n")
+    return root
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_finetune_three_steps_on_the_card(cuda, tmp_path, remat):
+    from clearcam_tpu_torch.tools import finetune
+    root = _tiny_dataset(tmp_path / "ds")
+    before = tstem.stem.launches
+    losses = finetune.train(str(root), size="t", res=128, batch=2, steps=3, lr=3e-4,
+                            remat=remat, out=str(tmp_path / "ft.safetensors"))
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    # one launch a step; the rematerialized forward launches again
+    assert tstem.stem.launches - before == 3 * (2 if remat else 1)
+    model = yolov9.YOLOv9.from_safetensors(tmp_path / "ft.safetensors", size="t", res=128)
+    assert model(np.zeros((128, 128, 3), np.uint8)).shape == (300, 6)
+
+
+def test_detection_loss_gpu_matches_cpu(cuda):
+    from clearcam_tpu_torch.models import yolo_loss
+    from clearcam_tpu_torch.tools import finetune
+    params = yolov9.init_params("t", seed=0)
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.uniform(0, 1, (2, 128, 128, 3)).astype(np.float32))
+    boxes = torch.tensor([[[8., 8., 80., 80.], [40., 20., 120., 100.]]] * 2)
+    cls = torch.tensor([[1, 3], [2, -1]], dtype=torch.int32)
+    losses = [yolo_loss.detection_loss(finetune.train_params(params, dev), frames.to(dev),
+                                       boxes.to(dev), cls.to(dev)).item()
+              for dev in ("cpu", cuda)]
+    assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
+
+
+def test_export_replay_on_the_card(cuda, tmp_path):
+    from clearcam_tpu_torch.tools import export
+    params = yolov9.init_params("t", seed=0)
+    meta = export.export_detector(tmp_path / "det.ccprog", size="t", res=320,
+                                  frame_hw=(240, 320), batch=1, params=params)
+    assert meta["device"].startswith("cuda")
+    rep = export.Replayer(tmp_path / "det.ccprog")
+    frames = np.random.default_rng(0).integers(0, 255, (1, 240, 320, 3), np.uint8)
+    before = tstem.stem.launches
+    out = rep(frames)
+    assert tstem.stem.launches == before + 1
+    with torch.no_grad():
+        eager = yolov9.detect(yolov9.params_from_jax(params, cuda),
+                              torch.from_numpy(frames).to(cuda), size="t", res=320)
+    np.testing.assert_array_equal(out, eager.cpu().numpy())
+
+
+def test_bundle_traced_on_the_cpu_replays_on_the_card(cuda, tmp_path):
+    """Replayer moves a program traced on another device to the one it is
+    asked for (torch.export's move_to_device_pass): the kernel launches."""
+    from clearcam_tpu_torch.testing import detection_mismatches
+    from clearcam_tpu_torch.tools import export
+    params = yolov9.init_params("t", seed=0)
+    export.export_detector(tmp_path / "det.ccprog", size="t", res=320, frame_hw=(240, 320),
+                           batch=1, params=params, device="cpu")
+    frames = np.random.default_rng(0).integers(0, 255, (1, 240, 320, 3), np.uint8)
+    on_cpu = export.Replayer(tmp_path / "det.ccprog", device="cpu")(frames)
+    rep = export.Replayer(tmp_path / "det.ccprog")
+    before = tstem.stem.launches
+    out = rep(frames)
+    assert tstem.stem.launches == before + 1
+    assert detection_mismatches(on_cpu, out) == []

@@ -20,6 +20,7 @@ JAX_PKG, PORT_PKG = ROOT / "clearcam_tpu", ROOT / "clearcam_tpu_torch"
 # words differently (the reference's source named without a local path)
 COPIED = {f: None for f in (
     "cloud/__init__.py", "cloud/crypto.py", "cloud/federation.py", "cloud/relay.py",
+    "cloud/viewer.py", "tools/clip_cli.py",
     "io/__init__.py", "io/fmp4.py", "io/gguf.py", "io/ggml_grids.py", "io/h264.py",
     "io/mpegts.py", "io/safetensors.py",
     "runtime/counters.py", "runtime/fswriter.py", "runtime/ingest.py",

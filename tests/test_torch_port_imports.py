@@ -58,7 +58,8 @@ def test_port_imports_with_jax_blocked():
         "io.safetensors", "track.ocsort", "utils.db", "utils.llm_tokenizer",
         "tools", "tools.serve_llm", "tools.parity", "tools.llm_bench", "tools.vpu_probe",
         "models.rfdetr", "tools.latency_probe", "tools.clip_bench", "tools.clip_probe",
-        "tools.cotenancy_bench", "tools.evaluate", "tools.mot")}
+        "tools.cotenancy_bench", "tools.evaluate", "tools.mot", "models.yolo_loss",
+        "tools.finetune", "tools.export", "tools.clip_cli", "cloud.viewer")}
     assert expected <= names, expected - names
 
 
