@@ -75,7 +75,7 @@ so the script exits non-zero:
      weights and a bf16 KV cache in the engine, 8 concurrent requests,
      decode tokens/s with the kernel and with the plain attention
   9  `python -m clearcam_tpu_torch.tools.serve_llm --synthetic --int8
-     --pallas` (28 blocks, ctx 8192, 8 slots): /healthz, /v1/models,
+     --pallas` (8 blocks, ctx 8192, 8 slots): /healthz, /v1/models,
      /generate plain and streamed, 8 concurrent /v1/chat/completions (one
      with response_format json_object, whose text must be a JSON prefix),
      /v1/completions with logprobs; quant_matmul and decode_attention
@@ -99,7 +99,7 @@ so the script exits non-zero:
      within 2e-3 (2e-2 with the int8 cache) and each step's top-8 ids; the
      int8 cache after the image prefill, card vs CPU: how many int8 values
      differ, by how many steps, and the scales
- 12  the 28 + 24-block model, int8 weights, in the port's NVR in-process
+ 12  the 14 (of 28) + 24-block model, int8 weights, in the port's NVR in-process
      with a synthetic camera and a key-colour stand-in detector: seconds
      from the alert to the AI Summary notification (cooperative, bf16 and
      int8 KV), 4 concurrent alerts through VLMServingEngine (4 slots), and
@@ -121,8 +121,9 @@ so the script exits non-zero:
      requests admitted 2 ticks apart on 2 slots (a periodic prompt, a random
      one, one whose greedy output cycles), then the cycling one alone: the
      spec engine's tokens on the card equal the CPU's and the non-spec
-     engine's, with more tokens than decode dispatches; (b) 28 blocks, int8
-     weights, 8 slots, 200-token prompts: decode tokens/s with
+     engine's, with more tokens than decode dispatches; (b) 14 of the 28
+     blocks (cut for the smoke's time limit), int8 weights, 8 slots,
+     200-token prompts: decode tokens/s with
      spec_lookup=4 and without, tokens per dispatch, and the int8 cache
      through the q8 kernel, its decode step; (c) `python -m
      clearcam_tpu_torch.tools.llm_bench --blocks 8 --modes
@@ -139,7 +140,8 @@ so the script exits non-zero:
      no field in TransformerConfig, so both packages run plain RoPE) and
      the JAX package's qwen3_next_cfg: logprob rows and logits within
      phase 8's bounds, greedy tokens equal; (b) each family's 8-slot
-     engine at its published depth (48, 27 and 28 blocks), int8 weights
+     engine at half its published depth (24, 14 and 12 of 48, 27 and 28
+     blocks, cut for the smoke's time limit), int8 weights
      quantized tensor by tensor as they are drawn on the card, bf16 KV,
      ctx 2048, one 32-token prefill chunk at B = 1, then 8 requests of
      24-88 tokens admitted two a tick, 24 new: decode tokens/s, the decode
@@ -165,7 +167,8 @@ so the script exits non-zero:
      latency_probe (its five stages), clip_bench --batches 1,16,64,
      clip_probe --batches 16 (the attention kernel launched under
      full_flash and nowhere else) and cotenancy_bench --streams 16 --ticks
-     80 --quant int8 (both ladders and the overhead line; the stem, ViT
+     80 --quant int8 --blocks 14 (14 of 28, cut for the smoke's time
+     limit; both ladders and the overhead line; the stem, ViT
      attention and quant-matmul kernels launched)
  17  YOLOv9 fine-tuning, export and parity: (a) `python -m
      clearcam_tpu_torch.tools.finetune` on 16 synthetic 1920x1080 JPEGs
@@ -184,7 +187,30 @@ so the script exits non-zero:
      ms; (e) `python -m clearcam_tpu_torch.tools.parity run`: rc 0 with
      every check SKIP, rc 1 with --strict; a golden of random weights
      recorded on the CPU route passes check_yolo_golden on the card
-
+ 18  the multi-device paths (clearcam_tpu_torch.parallel), each part in
+     ranks the smoke spawns: (a) at world size device_count() over NCCL,
+     one rank a card: BatchDetector(mesh=) (YOLOv9-t 640 bf16, 8 random
+     1080p frames) with rows equal to the solo detector, ring_prefill and
+     make_sharded_prefill (Qwen3-1.7B widths, 2 blocks, 512 tokens)
+     against one-device attention / forward within 2e-5, pipeline_apply
+     and both training schedules against the stages in sequence, the int8
+     tp engine (2 blocks, the decode kernel) with the one-rank engine's
+     tokens, then finetune --mesh's ranks (res 640, batch 8, 3 steps),
+     the loss within 1e-4 relative of (b)'s one-device run; (b) 2 ranks,
+     sharing card 0 over gloo (2 cards: NCCL), at full published widths:
+     the 28-block Qwen3-1.7B-width int8 tp engine through the batched
+     decode kernels on bf16 and int8 caches (8 slots, 8 requests of 24-88
+     tokens + 24 new) with the one-rank engine's tokens, its decode
+     tokens/s, ms a step, the collectives' ms a step and each rank's
+     kernel launches; (a)'s ring, sharded prefill and pipelines across the
+     2 ranks (under gloo their point-to-point goes through pinned host
+     memory, named on the line with the other ops' staging);
+     VLMServingEngine(mesh=) at Qwen3-VL-2B widths (2 language + 2 vision
+     blocks) with solo Qwen3VL.generate's text and the ViT attention on
+     both ranks; 2 data ranks of detect with the stem on each; finetune's
+     ranks on a (1, 2) mesh, the loss within 1e-4 relative of one device.
+     Two ranks on one card check correctness and the shard shapes, not
+     scale-out
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on a served path (phases 4, 9, 12
 and 13; int4 from phase 8's engine run; the stem's adds phase 17's training
@@ -245,7 +271,7 @@ ATTN_TIMED = [(1, 257, "float32"), (16, 257, "float32"), (64, 257, "float32"),
               (16, 257, "bfloat16"), (1, 2040, "float32")]
 TOWER_COS = 1 - 1e-5                # towers, GPU vs CPU, cosine per row
 # BPE merges for the server's tokenizer: the real vocab is not in the repo
-ALL_PHASES = tuple(range(18))
+ALL_PHASES = tuple(range(19))
 MERGES = [("h", "e"), ("l", "l"), ("he", "ll"), ("hell", "o</w>"),
           ("w", "o"), ("r", "l"), ("wo", "rl"), ("worl", "d</w>")]
 
@@ -1834,7 +1860,8 @@ def _kernels(torch, fn, match=("decode_split", "decode_merge")) -> tuple:
 
 
 def phase12(torch):
-    log("== phase 12: Qwen3-VL-2B alert summaries at full depth (28 + 24 blocks) in the "
+    log("== phase 12: Qwen3-VL-2B alert summaries (14 of 28 language blocks + 24 vision "
+        "blocks) in the "
         "port's NVR")
     from clearcam_tpu_torch.models import llm
     from clearcam_tpu_torch.models import qwen3vl as qvl
@@ -1842,11 +1869,14 @@ def phase12(torch):
     from clearcam_tpu_torch.ops import quant_matmul as qm
     from clearcam_tpu_torch.ops.vit_attention import mha_flash
     t0 = time.time()
-    cfg = qvl.qwen3vl_2b_cfg(28, 2048)
-    params = llm.quantize_params_int8(_bf16_28_blocks(torch))
+    # 14 language blocks (28 until phase 18 joined the smoke: its 1200 s limit)
+    cfg = qvl.qwen3vl_2b_cfg(14, 2048)
+    params = llm.quantize_params_int8(
+        {k: v for k, v in _bf16_28_blocks(torch).items()
+         if not k.startswith("blk.") or int(k.split(".")[1]) < cfg.num_blocks})
     tower = qvl.VisionTower(*qvl.vision_2b_random(), device="cuda")
-    log(f"28-block language model (int8 weights) and 24-block vision tower (f32), "
-        f"random from seed 0: {time.time() - t0:.1f} s")
+    log(f"{cfg.num_blocks}-block language model (int8 weights) and 24-block vision tower "
+        f"(f32), random from seed 0: {time.time() - t0:.1f} s")
     tok = _smoke_tok()
     langs = {"bf16 KV": llm.Transformer(params, cfg, state_dtype=torch.bfloat16,
                                         use_pallas_decode=True),
@@ -2045,8 +2075,14 @@ def _spec_tokens(torch, engine, prompts, max_new, stagger=0):
     return [r.wait(1) for r in reqs]
 
 
+# phase 14 (b)'s engine depth: 14 of the 28 blocks (cut when phase 18 joined
+# the smoke, for its 1200 s limit)
+SPEC_BLOCKS = 14
+
+
 def phase14(torch):
-    log("== phase 14: speculative serving: 2 blocks card vs CPU; 28 blocks int8; llm_bench")
+    log(f"== phase 14: speculative serving: 2 blocks card vs CPU; {SPEC_BLOCKS} blocks int8; "
+        "llm_bench")
     from clearcam_tpu_torch.models import llm
     from clearcam_tpu_torch.serving import ServingEngine
     out = {}
@@ -2091,13 +2127,15 @@ def phase14(torch):
     _SHARED.pop("f32_2", None)
     torch.cuda.empty_cache()
 
-    # (b) 28 blocks, int8 weights, 8 slots: decode tokens/s with and without
+    # (b) SPEC_BLOCKS blocks, int8 weights, 8 slots: decode tokens/s with and without
     # spec windows on the same prompts, 200 tokens: 4 random and 4 of one
     # repeated token (random weights rarely repeat themselves on random
     # text; repeated-token prompts make cycles likelier). Acceptance on
     # random weights says nothing of real text's
-    cfg = llm.qwen3_2b_cfg(28, 8192)
-    params = llm.quantize_params_int8(_bf16_28_blocks(torch))
+    cfg = llm.qwen3_2b_cfg(SPEC_BLOCKS, 8192)
+    params = llm.quantize_params_int8(
+        {k: v for k, v in _bf16_28_blocks(torch).items()
+         if not k.startswith("blk.") or int(k.split(".")[1]) < cfg.num_blocks})
     rng = np.random.default_rng(15)
     prompts = np.concatenate([rng.integers(1, cfg.vocab_size, (4, 200)),
                               np.repeat(rng.integers(1, cfg.vocab_size, (4, 1)), 200, 1)])
@@ -2113,24 +2151,25 @@ def phase14(torch):
         e0, d0 = eng.stats["spec_emitted"], eng.stats["decode_steps"]
         rate, steps, reqs = _engine_tokens_per_s(torch, eng, prompts, 48)
         if not all(len(r.tokens) == 48 for r in reqs):
-            raise AssertionError("28-block spec engine: a request did not finish 48 tokens")
+            raise AssertionError(f"{cfg.num_blocks}-block spec engine: a request did not "
+                                 "finish 48 tokens")
         # tokens per dispatch over the timed decode, summed over the slots;
         # the JAX tool's tokens_per_window: windows' emitted tokens (before
         # the eos/max_new cut) per dispatch
         per_dispatch = rate / steps
         per_window = (eng.stats["spec_emitted"] - e0) / max(1, eng.stats["decode_steps"] - d0)
         rates.setdefault(spec, []).append((rate, steps, per_dispatch))
-        log(f"28-block int8 engine, 8 slots, 200-token prompts, 48 new, "
+        log(f"{cfg.num_blocks}-block int8 engine, 8 slots, 200-token prompts, 48 new, "
             f"{'int8 KV + q8 kernel' if q8 else f'bf16 KV, spec {spec}'}: {rate:.1f} "
             f"decode tokens/s ({steps:.1f} dispatches/s, {1e3 / steps:.2f} ms each, "
             f"{per_dispatch:.2f} tokens per dispatch"
             + (f", tokens_per_window {per_window:.2f})" if spec == 4 else ")"))
         del eng
         torch.cuda.empty_cache()
-    out["28block"] = {str(k): [float(np.mean([x[i] for x in v])) for i in range(3)]
+    out["engine"] = {str(k): [float(np.mean([x[i] for x in v])) for i in range(3)]
                       for k, v in rates.items()}
-    r28 = out["28block"]
-    log(f"28-block spec 4 / no spec: decode tokens/s {r28['4'][0]:.1f} / {r28['0'][0]:.1f}; "
+    r28 = out["engine"]
+    log(f"{cfg.num_blocks}-block spec 4 / no spec: decode tokens/s {r28['4'][0]:.1f} / {r28['0'][0]:.1f}; "
         f"tokens per window per slot ~{r28['4'][2] / r28['0'][2]:.2f} (tokens per dispatch "
         "over the non-spec engine's; random weights, not real text); int8 KV + q8 kernel "
         f"decode step {1e3 / r28['q8'][1]:.2f} ms")
@@ -2157,9 +2196,10 @@ def phase14(torch):
 # ---------------------------------------------------------------------------
 # the MoE, MLA and GatedDeltaNet-hybrid stacks
 
-# engine depths: every family at its published depth (Qwen3-30B-A3B's 48
-# blocks are ~31 GB in int8, quantized tensor by tensor as they are drawn)
-FAMILY_BLOCKS = {"moe": 48, "mla": 27, "hybrid": 28}
+# the engines' depth, half the published 48, 27 and 28 (cut when phase 18
+# joined the smoke, for its 1200 s limit: with the MoE at 48 the whole smoke
+# took 1199.3 s on a slow host; the hybrid keeps every 4th block attention)
+FAMILY_BLOCKS = {"moe": 24, "mla": 14, "hybrid": 12}
 # card vs CPU: 2 blocks of each family (the hybrid 4, so that its first
 # attention block is in)
 FAMILY_CHECK_BLOCKS = {"moe": 2, "mla": 2, "hybrid": 4}
@@ -2481,9 +2521,9 @@ def phase15(torch):
         "rope scaling has no field in TransformerConfig, so both packages run plain RoPE) "
         "and the GatedDeltaNet hybrid (qwen3_next_cfg): card vs CPU at "
         f"{FAMILY_CHECK_BLOCKS['moe']} blocks (the hybrid {FAMILY_CHECK_BLOCKS['hybrid']}); "
-        "the 8-slot engines at full depth ("
+        "the 8-slot engines at "
         + ", ".join(str(FAMILY_BLOCKS[f]) for f in ("moe", "mla", "hybrid"))
-        + " blocks, no cut); llm_bench --ssm")
+        + " blocks (published 48, 27, 28); llm_bench --ssm")
     from clearcam_tpu_torch.models import llm
     out = {"check": {}, "engine": {}, "prefill_chunk_ms": {}}
     t0 = time.time()
@@ -2638,8 +2678,10 @@ def phase9():
         result.update(http_tokens_per_s=toks / dt, json_reply=text)
         return result
 
+    # 8 blocks (28 before phase 18 joined the smoke): the served route is the
+    # same at any depth, and the 28-block boot's weight draws took ~60 s
     launches, result = _serve_llm(["--int8", "--pallas"], drive,
-                                  ("quant_matmul", "decode_attention"))
+                                  ("quant_matmul", "decode_attention"), blocks=8)
 
     def drive_q8(base):
         """The int8-cache kernel route: one /generate and 4 concurrent ones."""
@@ -2875,8 +2917,10 @@ def phase16(torch):
         raise AssertionError(f"clip_probe: the kernel must launch under full_flash only: "
                              f"{text[-2000:]}")
     out["clip_probe"] = lines
+    # 14 of the summary model's 28 language blocks (cut when phase 18 joined
+    # the smoke, for its 1200 s limit)
     lines, n, _ = _tool(["cotenancy_bench", "--streams", "16", "--ticks", "80",
-                         "--quant", "int8"], 600)
+                         "--quant", "int8", "--blocks", "14"], 600)
     final = lines[-1] if lines else {}
     if final.get("metric") != "cotenancy_detect_p50_overhead_ms" \
             or not final["full"]["summaries_done"] > 0 \
@@ -3172,6 +3216,478 @@ def _json_prefix(text: str) -> bool:
     return constrain.run_char_dfa(constrain.json_char_dfa(4), text.encode()) >= 0
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the multi-device paths (clearcam_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+P18_DEADLINE = 600           # s, one spawn of phase 18's ranks
+P18_RING_TOL = 2e-5          # ring / sharded prefill vs one device (f32, TF32 off)
+P18_FT_TOL = 1e-4            # finetune --mesh loss vs one rank, relative
+
+
+def _p18_entry(rank, world, rdv, backend, part, args, q):
+    """One rank of a phase-18 spawn: join the group (``parallel.comm``),
+    run ``part``, send its result back."""
+    import traceback
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        from clearcam_tpu_torch.parallel import comm
+        comm.init_group(rank, world, f"file://{rdv}", "cuda", backend)
+        out = globals()[part](rank, world, backend, *args)
+        q.put((rank, "ok", out))
+        comm.shutdown(120)
+    except BaseException:  # noqa: BLE001
+        q.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def _p18_spawn(part: str, world: int, backend: str, *args) -> list:
+    """``part`` on ``world`` spawned ranks; every rank's result, or a raise
+    (a rank's traceback, a dead rank, or the deadline: all ranks killed)."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_p18_entry, args=(r, world, os.path.join(tmp, "rdv"),
+                                                       backend, part, args, q))
+                 for r in range(world)]
+        for p_ in procs:
+            p_.start()
+        results, err, deadline = {}, None, time.time() + P18_DEADLINE
+        try:
+            while len(results) < world and err is None:
+                try:
+                    r, status, out = q.get(timeout=2)
+                except queue_mod.Empty:
+                    if time.time() > deadline:
+                        err = f"{part}: past the {P18_DEADLINE} s deadline"
+                    elif any(p_.exitcode not in (None, 0) for p_ in procs):
+                        err = f"{part}: a rank died ({[p_.exitcode for p_ in procs]})"
+                    continue
+                if status != "ok":
+                    err = f"{part} rank {r}:\n{out}"
+                results[r] = out
+            for p_ in procs:
+                p_.join(120 if err is None else 1)
+        finally:
+            for p_ in procs:
+                if p_.is_alive():
+                    p_.kill()
+                    p_.join()
+    if err is not None:
+        raise AssertionError(err)
+    return [results[r] for r in range(world)]
+
+
+def _p18_sdpa(torch, q, k, v):
+    """One-device causal attention, [B,T,H,D] with GQA, f32."""
+    rep = q.shape[2] // k.shape[2]
+    qt, kt, vt = (z.transpose(1, 2).float() for z in (q, k.repeat_interleave(rep, 2),
+                                                       v.repeat_interleave(rep, 2)))
+    return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True) \
+        .transpose(1, 2)
+
+
+def _p18_detect(torch, mesh, frames, dtype):
+    """BatchDetector(mesh=) on rank 0's frames, the others following: ->
+    (rows on rank 0 or None, host ms, this rank's stem launches)."""
+    from clearcam_tpu_torch.ops.stem import stem
+    from clearcam_tpu_torch.runtime.nvr import BatchDetector
+    det = BatchDetector("t", res=640, dtype=dtype, mesh=mesh)
+
+    def lead(fn):
+        if not mesh.is_leader:
+            return mesh.follow()
+        r = fn()
+        mesh.stop_followers()
+        return r
+    lead(lambda: det.detect_many(list(frames[:1])))          # warm
+    s0, t0 = stem.launches, time.perf_counter()
+    rows = lead(lambda: np.stack(det.detect_many(list(frames))))
+    return rows, (time.perf_counter() - t0) * 1e3, stem.launches - s0
+
+
+def _p18_engine(torch, mesh, cfg, params, requests, **kw):
+    """A tp engine on every rank; rank 0 serves ``requests`` [(prompt,
+    max_new)] all at once. -> per rank: tokens (rank 0), decode steps, the
+    decode phase's seconds, the step's collectives (command channel and
+    token broadcast; the block reductions, calls and host seconds) and this
+    rank's quant_linear / decode-attention launches."""
+    from clearcam_tpu_torch.ops import decode_attention as dec
+    from clearcam_tpu_torch.ops.quant_matmul import quant_linear
+    from clearcam_tpu_torch.parallel import mesh as pmesh
+    eng = pmesh.serving_engine_tp(params, cfg, mesh, **kw)
+    l0 = (quant_linear.launches, dec.decode_attention_batch.launches,
+          dec.decode_attention_batch_q8.launches)
+    out = {"kv_heads": int(eng.state[0]["k"].shape[1])}
+    t0 = time.perf_counter()
+    if mesh.is_leader:
+        reqs = [eng.submit(list(pr), max_new=n) for pr, n in requests]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        out["tokens"] = [r.wait(5) for r in reqs]
+        out["ttft_s"] = max(r.ttft_s for r in reqs)
+        eng.close()
+        mesh.stop_followers()
+    else:
+        mesh.follow()
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["decode_steps"] = eng.ranks.steps if mesh.is_leader else None
+    out["channel_s"] = eng.ranks.comm_s
+    out["reduce"] = dict(eng.params.tp.stats)
+    out["launches"] = {"quant_linear": quant_linear.launches - l0[0],
+                       "decode_attention_batch": dec.decode_attention_batch.launches - l0[1],
+                       "decode_attention_batch_q8":
+                           dec.decode_attention_batch_q8.launches - l0[2]}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p18_solo_tokens(torch, cfg, params, requests, **kw):
+    from clearcam_tpu_torch.serving.engine import ServingEngine
+    eng = ServingEngine(params, cfg, **kw)
+    reqs = [eng.submit(list(pr), max_new=n) for pr, n in requests]
+    t0 = time.perf_counter()
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    out = [r.wait(5) for r in reqs], time.perf_counter() - t0, eng.stats["decode_steps"]
+    eng.close()
+    return out
+
+
+def _p18_seq(torch, out, mesh, axis, world, dev):
+    """ring_prefill and make_sharded_prefill (Qwen3-1.7B widths, 2 blocks,
+    512 tokens) over ``mesh``'s ``axis``, pipeline_apply and both training
+    schedules over ``world`` stages, each against one device on this rank
+    (f32, TF32 off): their errors into ``out``. -> the 2-block params."""
+    from clearcam_tpu_torch.models import llm
+    from clearcam_tpu_torch.parallel import pipeline as pp
+    from clearcam_tpu_torch.parallel.long_prefill import gather_seq, make_sharded_prefill
+    from clearcam_tpu_torch.parallel.ringattn import ring_prefill
+    t0 = time.perf_counter()
+    # ring attention and the sequence-parallel prefill vs one device
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((1, 1024, 16, 128), device=dev, generator=g)
+    k, v = (torch.randn((1, 1024, 8, 128), device=dev, generator=g) for _ in range(2))
+    got = ring_prefill(mesh, axis)(q, k, v)
+    out["ring_err"] = float((got - _p18_sdpa(torch, q, k, v)).abs().max())
+    cfg = llm.qwen3_2b_cfg(2, 1024)
+    params = llm.init_params(cfg, device=dev, generator=torch.Generator(device=dev)
+                             .manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (1, 512), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    hidden, _ = make_sharded_prefill(mesh, cfg, axis)(params, toks)
+    hidden = gather_seq(hidden, mesh.group(axis))
+    with torch.no_grad():
+        ref, _ = llm.forward(params, cfg, llm.init_state(cfg, device=dev), toks, 0,
+                             llm.freqs_for(cfg, dev))
+    out["sharded_prefill_rel"] = float((hidden - ref).abs().max() / ref.abs().max())
+    # pipelines: pipeline_apply and both training schedules vs sequential
+    pmesh_ = pp.make_pp_mesh(world)
+    s = pmesh_.coord("stage")
+    gs = torch.Generator(device=dev).manual_seed(7)
+    stages = [{"w1": torch.randn((256, 512), device=dev, generator=gs) * 0.05,
+               "w2": torch.randn((512, 256), device=dev, generator=gs) * 0.05}
+              for _ in range(world)]
+    x = torch.randn((4, 8, 256), device=dev, generator=gs)
+    y = torch.randn((4, 8, 256), device=dev, generator=gs)
+
+    def stage_fn(p_, z):
+        return torch.nn.functional.silu(z @ p_["w1"]) @ p_["w2"]
+
+    def mse(a, b):
+        return torch.mean((a - b) ** 2)
+    ap = pp.pipeline_apply(pmesh_, "stage", stage_fn, stages[s], x)
+    seq = x
+    for sp in stages:
+        seq = stage_fn(sp, seq)
+    out["pipeline_apply_err"] = float((ap - seq).abs().max())
+    leaves = [{k_: v_.clone().requires_grad_() for k_, v_ in sp.items()} for sp in stages]
+    h = x
+    for lp in leaves:
+        h = torch.stack([stage_fn(lp, h[i]) for i in range(4)])
+    ref_loss = torch.stack([mse(h[i], y[i]) for i in range(4)]).mean()
+    ref_loss.backward()
+    for name, fn in (("1f1b", pp.pipeline_train_step_1f1b),
+                     ("gpipe", pp.pipeline_train_step_gpipe)):
+        loss, grads = fn(pmesh_, "stage", stage_fn, mse, stages[s], x, y)
+        ref = ref_loss.detach()
+        out[f"{name}_loss_rel"] = float(abs(loss - ref) / abs(ref))
+        out[f"{name}_grad_err"] = max(float((grads[k_] - leaves[s][k_].grad).abs().max())
+                                      for k_ in grads)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out["seq_s"] = time.perf_counter() - t0
+    return params
+
+
+def _p18_finetune(ds, mesh_n):
+    """finetune --mesh's ranks (``mesh_n``; None: one device) at res 640,
+    batch 8, 3 steps -> the losses and the stem kernel's launches."""
+    from clearcam_tpu_torch.ops.stem import stem
+    from clearcam_tpu_torch.tools import finetune
+    s0 = stem.launches
+    losses = finetune._train(
+        dataset=ds, size="t", res=640, batch=8, steps=3, lr=3e-4, clip_norm=1.0,
+        remat=False, init=None, out=os.devnull, seed=0, log_every=1, ckpt_dir=None,
+        ckpt_every=0, device="cuda", mesh_n=mesh_n)
+    return {"losses": losses, "stem_launches": stem.launches - s0}
+
+
+def _p18a(rank, world, backend, frames, prompts, ds):
+    """Phase 18 (a): one rank a card over NCCL, every path end to end."""
+    import torch
+    from clearcam_tpu_torch.models import llm
+    from clearcam_tpu_torch.parallel import mesh as pmesh
+    from clearcam_tpu_torch.runtime.nvr import BatchDetector
+    from clearcam_tpu_torch.testing import detection_mismatches
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"backend": backend, "world": world, "t": {}}
+    # BatchDetector(mesh=), YOLOv9-t 640 bf16, 8 random 1080p frames
+    t0 = time.perf_counter()
+    mesh = pmesh.make_mesh(world, data=world)
+    rows, ms, stem_n = _p18_detect(torch, mesh, frames, torch.bfloat16)
+    out["detect"] = {"ms": ms, "stem_launches": stem_n}
+    if rank == 0:
+        solo = np.stack(BatchDetector("t", res=640, dtype=torch.bfloat16,
+                                      device=dev).detect_many(list(frames)))
+        bad = detection_mismatches(solo, rows)
+        out["detect"]["mismatches"] = len(bad)
+        if bad:
+            raise AssertionError(f"(a) sharded detect vs solo: {bad[:5]}")
+    out["t"]["detect"] = time.perf_counter() - t0
+    # ring attention, the sequence-parallel prefill and the pipelines
+    params = _p18_seq(torch, out, mesh, "data", world, dev)
+    out["t"]["seq"] = out.pop("seq_s")
+    # the tp engine (Qwen3-1.7B widths, 2 blocks, int8, the decode kernel)
+    t0 = time.perf_counter()
+    cfg = llm.qwen3_2b_cfg(2, 1024)
+    qp = llm.quantize_params_int8(params)
+    tp_mesh = pmesh.make_mesh(world, data=1)
+    reqs = [(p_, 8) for p_ in prompts[:4]]
+    kw = dict(n_slots=4, state_dtype=torch.bfloat16, use_pallas_decode=True)
+    out["engine"] = _p18_engine(torch, tp_mesh, cfg, qp, reqs, **kw)
+    if rank == 0:
+        solo, _, _ = _p18_solo_tokens(torch, cfg, qp, reqs, **kw)
+        out["engine"]["tokens_equal"] = out["engine"]["tokens"] == solo
+        del out["engine"]["tokens"]
+    del params, qp
+    torch.cuda.empty_cache()
+    out["t"]["engine"] = time.perf_counter() - t0
+    # finetune --mesh's ranks, 3 steps (its command line is held on the CPU
+    # by the tests; the losses are held against (b)'s one-device run)
+    t0 = time.perf_counter()
+    out["finetune"] = _p18_finetune(ds, world)
+    out["t"]["finetune"] = time.perf_counter() - t0
+    return out
+
+
+def _p18b(rank, world, backend, frames, prompts, ds):
+    """Phase 18 (b): the sharded shapes at full published width, 2 ranks
+    (sharing card 0 over gloo, or on 2 cards over NCCL)."""
+    import torch
+    from clearcam_tpu_torch.models import llm
+    from clearcam_tpu_torch.models import qwen3vl as qvl
+    from clearcam_tpu_torch.ops.vit_attention import mha_flash
+    from clearcam_tpu_torch.parallel import comm
+    from clearcam_tpu_torch.parallel import mesh as pmesh
+    from clearcam_tpu_torch.serving.vlm import VLMServingEngine
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = pmesh.make_mesh(2, data=1)
+    probe = torch.empty(1, device=dev)
+    out = {"backend": backend, "world": world, "device": str(dev), "t": {},
+           # which ops go through pinned host memory on this backend
+           "host_staged": {op: comm.staged(op, probe, mesh.group("model"))
+                           for op in ("p2p", "all_reduce", "broadcast", "all_gather")}}
+    # the tp engine at Qwen3-1.7B widths and depth, int8, the decode kernels
+    cfg = llm.qwen3_2b_cfg(28, 512)
+    t0 = time.perf_counter()
+    params = llm.init_params(cfg, device=dev, quantize="int8",
+                             generator=torch.Generator(device=dev).manual_seed(0))
+    out["init_s"] = time.perf_counter() - t0
+    reqs = [(p_, 24) for p_ in prompts]
+    for name, kw in (("bf16 KV", {}), ("int8 KV", {"kv_quant": True})):
+        t0 = time.perf_counter()
+        kw = dict(n_slots=8, state_dtype=torch.bfloat16, use_pallas_decode=True, **kw)
+        row = _p18_engine(torch, mesh, cfg, params, reqs, **kw)
+        if rank == 0:
+            solo, solo_s, solo_steps = _p18_solo_tokens(torch, cfg, params, reqs, **kw)
+            row["tokens_equal"] = row["tokens"] == solo
+            row["one_rank_s"], row["one_rank_steps"] = solo_s, solo_steps
+            row["new_tokens"] = sum(len(t) for t in row.pop("tokens"))
+        out[name] = row
+        out["t"][name] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    # ring attention, the sequence-parallel prefill and the pipelines across
+    # the 2 ranks: their point-to-point exchanges on CUDA tensors
+    _p18_seq(torch, out, mesh, "model", 2, dev)
+    out["t"]["seq"] = out.pop("seq_s")
+    torch.cuda.empty_cache()
+    # VLMServingEngine(mesh=), Qwen3-VL-2B widths, 2 language + 2 vision blocks
+    t0 = time.perf_counter()
+    vcfg = qvl.qwen3vl_2b_cfg(2, 2048)
+    vparams = llm.init_params(vcfg, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(3))
+    vkv, vp = qvl.vision_2b_random(blocks=2, deepstack=(1,))
+    tower = qvl.VisionTower(vkv, vp, device=dev)
+    tok = _smoke_tok()
+    lang = llm.Transformer(vparams, vcfg, use_pallas_decode=True)
+    qwen = qvl.Qwen3VL(res=SUMMARY_RES, lang=lang, tok=tok, vision=tower)
+    img = np.random.default_rng(11).integers(0, 256, (*SUMMARY_RES, 3), np.uint8)
+    v0 = mha_flash.launches
+    eng = VLMServingEngine(qwen, n_slots=2, mesh=mesh)
+    vlm = {"kv_heads": int(eng.engine.state[0]["k"].shape[1])}
+    if mesh.is_leader:
+        r = eng.submit([img], "What has been detected on my CCTV camera?", max_new=8,
+                       temperature=0.0)
+        eng.run_until_idle()
+        text = eng.text(r)
+        eng.close()
+        mesh.stop_followers()
+        # read before the one-device reference, which launches the kernel too
+        vlm["vit_attention_launches"] = mha_flash.launches - v0
+        solo = qwen.generate(prompt="What has been detected on my CCTV camera?", image=img,
+                             reset=True, temperature=0.0, max_new=8)
+        vlm["text_equal"] = text == solo
+    else:
+        mesh.follow()
+        vlm["vit_attention_launches"] = mha_flash.launches - v0
+    out["vlm"] = vlm
+    del eng, qwen, lang, vparams, tower
+    torch.cuda.empty_cache()
+    out["t"]["vlm"] = time.perf_counter() - t0
+    # 2 data ranks of YOLOv9-t detect: the stem kernel on each
+    t0 = time.perf_counter()
+    rows, ms, stem_n = _p18_detect(torch, pmesh.make_mesh(2, data=2), frames,
+                                   torch.bfloat16)
+    out["detect"] = {"ms": ms, "stem_launches": stem_n,
+                     "rows": None if rows is None else list(rows.shape)}
+    out["t"]["detect"] = time.perf_counter() - t0
+    # finetune --mesh's ranks: res 640, batch 8, 3 steps on a (1, 2) mesh,
+    # and the one-device run that (a) and (b) are held against
+    t0 = time.perf_counter()
+    out["finetune"] = _p18_finetune(ds, 2)
+    if rank == 0:
+        out["finetune"]["one_rank"] = _p18_finetune(ds, None)["losses"]
+    out["t"]["finetune"] = time.perf_counter() - t0
+    return out
+
+
+P18_SEQ_CHECKS = (("ring_err", P18_RING_TOL), ("sharded_prefill_rel", P18_RING_TOL),
+                  ("pipeline_apply_err", 1e-4), ("1f1b_loss_rel", 1e-5),
+                  ("gpipe_loss_rel", 1e-5), ("1f1b_grad_err", 1e-4),
+                  ("gpipe_grad_err", 1e-4))
+
+
+def _p18_seq_line(r) -> str:
+    return (f"ring max|d| {r['ring_err']:.2e}, sharded prefill rel "
+            f"{r['sharded_prefill_rel']:.2e}; pipeline_apply {r['pipeline_apply_err']:.2e}, "
+            f"1f1b loss rel {r['1f1b_loss_rel']:.1e} grads {r['1f1b_grad_err']:.1e}, gpipe "
+            f"{r['gpipe_loss_rel']:.1e} / {r['gpipe_grad_err']:.1e}")
+
+
+def _p18_seq_check(part, r) -> None:
+    for key, tol in P18_SEQ_CHECKS:
+        if not r[key] <= tol:
+            raise AssertionError(f"phase 18 ({part}): {key} {r[key]} > {tol}")
+
+
+def phase18(torch):
+    n = torch.cuda.device_count()
+    log(f"== phase 18: multi-device paths (clearcam_tpu_torch.parallel): (a) {n} rank(s), "
+        "one a card over NCCL; (b) 2 ranks "
+        + ("on 2 cards over NCCL" if n >= 2 else "sharing card 0 over gloo (checks the "
+           "sharded shapes, not scale-out)"))
+    rng = np.random.default_rng(18)
+    frames = rng.integers(0, 256, (8, 1080, 1920, 3), np.uint8)
+    prompts = [list(rng.integers(1, 151000, int(t))) for t in np.linspace(24, 88, 8)]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = Path(tmp) / "ds"
+        _ft_dataset(ds, n=8)
+        t0 = time.time()
+        a = _p18_spawn("_p18a", n, "nccl", frames, prompts, str(ds))
+        out["a"] = a[0]
+        out["a"]["seconds"] = round(time.time() - t0, 1)
+        backend = "nccl" if n >= 2 else "gloo"
+        t2 = time.time()
+        b = _p18_spawn("_p18b", 2, backend, frames, prompts, str(ds))
+    out["a"]["engine_launches_by_rank"] = [x["engine"]["launches"] for x in a]
+    e = a[0]["engine"]
+    fa = a[0]["finetune"]
+    fa["rel"] = max(abs(x - y) / abs(y)
+                    for x, y in zip(fa["losses"], b[0]["finetune"]["one_rank"]))
+    log(f"(a) NCCL x{n}: detect rows vs solo {a[0]['detect']['mismatches']} mismatches, "
+        f"stem launches by rank {[x['detect']['stem_launches'] for x in a]}; "
+        f"{_p18_seq_line(a[0])}; tp engine tokens equal {e['tokens_equal']}, launches "
+        f"{e['launches']}; finetune x{n} losses {fa['losses']} (rel {fa['rel']:.1e} to one "
+        f"device), stem launches by rank {[x['finetune']['stem_launches'] for x in a]}; "
+        f"seconds {a[0]['t']}")
+    _p18_seq_check("a", a[0])
+    if not e["tokens_equal"] or min(x["detect"]["stem_launches"] for x in a) < 1 \
+            or min(x["engine"]["launches"]["quant_linear"] for x in a) < 1 \
+            or min(x["engine"]["launches"]["decode_attention_batch"] for x in a) < 1 \
+            or min(x["finetune"]["stem_launches"] for x in a) < 3 \
+            or not fa["rel"] <= P18_FT_TOL:
+        raise AssertionError("phase 18 (a): tokens differ, a kernel did not launch or the "
+                             "finetune loss is off")
+    out["b"] = b[0]
+    out["b"]["seconds"] = round(time.time() - t2, 1)
+    if n < 2:
+        out["b"]["note"] = ("2 ranks share one card: a check of correctness and the "
+                            "shard shapes, not a measure of scale-out")
+    for name in ("bf16 KV", "int8 KV"):
+        r0 = b[0][name]
+        steps = r0["decode_steps"]
+        r0["launches_by_rank"] = [x[name]["launches"] for x in b]
+        r0["reduce_by_rank"] = [x[name]["reduce"] for x in b]
+        r0["decode_tokens_per_s"] = r0["new_tokens"] / r0["seconds"]
+        r0["ms_a_step"] = 1e3 * r0["seconds"] / max(steps, 1)
+        r0["collective_ms_a_step"] = 1e3 * (r0["channel_s"] + r0["reduce"]["seconds"]) \
+            / max(steps, 1)
+        r0["one_rank_ms_a_step"] = 1e3 * r0["one_rank_s"] / max(r0["one_rank_steps"], 1)
+        kern = "decode_attention_batch_q8" if name == "int8 KV" else "decode_attention_batch"
+        log(f"(b) {backend} x2, Qwen3-1.7B 28 blocks int8, {name}, 8 slots, 8 requests "
+            f"24-88 tokens + 24 new: tokens equal one rank {r0['tokens_equal']}; "
+            f"{r0['decode_tokens_per_s']:.1f} new tokens/s over the run, "
+            f"{r0['ms_a_step']:.1f} ms a step ({steps} steps; one rank "
+            f"{r0['one_rank_ms_a_step']:.1f} ms), collectives {r0['collective_ms_a_step']:.2f}"
+            f" ms a step (channel {1e3 * r0['channel_s'] / max(steps, 1):.2f}, "
+            f"{r0['reduce']['calls']} block reductions {1e3 * r0['reduce']['seconds']:.1f} ms "
+            f"in all); KV heads a rank {r0['kv_heads']}; launches by rank "
+            f"{r0['launches_by_rank']}")
+        if not r0["tokens_equal"] or r0["kv_heads"] != 4 or min(
+                x[name]["launches"]["quant_linear"] for x in b) < 1 or min(
+                x[name]["launches"][kern] for x in b) < 1:
+            raise AssertionError(f"phase 18 (b) {name}: tokens differ or a kernel did "
+                                 "not launch at the shard's shapes")
+    v = b[0]["vlm"]
+    v["vit_by_rank"] = [x["vlm"]["vit_attention_launches"] for x in b]
+    d = b[0]["detect"]
+    d["stem_by_rank"] = [x["detect"]["stem_launches"] for x in b]
+    f = b[0]["finetune"]
+    f["rel"] = max(abs(x - y) / abs(y) for x, y in zip(f["losses"], f["one_rank"]))
+    log(f"(b) {backend} x2, host-staged ops {b[0]['host_staged']}: {_p18_seq_line(b[0])}; "
+        f"VLMServingEngine(mesh=) Qwen3-VL-2B widths, 2 blocks: text equal solo "
+        f"{v['text_equal']}, KV heads a rank {v['kv_heads']}, vit_attention launches by "
+        f"rank {v['vit_by_rank']}; detect x2 data ranks: stem launches by rank "
+        f"{d['stem_by_rank']}; finetune (1, 2) mesh losses {f['losses']} vs one rank "
+        f"{f['one_rank']} (rel {f['rel']:.1e}); seconds {b[0]['t']}")
+    _p18_seq_check("b", b[0])
+    if not v["text_equal"] or min(v["vit_by_rank"]) < 1 or min(d["stem_by_rank"]) < 1 \
+            or not f["rel"] <= P18_FT_TOL:
+        raise AssertionError("phase 18 (b): VLM text, a kernel launch or the finetune "
+                             "loss off")
+    print(json.dumps({"phase18": out}, default=str), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
@@ -3200,7 +3716,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     build_s = max_err = times = fps = launches = attn_err = attn_times = clip_fps = None
     kern = llm_errs = llm_tps = int4_launches = served = k10 = vl_errs = vlm = None
-    probe = spec = fam = tools = ft = None
+    probe = spec = fam = tools = ft = multi = None
     phase_s = {}
 
     def run(n, fn, *a):
@@ -3245,12 +3761,14 @@ def main(argv=None) -> int:
         tools = run(16, phase16, torch)
     if 17 in phases:
         ft = run(17, phase17, torch)
+    if 18 in phases:
+        multi = run(18, phase18, torch)
     log(f"== done in {time.time() - t0:.1f} s (phases {phase_s}); build {build_s} s; detect "
         f"fps {fps}; image tower img/s (kernel, plain) {clip_fps}; 28-block int4 engine "
         f"decode tokens/s (kernel: True, plain: False) {llm_tps}; summaries "
         f"{None if vlm is None else vlm['summary_s']}; probe "
-        f"{None if probe is None else probe['tool']}; spec 28-block [tokens/s, "
-        f"dispatches/s, tokens per dispatch] {None if spec is None else spec['28block']}")
+        f"{None if probe is None else probe['tool']}; spec {SPEC_BLOCKS}-block [tokens/s, "
+        f"dispatches/s, tokens per dispatch] {None if spec is None else spec['engine']}")
     if vlm is not None:
         print(json.dumps({"summary_layers_ms": vlm["layers"]}))
     if vl_errs is not None:

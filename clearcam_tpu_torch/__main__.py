@@ -11,7 +11,13 @@ and the NVR loop. The host code (NVR, server, storage) is the port's copy
 of the JAX package's; the models run on ``--device``.
 
 ``--device`` defaults to ``cuda`` and fails when no GPU is usable; the CPU
-runs only with ``--device cpu``. ``CLEARCAM_DTYPE=f32|bf16`` picks the
+runs only with ``--device cpu``. ``--mesh N`` (or ``CLEARCAM_MESH``) runs N
+ranks, one a card over NCCL (gloo with ``--device cpu``): this process is rank 0 and starts the others
+(under ``torchrun`` it joins that group). The NVR, ingest and HTTP run on
+rank 0; detect batches shard over all N ranks' ``data`` axis
+(``BatchDetector(mesh=)``) and the summary engine's language model over
+their ``model`` axis (``NVR(llm_mesh=)``), the other ranks following each
+step (``parallel.mesh``). ``CLEARCAM_DTYPE=f32|bf16`` picks the
 detector's compute dtype (default bf16); the CLIP towers compute in their
 weights' dtype (f32 for the published checkpoint and for random init). On
 CUDA, turning CLIP on builds the attention kernel library, and a failed
@@ -64,25 +70,43 @@ def daily_restart(nvr, at=(0, 0)):
         restart_all_cams(nvr)
 
 
-def build_detector(settings, weights_dir: Path, device: str):
-    """YOLOv9 with published weights when present, random otherwise."""
+def build_meshes(n: int, device: str = "cuda"):
+    """(detect_mesh, llm_mesh) over the process group's n ranks, or (None,
+    None) for n <= 1: the same ranks, two layouts. Detection is
+    activation-dominated, so its batch data-parallels over all n
+    ("data"=n); the Qwen summary model is weight/KV-dominated, so it
+    tensor/expert-parallels over all n ("model"=n). Every rank calls it."""
+    if n <= 1:
+        return None, None
+    from .parallel import mesh as pmesh
+    return pmesh.make_mesh(n, data=n), pmesh.make_mesh(n, data=1)
+
+
+def build_detector(settings, weights_dir: Path, device: str, mesh=None):
+    """YOLOv9 with published weights when present, random otherwise. Under
+    ``mesh`` rank 0 first tells the other ranks to build theirs."""
     import torch
 
     from .models import yolov9
     from .runtime.nvr import BatchDetector
+    if mesh is not None and mesh.is_leader:
+        with mesh.channel.lock:
+            mesh.channel.send("main", "build_detector", settings, str(weights_dir))
     path = weights_dir / f"yolov9-{settings.model_size}.safetensors"
     params = None
     if path.exists():
         from .io import safetensors as st
         params = yolov9.convert_state_dict(st.load(path))
         print(f"loaded {path}")
-    else:
+    elif mesh is None or mesh.is_leader:
         print(f"weights not found at {path} — using random init (detections "
               "will be meaningless; drop the published safetensors there)")
     dtype = torch.float32 if os.environ.get("CLEARCAM_DTYPE") == "f32" \
         else torch.bfloat16
     det = BatchDetector(settings.model_size, int(settings.model_res),
-                        params=params, dtype=dtype, device=device)
+                        params=params, dtype=dtype, device=device, mesh=mesh)
+    if mesh is not None and not mesh.is_leader:
+        return det
     stem_on = yolov9.uses_stem_kernel(settings.model_size)
     route = f"CUDA, {det.kernel_library}" if det.kernel_library else "plain"
     print(f"detector: YOLOv9-{settings.model_size} res {det.res} {dtype} on "
@@ -105,7 +129,55 @@ def apply_finder_settings(finder, settings) -> None:
     (finder.init_face if settings.use_face else finder.turn_off_face)()
 
 
-def main(argv=None):
+def _qwen(size: str, weights_dir: Path, device: str):
+    """Qwen3-VL at the NVR's frame size from the GGUF pair in
+    ``weights_dir``; without it, "qwen unavailable" and None."""
+    try:
+        from .models.qwen3vl import Qwen3VL
+        q = Qwen3VL(size=f"{size}B", res=(544, 960), weights_dir=weights_dir,
+                    device=device)
+        q.prewarm()
+        return q
+    except Exception as e:  # noqa: BLE001
+        print(f"qwen unavailable: {e}", flush=True)
+        return None
+
+
+class _Follower:
+    """A follower rank of ``--mesh N`` (registered as "main" and "nvr" on
+    the command channel): builds the detector and the summary model when
+    rank 0 does, and the tensor-parallel summary engine when rank 0's NVR
+    does; ``Channel.follow`` runs their steps."""
+
+    def __init__(self, detect_mesh, llm_mesh, device):
+        self.detect_mesh, self.llm_mesh, self.device = detect_mesh, llm_mesh, device
+        self.qwen = None
+
+    def build_detector(self, settings, weights_dir):
+        build_detector(settings, Path(weights_dir), self.device, mesh=self.detect_mesh)
+
+    def build_qwen(self, size, weights_dir):
+        self.qwen = _qwen(size, Path(weights_dir), self.device)
+
+    def summary_engine(self, n_slots):
+        import torch
+        from .serving.vlm import VLMServingEngine
+        VLMServingEngine(self.qwen, n_slots=n_slots, state_dtype=torch.bfloat16,
+                         mesh=self.llm_mesh)
+
+
+def _follow(argv):
+    """Ranks 1..N-1 of ``--mesh N``: follow rank 0's detect and summary
+    steps until it stops."""
+    args = _parser().parse_args(argv)
+    detect_mesh, llm_mesh = build_meshes(args.mesh, args.device)
+    f = _Follower(detect_mesh, llm_mesh, args.device)
+    detect_mesh.channel.register_as("main", f)
+    detect_mesh.channel.register_as("nvr", f)
+    detect_mesh.follow()
+
+
+def _parser():
     ap = argparse.ArgumentParser(prog="python -m clearcam_tpu_torch")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--data", type=Path, default=Path("data"))
@@ -119,7 +191,29 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device of the detector and the object finder: "
                          "cuda (default, fails without a GPU), cuda:N, or cpu")
-    args = ap.parse_args(argv)
+    ap.add_argument("--mesh", type=int,
+                    default=int(os.environ.get("CLEARCAM_MESH", "0") or 0),
+                    help="scale over N ranks, one a card: detect batches "
+                         "data-parallel, the Qwen summary engine tensor-parallel "
+                         "(0/1 = one device); this process starts ranks 1..N-1 "
+                         "itself, or joins torchrun's group")
+    return ap
+
+
+def main(argv=None):
+    import sys
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parser().parse_args(argv)
+    detect_mesh = llm_mesh = ranks = None
+    if args.mesh > 1:
+        import torch
+        from .parallel import comm
+        avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if comm.default_backend(args.device) == "nccl" and avail < args.mesh:
+            raise SystemExit(f"--mesh {args.mesh}: only {avail} card(s) visible")
+        _, _, ranks = comm.start_ranks(args.mesh, _follow, (argv,), args.device)
+        detect_mesh, llm_mesh = build_meshes(args.mesh, args.device)
+        print(f"mesh: detect {detect_mesh}, summaries {llm_mesh}", flush=True)
 
     from .models.objects import ObjectFinder
     from .ops.stem import stem
@@ -137,7 +231,7 @@ def main(argv=None):
         db.run_put("global_settings", "all", settings)
 
     detector = None if args.no_detector else build_detector(
-        settings, args.weights, args.device)
+        settings, args.weights, args.device, detect_mesh)
 
     # always constructed (the towers load on init_*), so CLIP or faces can
     # be turned on later through /edit_settings without a restart
@@ -147,23 +241,18 @@ def main(argv=None):
 
     def build_qwen(s):
         """Qwen3-VL at the NVR's frame size from the GGUF pair in
-        --weights; without it, "qwen unavailable" and no summaries."""
-        try:
-            from .models.qwen3vl import Qwen3VL
-            q = Qwen3VL(size=f"{s.qwen_size}B", res=(544, 960),
-                        weights_dir=args.weights, device=args.device)
-            print("prewarming Qwen", flush=True)
-            q.prewarm()
-            print("DONE", flush=True)
-            return q
-        except Exception as e:  # noqa: BLE001
-            print(f"qwen unavailable: {e}", flush=True)
-            return None
+        --weights; without it, "qwen unavailable" and no summaries. Under
+        --mesh every rank loads it."""
+        if llm_mesh is not None:
+            with llm_mesh.channel.lock:
+                llm_mesh.channel.send("main", "build_qwen", s.qwen_size, str(args.weights))
+        print("loading and prewarming Qwen", flush=True)
+        return _qwen(s.qwen_size, args.weights, args.device)
 
     qwen = build_qwen(settings) if settings.use_qwen and settings.key else None
 
     nvr = NVR(db, args.data, settings, detector=detector,
-              object_finder=object_finder, qwen=qwen)
+              object_finder=object_finder, qwen=qwen, llm_mesh=llm_mesh)
     storage = StorageManager(args.data / "cameras")
     nvr.storage = storage
 
@@ -190,7 +279,7 @@ def main(argv=None):
         apply_finder_settings(object_finder, new)
         if detector is not None and (new.model_size != detector.size
                                      or int(new.model_res) != detector.res):
-            detector = build_detector(new, args.weights, args.device)
+            detector = build_detector(new, args.weights, args.device, detect_mesh)
             nvr.detector = detector
         want_qwen = new.use_qwen and new.key
         if want_qwen and (nvr.qwen is None or new.qwen_size != old.qwen_size):
@@ -239,6 +328,9 @@ def main(argv=None):
         storage.stop()
         if server:
             server.shutdown()
+        if ranks is not None:
+            detect_mesh.stop_followers()
+            ranks.close()
         print(f"stem.launches={stem.launches}", flush=True)
         print(f"vit_attention.launches={mha_flash.launches}", flush=True)
 

@@ -241,22 +241,34 @@ def _moe_experts(p, pre, cfg: TransformerConfig, x2, sel, probs):
     n, k = sel.shape
     dev, d = x2.device, x2.shape[-1]
     flat = sel.reshape(-1)
+    # an expert-parallel rank holds experts [e0, e0 + n_e) (parallel.mesh):
+    # pairs routed elsewhere sort last, under the out-of-range id n_e, and
+    # leave zero rows here
+    n_e = p[f"{pre}.ffn_gate_exps.weight"].shape[0]
+    tp = getattr(p, "tp", None)
+    if tp is not None and f"{pre}.ffn_down_exps.weight" in tp.split:
+        flat = flat - tp.rank * n_e
+        flat = torch.where((flat >= 0) & (flat < n_e), flat, n_e)
     order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=cfg.num_experts)
+    counts = torch.bincount(flat, minlength=n_e + 1)[:n_e]
     counts_h = counts.cpu()
     used_h = torch.nonzero(counts_h).flatten()
+    if used_h.numel() == 0:
+        return x2.new_zeros((n, d))
+    mine = int(counts_h.sum())
+    order = order[:mine]
     used = used_h.to(dev)
     e_sorted = flat[order]
-    group = torch.zeros(cfg.num_experts, dtype=torch.long, device=dev)
+    group = torch.zeros(n_e, dtype=torch.long, device=dev)
     group[used] = torch.arange(used_h.numel(), device=dev)
     g = group[e_sorted]                                     # each pair's group
-    row = torch.arange(n * k, device=dev) - (torch.cumsum(counts, 0) - counts)[e_sorted]
+    row = torch.arange(mine, device=dev) - (torch.cumsum(counts, 0) - counts)[e_sorted]
     xs = x2.new_zeros((used_h.numel(), int(counts_h.max()), d))
     xs[g, row] = x2[order // k]
     gate = _expert_products(xs, p[f"{pre}.ffn_gate_exps.weight"], used)
     up = _expert_products(xs, p[f"{pre}.ffn_up_exps.weight"], used)
     down = _expert_products(F.silu(gate) * up, p[f"{pre}.ffn_down_exps.weight"], used)
-    y = torch.empty((n * k, d), dtype=down.dtype, device=dev)
+    y = torch.zeros((n * k, d), dtype=down.dtype, device=dev)
     y[order] = down[g, row]
     return (y.reshape(n, k, d) * probs[..., None]).sum(1)
 
@@ -270,6 +282,9 @@ def _ffn(p, pre, cfg: TransformerConfig, x):
         out = _moe_experts(p, pre, cfg, x.reshape(-1, x.shape[-1]),
                            sel.reshape(-1, sel.shape[-1]),
                            probs.reshape(-1, probs.shape[-1])).reshape(x.shape)
+        tp = getattr(p, "tp", None)
+        if tp is not None and f"{pre}.ffn_down_exps.weight" in tp.split:
+            out = tp.reduce(out.contiguous())
         if f"{pre}.ffn_gate_shexp.weight" in p:
             sh = F.linear(F.silu(F.linear(x, p[f"{pre}.ffn_gate_shexp.weight"]))
                           * F.linear(x, p[f"{pre}.ffn_up_shexp.weight"]),
@@ -281,7 +296,27 @@ def _ffn(p, pre, cfg: TransformerConfig, x):
         return out
     gate = F.linear(x, p[f"{pre}.ffn_gate.weight"])
     up = F.linear(x, p[f"{pre}.ffn_up.weight"])
-    return F.linear(F.silu(gate) * up, p[f"{pre}.ffn_down.weight"])
+    return _linear_out(p, f"{pre}.ffn_down.weight", F.silu(gate) * up)
+
+
+def _linear_out(p, key: str, x):
+    """``F.linear(x, p[key])`` for the products that end a block's branch
+    (``attn_output``, ``ffn_down``). Under tensor parallelism, where ``key``
+    is row-split (``p.tp.split``, parallel.mesh), this rank's input columns
+    give a partial product and one ``all_reduce`` over the ``model`` group
+    completes it. A dense weight of another dtype than x (bf16 weights,
+    f32 residual) is multiplied with an f32 result, summed, then rounded to
+    the weight's dtype once, as the one-device product rounds its whole
+    sum."""
+    w = p[key]
+    tp = getattr(p, "tp", None)
+    if tp is None or key not in tp.split:
+        return F.linear(x, w)
+    if isinstance(w, torch.Tensor) and x.dtype != w.dtype:
+        part = _product_f32(x.to(w.dtype).reshape(1, -1, x.shape[-1]), w.T[None]) \
+            .reshape(*x.shape[:-1], w.shape[0])
+        return tp.reduce(part).to(w.dtype).to(x.dtype)
+    return tp.reduce(F.linear(x, w).contiguous())
 
 
 def _attn_mask(start_pos, t, ctx, pad_start=None, device=None):
@@ -379,10 +414,14 @@ def _attention_block(p, pre, cfg: TransformerConfig, x, state, start_pos, freqs,
     given, replaces the T = 1 attention math (the decode kernel). A state
     with "k_s"/"v_s" holds int8 K/V with per-token scales."""
     b, t, _ = x.shape
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.head_dim
     q = F.linear(x, p[f"{pre}.attn_q.weight"], p.get(f"{pre}.attn_q.bias"))
     k = F.linear(x, p[f"{pre}.attn_k.weight"], p.get(f"{pre}.attn_k.bias"))
     v = F.linear(x, p[f"{pre}.attn_v.weight"], p.get(f"{pre}.attn_v.bias"))
+    # head counts from the shapes: a tensor-parallel rank holds whole heads
+    # (parallel.mesh.shard_llm_params)
+    nkv = k.shape[-1] // hd
+    nh = q.shape[-1] // (2 * hd if cfg.attn_output_gate else hd)
     if cfg.qk_norm and cfg.qk_norm != hd:
         q = F.rms_norm(q, p[f"{pre}.attn_q_norm.weight"], cfg.norm_eps)
         k = F.rms_norm(k, p[f"{pre}.attn_k_norm.weight"], cfg.norm_eps)
@@ -433,7 +472,7 @@ def _attention_block(p, pre, cfg: TransformerConfig, x, state, start_pos, freqs,
     out = out.transpose(1, 2).reshape(b, t, nh * hd).to(x.dtype)
     if gate is not None:
         out = out * torch.sigmoid(gate)
-    return F.linear(out, p[f"{pre}.attn_output.weight"]), state
+    return _linear_out(p, f"{pre}.attn_output.weight", out), state
 
 
 def _mla_block(p, pre, cfg: TransformerConfig, x, state, start_pos, freqs,

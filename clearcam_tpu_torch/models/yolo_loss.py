@@ -175,17 +175,43 @@ class _Optimizer:
         return torch.optim.AdamW(list(params.values()), lr=self.lr, betas=(0.9, 0.999),
                                  eps=1e-8, weight_decay=WEIGHT_DECAY)
 
-    def clip(self, grads: list) -> None:
-        """optax's rule, in place: g * c / norm where norm >= c, else g."""
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in grads]))
+    def clip(self, grads: list, leaves: list | None = None) -> None:
+        """optax's rule, in place: g * c / norm where norm >= c, else g.
+        Tensor-parallel slices (``leaves`` marked ``tp_group``) add their
+        ranks' squares: one ``all_reduce`` over each group, so every rank
+        clips by the norm of the whole gradient."""
+        norms = torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+        groups = {getattr(p, "tp_group", None) for p in leaves or ()} - {None}
+        if groups:
+            from ..parallel import comm
+            for grp in groups:
+                mask = torch.tensor([getattr(p, "tp_group", None) is grp for p in leaves],
+                                    device=norms.device)
+                part = comm.all_reduce((torch.where(mask, norms, 0.0) ** 2).sum(), grp)
+                norms = torch.cat([torch.where(mask, 0.0, norms), part.sqrt()[None]])
+        norm = torch.linalg.vector_norm(norms)
         scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                             self.clip_norm / norm)
         torch._foreach_mul_(grads, scale)
 
 
+def average_over_data(mesh, grads: list, loss):
+    """The data-parallel mean, in place: each gradient and the loss summed
+    over the mesh's ``data`` group (one ``all_reduce`` each) and divided by
+    its size. Equal shards of a loss that is a mean over images give the
+    one-device step's gradients. -> the mean loss."""
+    from ..parallel import comm
+    d = mesh.shape["data"]
+    if d == 1:
+        return loss
+    grp = mesh.group("data")
+    for g in grads:
+        comm.all_reduce(g, grp).div_(d)
+    return comm.all_reduce(loss.clone(), grp) / d
+
+
 def make_finetune_step(size: str = "t", lr: float = 1e-3, clip_norm: float = 10.0,
-                       remat: bool = False):
+                       remat: bool = False, mesh=None):
     """-> (step, opt). ``opt.init(params)`` makes the optimizer state for a
     dict of leaf tensors (requires_grad); ``step(params, opt_state, frames,
     gt_boxes, gt_cls)`` -> (params, opt_state, loss) updates both in place
@@ -195,7 +221,13 @@ def make_finetune_step(size: str = "t", lr: float = 1e-3, clip_norm: float = 10.
     (non-reentrant), as the JAX step wraps it in ``jax.checkpoint``: the
     backward reruns the forward instead of keeping its activations. With
     the whole loss as one segment the rerun rebuilds them all before the
-    backward frees any, so the peak memory does not fall."""
+    backward frees any, so the peak memory does not fall.
+
+    ``mesh`` (``parallel.mesh``): each rank passes its data rank's rows and
+    its ``shard_params_tp`` params; the gradients are averaged over
+    ``data`` before the global-norm clip (whose norm counts the split
+    gradients once, over ``model``), so every rank steps on the same
+    gradients; the loss returned is the mean over ``data``."""
     opt = _Optimizer(lr, clip_norm)
     loss_fn = functools.partial(detection_loss, size=size)
     if remat:
@@ -206,12 +238,15 @@ def make_finetune_step(size: str = "t", lr: float = 1e-3, clip_norm: float = 10.
         leaves = list(params.values())
         loss = loss_fn(params, frames, gt_boxes, gt_cls)
         grads = list(torch.autograd.grad(loss, leaves))
-        opt.clip(grads)
+        loss = loss.detach()
+        if mesh is not None:
+            loss = average_over_data(mesh, grads, loss)
+        opt.clip(grads, leaves if mesh is not None else None)
         for p, g in zip(leaves, grads):
             p.grad = g
         opt_state.step()
         for p in leaves:
             p.grad = None
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     return step, opt

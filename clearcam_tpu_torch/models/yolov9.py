@@ -428,8 +428,9 @@ def _stem(params, x, train: bool):
     once (``STEM_PACKED_KEYS``) through the custom op, which
     ``torch.export`` traces as one call."""
     if train:
-        hwio = (F.oihw_to_hwio(params[src]) if params[src].ndim == 4 else params[src]
-                for src in STEM_KEYS.values())
+        # tensor-parallel slices are gathered first: the kernel takes whole filters
+        hwio = (F.oihw_to_hwio(F.whole(params[src])) if params[src].ndim == 4
+                else F.whole(params[src]) for src in STEM_KEYS.values())
         return stem_ops.stem_train(x, *hwio)
     return stem_ops.stem_packed_op(x, *(params[k] for k in STEM_PACKED_KEYS))
 

@@ -35,8 +35,73 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+class _GatherChannels(torch.autograd.Function):
+    """Every rank's slice along ``dim``, concatenated in rank order (one
+    ``all_gather``). The backward keeps this rank's slice of the gradient
+    and communicates nothing: every rank computes the same loss from the
+    gathered tensor, so the gradient reaching the slice is already whole
+    here. (``torch.distributed.nn.functional.all_gather`` sums the ranks'
+    gradients in its backward, which would count that one loss once a
+    rank.)"""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        import torch.distributed as dist
+        from ..parallel import comm
+        ctx.dim, ctx.n = dim, t.shape[dim]
+        ctx.r = dist.get_rank(group)
+        return comm.all_gather(t.contiguous(), group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.r * ctx.n, ctx.n), None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``group`` (one
+    ``all_reduce``). A conv on this rank's output channels sees only their
+    share of its input's gradient; the sum is the whole of it."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..parallel import comm
+        return comm.all_reduce(g.contiguous(), ctx.group), None
+
+
+def gather_channels(t, group, dim: int = 0):
+    """``_GatherChannels``: the whole tensor from every rank's slice."""
+    return _GatherChannels.apply(t, group, dim)
+
+
+def whole(t):
+    """A filter or bias whole: gathered over its ``tp_group`` (a
+    tensor-parallel training slice, ``parallel.mesh.shard_params_tp``), or
+    ``t`` itself."""
+    g = getattr(t, "tp_group", None) if t is not None else None
+    return t if g is None else gather_channels(t, g, 0)
+
+
 def conv2d_oihw(x, w, b=None, *, stride=1, padding=0, groups=1):
-    """NHWC conv with an OIHW (torch layout) filter; symmetric padding."""
+    """NHWC conv with an OIHW (torch layout) filter; symmetric padding.
+
+    A filter marked ``tp_group`` (``parallel.mesh.shard_params_tp``) holds
+    this rank's slice of the output channels: a plain conv runs the slice
+    and gathers the channels (``gather_channels``), its input's gradient
+    summed over the ranks (``_SumGrad``); a grouped one gathers the filter
+    and bias first."""
+    g = getattr(w, "tp_group", None)
+    if g is not None:
+        if groups != 1:
+            w, b = whole(w), whole(b)
+        else:
+            x = _SumGrad.apply(x, g) if x.requires_grad else x
+            y = tF.conv2d(_nchw(x), w, b, stride=stride, padding=padding)
+            return gather_channels(_nhwc(y), g, 3)
     return _nhwc(tF.conv2d(_nchw(x), w, b, stride=stride, padding=padding,
                            groups=groups))
 

@@ -194,6 +194,47 @@ def quantize_experts_int8(w: torch.Tensor) -> QuantExpert:
     return QuantExpert(q.contiguous(), s.contiguous())
 
 
+def _pack4(q: torch.Tensor) -> torch.Tensor:
+    """int4 values (int32 [O_pad, I_pad], I_pad a multiple of TI) packed two
+    to a byte, as ``quantize_int4`` packs them."""
+    o_pad, i_pad = q.shape
+    q = q.reshape(o_pad, i_pad // TI, TI)
+    lo, hi = q[..., :TI // 2], q[..., TI // 2:]
+    return ((hi << 4) | (lo & 0xF)).to(torch.int8).reshape(o_pad, i_pad // 2).contiguous()
+
+
+def slice_rows(w, start: int, stop: int):
+    """Output rows [start, stop) of a QuantLinear / QuantLinear4, exactly:
+    the int8 scales follow their rows, the int4 scales their columns; the
+    slice is padded again to the kernel's tiles (contiguous)."""
+    n = stop - start
+    if isinstance(w, QuantLinear):
+        q = _pad_to(w.q[start:stop], TO, 0).contiguous()
+        s = _pad_to(w.s[0, start:stop], TO, 0).reshape(1, -1).contiguous()
+        return QuantLinear(q, s, n, w.in_features)
+    packed = _pad_to(w.packed[start:stop], TO, 0).contiguous()
+    s = w.s[:, start:stop]
+    s = torch.cat([s, s.new_ones((s.shape[0], (-n) % TO))], 1).contiguous()
+    return QuantLinear4(packed, s, n, w.in_features)
+
+
+def slice_cols(w, start: int, stop: int):
+    """Input columns [start, stop) of a QuantLinear / QuantLinear4, exactly
+    (the partial product of a row-split matmul). int4 columns must be whole
+    scale groups of GROUP: a split inside a group raises."""
+    n = stop - start
+    if isinstance(w, QuantLinear):
+        q = _pad_to(w.q[:, start:stop], TI, 1).contiguous()
+        return QuantLinear(q, w.s.clone(), w.out_features, n)
+    if start % GROUP or stop % GROUP:
+        raise ValueError(f"int4 columns [{start}, {stop}) split a scale group of "
+                         f"{GROUP}")
+    q = _pad_to(w.unpack()[:, start:stop], TI, 1)
+    s = w.s[start // GROUP:stop // GROUP]
+    s = torch.cat([s, s.new_ones(((q.shape[1] - n) // GROUP, s.shape[1]))], 0)
+    return QuantLinear4(_pack4(q), s.contiguous(), w.out_features, n)
+
+
 def quant_linear_reference(x, w, b=None):
     """Plain version: dequantize, multiply in f32, scale (int8: after the
     product), add the bias in f32, cast to x's dtype. It is the XLA

@@ -99,23 +99,41 @@ class BatchDetector:
 
     On a CUDA device with the stem kernel on the model's path, the kernel
     is built and set up here (``kernel_library`` is its path), so a failed
-    build stops the detector's construction instead of every detect step."""
+    build stops the detector's construction instead of every detect step.
+
+    With ``mesh`` (``parallel.mesh.make_mesh``), every rank builds the
+    detector (and prepares the stem kernel on its card), and rank 0's
+    ``detect_many`` leads: for each shape group it sends the step to the
+    other ranks (which run ``mesh.follow()``), scatters the uint8 frames, a
+    contiguous slice of rows a ``data`` rank, and gathers every rank's
+    detections (``parallel.mesh.sharded_detect_fn``). Buckets are
+    ``data`` times a power of two, so every rank gets equal rows. Weights
+    are replicated (detect is activation-dominated)."""
 
     def __init__(self, size: str = "t", res: int = 960, params=None,
-                 dtype=torch.bfloat16, device="cuda"):
+                 dtype=torch.bfloat16, device="cuda", mesh=None):
         self.size, self.res, self.dtype = size, res, dtype
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.kernel_library = None
         if self.device.type == "cuda" and yolov9.uses_stem_kernel(size):
             self.kernel_library = stem_ops.prepare(self.device)
         self.params = yolov9.params_from_jax(
             params if params is not None else yolov9.init_params(size),
             self.device, dtype)
+        self.mesh = mesh
+        self._dp = 1
+        if mesh is not None:
+            from ..parallel import mesh as pmesh
+            self._dp = mesh.shape["data"]
+            self._step, _ = pmesh.sharded_detect_fn(mesh, size, res=res,
+                                                    compute_dtype=dtype)
+            self.name = mesh.channel.register("detect", self)
 
-    @staticmethod
-    def _bucket(n: int) -> int:
-        """Smallest power of two >= n: bounds the set of batch shapes."""
-        b = 1
+    def _bucket(self, n: int) -> int:
+        """Smallest dp * 2^k >= n: powers of two bound the set of batch
+        shapes, the dp factor keeps every bucket divisible by the mesh's
+        data axis."""
+        b = self._dp
         while b < n:
             b *= 2
         return b
@@ -137,12 +155,34 @@ class BatchDetector:
                                 device=self.device)
             batch[:n].copy_(torch.from_numpy(np.stack([frames[i] for i in idxs])))
             batch[n:].zero_()
-            preds = yolov9.detect(self.params, batch, size=self.size,
-                                  res=self.res, compute_dtype=self.dtype)
+            if self.mesh is None:
+                preds = yolov9.detect(self.params, batch, size=self.size,
+                                      res=self.res, compute_dtype=self.dtype)
+            else:
+                with self.mesh.channel.lock:
+                    self.mesh.channel.send(self.name, "sharded_rows", tuple(shape),
+                                           batch.shape[0])
+                    preds = self.sharded_rows(tuple(shape), batch.shape[0], batch)
             preds = preds.cpu().numpy()
             for j, i in enumerate(idxs):
                 out[i] = preds[j]
         return out  # type: ignore[return-value]
+
+    @torch.inference_mode()
+    def sharded_rows(self, shape: tuple, bucket: int, batch=None) -> torch.Tensor:
+        """One sharded detect step on every rank: rank 0's ``batch`` [bucket,
+        *shape] scattered (each rank gets its data rank's rows), detected,
+        gathered: [bucket, 300, 6] on every rank."""
+        from ..parallel import comm
+        rows = bucket // self._dp
+        local = torch.empty((rows, *shape), dtype=torch.uint8, device=self.device)
+        chunks = None
+        if batch is not None:
+            m = self.mesh.shape["model"]
+            chunks = [batch[(r // m) * rows:(r // m + 1) * rows].contiguous()
+                      for r in range(self.mesh.size)]
+        comm.scatter(local, chunks)
+        return self._step(self.params, local)
 
 
 class NativeIngest:
@@ -304,8 +344,9 @@ class NVR:
         import os as _os
         self.summary_slots = summary_slots if summary_slots is not None \
             else int(_os.environ.get("CLEARCAM_SUMMARY_SLOTS", "0") or 0)
-        # llm_mesh: a multi-device summary engine; the port takes None only
-        # (summary_engine raises otherwise)
+        # llm_mesh: a ("data", "model") parallel.mesh.Mesh; the summary
+        # engine's language model tensor/expert-parallels over its "model"
+        # axis (--mesh), rank 0 leading
         self.llm_mesh = llm_mesh
         self._summary_engine = None
         self._summaries: list[tuple] = []   # (request, cam_name, notify)
@@ -839,12 +880,15 @@ class NVR:
         kinds of request interleave in the same decode batch, driven by
         the NVR tick (single-device-consumer discipline)."""
         assert self.summary_slots > 0 and self.qwen is not None
-        if self.llm_mesh is not None:
-            raise NotImplementedError(
-                "a multi-device summary engine (llm_mesh) is not in "
-                "clearcam_tpu_torch yet (ROADMAP queue 1 item 7)")
         if self._summary_engine is None:
             from ..serving.vlm import VLMServingEngine
+            if self.llm_mesh is not None:
+                # the followers' object registered as "nvr" builds the same
+                # engine on their ranks (__main__'s follower), before this
+                # rank builds its own
+                with self.llm_mesh.channel.lock:
+                    self.llm_mesh.channel.send("nvr", "summary_engine",
+                                               self.summary_slots)
             # bf16 KV: the slots' cache is additional to the solo
             # qwen state — half the bytes, serving-grade numerics
             # max_restarts: a transient engine crash (one poisoned
@@ -853,7 +897,7 @@ class NVR:
             # rest of the NVR's life (serving.engine._recover)
             self._summary_engine = VLMServingEngine(
                 self.qwen, n_slots=self.summary_slots,
-                state_dtype=torch.bfloat16,
+                state_dtype=torch.bfloat16, mesh=self.llm_mesh,
                 max_restarts=int(os.environ.get(
                     "CLEARCAM_SERVING_RESTARTS", "3")))
         return self._summary_engine

@@ -42,6 +42,13 @@ thread sets its CUDA device before its first launch; ``kv_quant`` with
 ``use_pallas_decode`` or on a GatedDeltaNet (SSM) stack raises where the
 JAX engine turns spec off. SSM stacks serve without prefix reuse, as in
 the JAX engine (a recurrent state cannot be reused in part).
+
+Under a mesh (``mesh=``; ``parallel.mesh.serving_engine_tp``), where the
+JAX engine's graphs GSPMD-partition, every rank builds this engine on its
+shards and its slice of the cache; rank 0's is driven as on one device
+and the others mirror each graph call (``parallel.mesh.EngineRanks``).
+There ``spec_lookup`` is refused and a crashed step is not recovered
+(a reset on one rank alone would leave the others' caches behind).
 """
 from __future__ import annotations
 
@@ -183,8 +190,11 @@ class ServingEngine:
                  spec_lookup: int = 0, max_restarts: int = 0,
                  restart_window_s: float = 600.0,
                  constraints: dict | None = None, constraint_rows: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         assert cfg.max_context % llm.CHUNK == 0
+        if mesh is not None and spec_lookup:
+            raise ValueError("spec_lookup is not served over a mesh: its drafts and "
+                             "verify windows live in per-rank bookkeeping")
         # device-drafted (G+1)-token verify windows, 1..G+1 tokens a dispatch;
         # make_serving_fns refuses them with use_pallas_decode or SSM blocks
         self.spec = int(spec_lookup)
@@ -254,7 +264,12 @@ class ServingEngine:
             if not prefill_batch:
                 self.prefill_many = None     # always one slot-chunk per tick
             self._state_dtype, self._kv_quant = state_dtype, kv_quant
-            self.state = llm.init_state(cfg, batch=n_slots, dtype=state_dtype,
+            # under a mesh the cache holds this rank's KV heads
+            self._state_cfg = cfg
+            if mesh is not None:
+                from ..parallel import mesh as pmesh
+                self._state_cfg = pmesh.state_cfg(cfg, mesh)
+            self.state = llm.init_state(self._state_cfg, batch=n_slots, dtype=state_dtype,
                                         kv_quant=kv_quant, device=dev)
             self.aux = llm.init_serving_aux(cfg, n_slots, device=dev) if self.spec else None
             self.custom_prefill = custom_prefill     # (state, slot, pos, payload)
@@ -309,6 +324,12 @@ class ServingEngine:
         self._thread: threading.Thread | None = None
         self._stop = False
         self._dead = False
+        self.mesh = mesh
+        self.ranks = None
+        if mesh is not None:
+            from ..parallel import mesh as pmesh
+            self.max_restarts = 0
+            self.ranks = pmesh.EngineRanks(self, mesh)
 
     # -- client API --------------------------------------------------------
 
@@ -548,7 +569,7 @@ class ServingEngine:
             self._deadlines = sum(1 for w in self._waiting if w.deadline is not None)
             self._cancel = {r for r in self._cancel if not r.done}
             with torch.inference_mode():
-                self.state = llm.init_state(self.cfg, batch=self.n_slots,
+                self.state = llm.init_state(self._state_cfg, batch=self.n_slots,
                                             dtype=self._state_dtype,
                                             kv_quant=self._kv_quant, device=self.device)
                 if self.spec:

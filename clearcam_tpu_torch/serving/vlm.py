@@ -39,21 +39,29 @@ class VLMServingEngine:
     the engine is given ``kv_quant``). ``CLEARCAM_SPEC_LOOKUP=G`` > 0 serves with speculative
     verify windows (greedy summaries gain; sampled ones emit a token a
     window), on the plain attention route, since the decode kernels take
-    one query, and without ``CLEARCAM_SUMMARY_JSON``. ``mesh`` must be None
-    (multi-device serving is not in the port yet)."""
+    one query, and without ``CLEARCAM_SUMMARY_JSON``.
+
+    ``mesh`` (a ("data", "model") ``parallel.mesh.Mesh``): the language
+    model runs tensor/expert-parallel over ``model`` (the
+    ``parallel.mesh.serving_engine_tp`` layout). Every rank builds this
+    engine from its own Qwen3VL; rank 0 serves and the others run
+    ``mesh.follow()``. The vision tower is replicated: each rank runs it on
+    the image rank 0 sends with the image prefill, which writes the rank's
+    KV-head slice of the cache."""
 
     def __init__(self, qwen, n_slots: int = 2, mesh=None, **engine_kw):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a multi-device VLMServingEngine (mesh) is not in clearcam_tpu_torch "
-                "yet (ROADMAP queue 1 item 7)")
         self.qwen = qwen
+        params = qwen.lang.params
+        if mesh is not None:
+            from ..parallel import mesh as pmesh
+            params = pmesh.shard_llm_params(mesh, params, qwen.lang.cfg)
+            engine_kw.setdefault("spec_lookup", 0)
         impl = qwen._image_prefill_impl
         slotted = llm.make_slot_transform(
             lambda st_b, p, vp, img, sp: impl(p, vp, st_b, img, sp))
 
         def custom_prefill(state, slot, start_pos, img):
-            return slotted(state, slot, qwen.lang.params, qwen.vision.p, img, start_pos)
+            return slotted(state, slot, params, qwen.vision.p, img, start_pos)
 
         # summaries lead with an image segment, so text-prefix reuse never
         # fires: off, so retired slots park at 0 (the shortest kernel window)
@@ -79,8 +87,8 @@ class VLMServingEngine:
             from .constrain import schema_token_constraint
             engine_kw["constraints"] = {"alert": schema_token_constraint(
                 qwen.tok, qwen.lang.cfg.vocab_size, ALERT_SCHEMA)}
-        self.engine = ServingEngine(qwen.lang.params, qwen.lang.cfg, n_slots=n_slots,
-                                    custom_prefill=custom_prefill, **engine_kw)
+        self.engine = ServingEngine(params, qwen.lang.cfg, n_slots=n_slots,
+                                    custom_prefill=custom_prefill, mesh=mesh, **engine_kw)
         self.n_img = qwen.toks_per_img + len(qwen._prefix) + len(qwen._suffix)
 
     def submit(self, images, prompt: str, max_new: int = 256,

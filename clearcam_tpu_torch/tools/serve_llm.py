@@ -17,7 +17,10 @@ tokenizer. ``--int8`` quantizes the weights (the quant-matmul kernel),
 ``--pallas`` runs the decode step's attention through the batched
 decode-attention kernel (its int8 form with ``--kv-quant``), ``--spec G``
 serves speculative verify windows of G drafted tokens (greedy requests;
-not with ``--pallas``, whose kernels take one query). The HTTP server is
+not with ``--pallas``, whose kernels take one query). ``--mesh N`` serves
+tensor/expert-parallel over N ranks (``parallel.mesh.serving_engine_tp``):
+the process starts ranks 1..N-1 itself (or joins ``torchrun``'s group),
+one rank a card over NCCL (gloo with ``--device cpu``); HTTP is served on rank 0 only. The HTTP server is
 the JAX package's jax-free one, copied into the port (``server.http``).
 On SIGTERM or SIGINT it stops and prints each kernel's launch count.
 """
@@ -70,11 +73,13 @@ class _AsciiTok:
                          for i in range(1, self.vocab)]
 
 
-def build_engine(args):
+def build_engine(args, mesh=None):
+    """The engine ``args`` ask for; under ``mesh`` this rank's
+    tensor-parallel engine (``parallel.mesh.serving_engine_tp``)."""
     from ..models import llm
     from ..serving import ServingEngine, TextServing
 
-    dev = resolve_device(args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     if args.synthetic:
         cfg = llm.qwen3_2b_cfg(args.blocks, args.ctx)
         params = llm.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
@@ -86,7 +91,9 @@ def build_engine(args):
     if args.int8:
         params = llm.quantize_params_int8(params)
     constraints = None
-    if args.json_depth > 0 and not args.spec:
+    # a follower rank samples nothing it keeps: no grammar table there
+    leads = mesh is None or mesh.is_leader
+    if args.json_depth > 0 and not args.spec and leads:
         # the JSON grammar (response_format json_object): one [S, V] int16
         # table on the card
         import time
@@ -101,14 +108,30 @@ def build_engine(args):
         print(f"json constraint: {tc.trans.shape[0]} states x {tc.trans.shape[1]} "
               f"vocab ({tc.trans.nbytes / 1e6:.0f} MB, built in "
               f"{time.monotonic() - t0:.1f}s)", flush=True)
-    eng = ServingEngine(params, cfg, n_slots=args.slots, state_dtype=torch.bfloat16,
-                        kv_quant=args.kv_quant, use_pallas_decode=args.pallas,
-                        sync_lag=args.sync_lag, fetch_every=args.fetch_every,
-                        max_waiting=args.max_waiting, spec_lookup=args.spec,
-                        max_restarts=args.max_restarts, constraints=constraints,
-                        constraint_rows=0 if args.spec else args.constraint_rows,
-                        device=dev)
+    engine_kw = dict(n_slots=args.slots, state_dtype=torch.bfloat16,
+                     kv_quant=args.kv_quant, use_pallas_decode=args.pallas,
+                     sync_lag=args.sync_lag, fetch_every=args.fetch_every,
+                     max_waiting=args.max_waiting, spec_lookup=args.spec,
+                     max_restarts=args.max_restarts, constraints=constraints,
+                     constraint_rows=0 if args.spec or not leads else args.constraint_rows)
+    if mesh is not None:
+        # tensor/expert-parallel over the "model" axis: weights and KV cache
+        # split, every prefill and decode mirrored by the follower ranks
+        from ..parallel import mesh as pmesh
+        eng = pmesh.serving_engine_tp(params, cfg, mesh, **engine_kw)
+    else:
+        eng = ServingEngine(params, cfg, device=dev, **engine_kw)
     return TextServing(eng, tok)
+
+
+def _follow(argv):
+    """A follower rank of ``--mesh N``: the same engine on this rank's
+    shards, mirroring rank 0's steps until it stops."""
+    from ..parallel import mesh as pmesh
+    args = parse_args(argv)
+    mesh = pmesh.make_mesh(args.mesh, data=1)
+    build_engine(args, mesh)
+    mesh.follow()
 
 
 def parse_args(argv=None):
@@ -148,26 +171,38 @@ def parse_args(argv=None):
     ap.add_argument("--constraint-rows", type=int, default=512, dest="constraint_rows",
                     help="table rows reserved for grammars registered at runtime")
     ap.add_argument("--api-token", default=None)
-    ap.add_argument("--mesh", type=int, default=0,
-                    help="multi-device serving: not ported yet")
+    ap.add_argument("--mesh", type=int,
+                    default=int(os.environ.get("CLEARCAM_MESH", "0") or 0),
+                    help="tensor-parallel the model over N ranks, one a card "
+                         "(weights and KV cache split; 0/1 = one device); the "
+                         "process starts ranks 1..N-1 itself, or joins torchrun's")
     args = ap.parse_args(argv)
     if args.gguf is None and not args.synthetic:
         ap.error("--gguf PATH or --synthetic required")
     if args.spec and args.pallas:
         ap.error("--spec excludes --pallas: a verify window has G+1 queries, the "
                  "decode kernels take one")
-    if args.mesh > 1:
-        raise SystemExit("--mesh: multi-device serving is not in clearcam_tpu_torch "
-                         "yet (ROADMAP queue 1 item 7)")
+    if args.spec and args.mesh > 1:
+        ap.error("--spec is not served over --mesh (its drafts live in per-rank "
+                 "bookkeeping)")
     return args
 
 
 def main(argv=None):
+    import sys
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     from ..ops.decode_attention import decode_attention_batch, decode_attention_batch_q8
     from ..ops.quant_matmul import quant_linear
 
-    gen = build_engine(args)
+    mesh = ranks = None
+    if args.mesh > 1:
+        from ..parallel import comm
+        from ..parallel import mesh as pmesh
+        _, _, ranks = comm.start_ranks(args.mesh, _follow, (argv,), args.device)
+        mesh = pmesh.make_mesh(args.mesh, data=1)
+        print(f"mesh: {mesh}", flush=True)
+    gen = build_engine(args, mesh)
     gen.engine.start()                       # own scheduler thread
     from ..server.http import AppContext, serve
     from ..utils.db import KVStore
@@ -177,6 +212,9 @@ def main(argv=None):
     server = serve(ctx, port=args.port)
     if server is None:
         gen.engine.close()
+        if ranks is not None:
+            mesh.stop_followers()
+            ranks.close()
         raise SystemExit(f"port {args.port} in use")
     print(f"LLM serving on :{args.port} ({args.slots} slots, ctx {args.ctx}, "
           f"device {gen.engine.device})", flush=True)
@@ -189,6 +227,9 @@ def main(argv=None):
     finally:
         server.shutdown()
         gen.engine.close()
+        if ranks is not None:
+            mesh.stop_followers()
+            ranks.close()
         print(f"quant_matmul.launches={quant_linear.launches}", flush=True)
         print(f"decode_attention.launches={decode_attention_batch.launches}", flush=True)
         print(f"decode_attention_batch_q8.launches={decode_attention_batch_q8.launches}",

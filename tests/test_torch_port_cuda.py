@@ -1094,3 +1094,46 @@ def test_bundle_traced_on_the_cpu_replays_on_the_card(cuda, tmp_path):
     out = rep(frames)
     assert tstem.stem.launches == before + 1
     assert detection_mismatches(on_cpu, out) == []
+
+
+def test_tp_decode_on_the_card_two_gloo_ranks(cuda, tmp_path):
+    """Two gloo ranks share the card: the int8-weight tp engine (half the
+    heads and KV heads a rank) launches the quant-matmul and batched
+    decode-attention kernels on both ranks, at the shard's shapes, and
+    decodes the tokens of the one-device engine on the same weights."""
+    import torch_parallel_workers as W
+    from torch_ranks import run_ranks
+    cfg = tllm.TransformerConfig(
+        num_blocks=2, dim=256, hidden_dim=512, n_heads=4, n_kv_heads=2, norm_eps=1e-5,
+        vocab_size=512, head_dim=128, rope_theta=1e4, rope_dim=128, v_head_dim=128,
+        max_context=128, qk_norm=128)
+    params = tllm.init_params(cfg, seed=3)
+    script = [("submit", [1, 2, 3, 4, 5], 6), ("step", 2), ("submit", [9, 8, 7], 5),
+              ("idle",)]
+    outs = run_ranks(W.tp_decode_on_card, 2, tmp_path, str(tmp_path / "rdv"), cfg,
+                     params, script, init=False)
+    for o in outs:
+        assert o["kshape"] == (2, 1, 128, 128)
+        assert o["quant_linear"] > 0 and o["decode_attention_batch"] > 0
+    from clearcam_tpu_torch.serving.engine import ServingEngine
+    solo = ServingEngine(tllm.quantize_params_int8({k: v.to(cuda) for k, v in params.items()}),
+                         cfg, n_slots=2, state_dtype=torch.bfloat16, use_pallas_decode=True)
+    assert outs[0]["tokens"] == W._drive(solo, script)
+    solo.close()
+
+
+def test_ring_attention_shard_on_cuda_nccl_world_one(cuda, tmp_path):
+    """ring_attention_shard on CUDA tensors in a one-rank NCCL group equals
+    plain causal attention."""
+    import torch_parallel_workers as W
+    from torch_ranks import run_ranks
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.normal(size=(2, 64, 4, 32)).astype(np.float32) for _ in range(3))
+    o = run_ranks(W.ring_on_card, 1, tmp_path, str(tmp_path / "rdv"), q, k, v,
+                  init=False)[0]
+    assert o["backend"] == "nccl"
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(32)
+    s = np.where(np.tril(np.ones((64, 64), bool)), s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    ref = np.einsum("bhqk,bkhd->bqhd", p / p.sum(-1, keepdims=True), v)
+    np.testing.assert_allclose(o["out"], ref, rtol=1e-4, atol=1e-4)

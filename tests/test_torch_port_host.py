@@ -85,9 +85,14 @@ def test_profile_writes_a_torch_trace(tmp_path):
 
 def test_summary_engine_is_the_ports(tmp_path):
     """NVR.summary_engine (runtime/nvr.py's change) builds the port's
-    VLMServingEngine over a bf16 cache; a multi-device mesh raises."""
+    VLMServingEngine over a bf16 cache; with llm_mesh (here a one-rank gloo
+    group) it builds the tensor-parallel one on that mesh, which serves a
+    summary with the same text as the one-device engine (two ranks:
+    tests/test_torch_port_parallel_tp.py)."""
+    import torch.distributed as dist
     from test_torch_port_qwen3vl import _vlms
 
+    from clearcam_tpu_torch.parallel import mesh as pmesh
     from clearcam_tpu_torch.runtime.nvr import NVR
     from clearcam_tpu_torch.serving.engine import ServingEngine
     from clearcam_tpu_torch.serving.vlm import VLMServingEngine
@@ -95,16 +100,27 @@ def test_summary_engine_is_the_ports(tmp_path):
     _, qwen = _vlms()
     nvr = NVR(KVStore(tmp_path / "kv.db"), tmp_path / "data", qwen=qwen, summary_slots=2,
               use_native_ingest=False)
+    frame = np.zeros((48, 80, 3), np.uint8)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rdv'}", rank=0,
+                            world_size=1)
     try:
         eng = nvr.summary_engine()
         assert isinstance(eng, VLMServingEngine) and isinstance(eng.engine, ServingEngine)
         assert eng.engine.state[0]["k"].dtype == torch.bfloat16
         assert nvr.summary_engine() is eng
-        nvr.llm_mesh, nvr._summary_engine = object(), None
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            nvr.summary_engine()
+        r = eng.submit([frame], "what is this", max_new=3, temperature=0.0)
+        eng.run_until_idle()
+        mesh = pmesh.make_mesh(1, data=1)
+        nvr.llm_mesh, nvr._summary_engine = mesh, None
+        tp = nvr.summary_engine()
+        assert tp is not eng and tp.engine.mesh is mesh and tp.engine.ranks is not None
+        assert tp.engine.state[0]["k"].dtype == torch.bfloat16
+        r2 = tp.submit([frame], "what is this", max_new=3, temperature=0.0)
+        tp.run_until_idle()
+        assert tp.text(r2) == eng.text(r)
     finally:
         nvr.stop()
+        dist.destroy_process_group()
 
 
 def test_object_finder_searches_like_jax(tmp_path):

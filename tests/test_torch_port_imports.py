@@ -59,7 +59,10 @@ def test_port_imports_with_jax_blocked():
         "tools", "tools.serve_llm", "tools.parity", "tools.llm_bench", "tools.vpu_probe",
         "models.rfdetr", "tools.latency_probe", "tools.clip_bench", "tools.clip_probe",
         "tools.cotenancy_bench", "tools.evaluate", "tools.mot", "models.yolo_loss",
-        "tools.finetune", "tools.export", "tools.clip_cli", "cloud.viewer")}
+        "tools.finetune", "tools.export", "tools.clip_cli", "cloud.viewer",
+        "parallel", "parallel.comm", "parallel.mesh", "parallel.federation",
+        "parallel.ringattn", "parallel.long_prefill", "parallel.pipeline",
+        "tools.gloo_cuda_probe")}
     assert expected <= names, expected - names
 
 

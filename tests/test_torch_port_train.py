@@ -274,16 +274,30 @@ def test_checkpoint_resume(tmp_path):
 
 
 def test_main_prints_its_summary_and_refuses_mesh(tmp_path, capsys):
+    """The ``# finetune`` line; then ``--mesh 2 --device cpu``: this process
+    leads 2 gloo ranks it starts itself on a (1, 2) mesh, and the written
+    parameters after 2 steps equal the one-device run's within 1e-5
+    relative (the step's losses: tests/test_torch_port_parallel_tp.py).
+    ``--mesh`` with no count and no card is refused."""
+    from clearcam_tpu_torch.io import safetensors as st
     root = make_dataset(tmp_path / "ds", n=2, size=96)
+    solo = TF.train(str(root), res=64, batch=2, steps=2, device="cpu",
+                    out=str(tmp_path / "solo.safetensors"))
     TF.main([str(root), "--res", "64", "--batch", "2", "--steps", "2",
-             "--device", "cpu", "--out", str(tmp_path / "o.safetensors")])
+             "--device", "cpu", "--out", str(tmp_path / "o.safetensors"),
+             "--mesh", "2"])
     line = [x for x in capsys.readouterr().out.splitlines() if x.startswith("# finetune ")]
-    summary = json.loads(line[0][len("# finetune "):])
+    summary = json.loads(line[-1][len("# finetune "):])
     assert summary["steps"] == 2 and summary["stem_launches"] == 0
     assert summary["device"] == "cpu" and summary["peak_bytes"] is None
-    with pytest.raises(SystemExit, match="queue 1 item 7"):
-        TF.main([str(root), "--mesh", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="queue 1 item 7"):
+    assert summary["mesh"] == {"data": 1, "model": 2}
+    a, b = st.load(tmp_path / "o.safetensors"), st.load(tmp_path / "solo.safetensors")
+    keys = sorted(b)
+    va = np.concatenate([np.ravel(a[k]) for k in keys]).astype(np.float64)
+    vb = np.concatenate([np.ravel(b[k]) for k in keys]).astype(np.float64)
+    assert np.linalg.norm(va - vb) <= 1e-5 * np.linalg.norm(vb)
+    assert len(solo) == 2
+    with pytest.raises(SystemExit, match="rank count"):
         TF.train(str(root), use_mesh=True, device="cpu")
 
 
