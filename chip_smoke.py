@@ -8,7 +8,8 @@ seed 0, int8 and int4) and the NVR's Qwen3-VL alert summaries (Qwen3-VL-2B
 widths, random weights from seed 0), speculative serving, the FMA-rate
 probe, RF-DETR nano with the MOT and evaluation tools, the measurement
 tools (latency_probe, clip_bench, clip_probe, cotenancy_bench), YOLOv9-t
-fine-tuning with the export and parity tools, and the
+fine-tuning with the export and parity tools, the multi-device paths, the
+UI verifier against the served NVR, the stem and host-link probes, and the
 hand-written kernels (stem, ViT attention,
 quant-matmul, decode attention in its batched, single-stream and
 int8-cache forms, the probe) on the card. Every phase raises on failure,
@@ -32,7 +33,11 @@ so the script exits non-zero:
      through its API as a user does (/edit_settings to YOLOv9-t 640, then
      use_clip and use_face on; /add_camera for two synthetic 1080p
      cameras): /healthz, one /yolo offload request, /metrics (detect_step
-     >= 3, no detect or tracker errors), /v1/embeddings (768-d unit rows,
+     >= 3, no detect or tracker errors), `python -m
+     clearcam_tpu_torch.tools.uicheck --url` against it and `--offline`
+     (0 problems each) and each camera page's /get_preds overlay tick run
+     once in the port's JS engine (one box drawn per row), /v1/embeddings
+     (768-d unit rows,
      with a small synthetic BPE merge table), an uploaded-image search,
      and, where the NVR saved object crops, their embeddings.pkl and a
      similar_img search that finds the crop itself first; stem and
@@ -211,10 +216,15 @@ so the script exits non-zero:
      ranks on a (1, 2) mesh, the loss within 1e-4 relative of one device.
      Two ranks on one card check correctness and the shard shapes, not
      scale-out
+ 19  `python -m clearcam_tpu_torch.tools.{stem_probe, stem_kernel_probe,
+     tunnel_probe}` at their defaults ([128,640,640,3] bf16, 30 steps):
+     the cuDNN stem pair whole and by conv with the card's bounds, the
+     stem kernel against the pair (max|d| <= 0.05, launched), and the host
+     costs of chained calls, uploads and lagged readbacks
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on a served path (phases 4, 9, 12
 and 13; int4 from phase 8's engine run; the stem's adds phase 17's training
-runs and replay), its error against the plain version,
+runs and replay and phase 19's probe), its error against the plain version,
 its time, the plain version's, the bound (the larger of its bytes over
 3.35 TB/s and its operations over the data sheet's peak for their type)
 and the time of one PyTorch call computing the same function where there
@@ -271,7 +281,7 @@ ATTN_TIMED = [(1, 257, "float32"), (16, 257, "float32"), (64, 257, "float32"),
               (16, 257, "bfloat16"), (1, 2040, "float32")]
 TOWER_COS = 1 - 1e-5                # towers, GPU vs CPU, cosine per row
 # BPE merges for the server's tokenizer: the real vocab is not in the repo
-ALL_PHASES = tuple(range(19))
+ALL_PHASES = tuple(range(20))
 MERGES = [("h", "e"), ("l", "l"), ("he", "ll"), ("hell", "o</w>"),
           ("w", "o"), ("r", "l"), ("wo", "rl"), ("worl", "d</w>")]
 
@@ -309,9 +319,7 @@ def phase0(torch):
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     from clearcam_tpu_torch.ops import _build
-    nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
-                          text=True, timeout=60, check=True).stdout.strip()
-    log(f"nvcc: {nvcc.splitlines()[-1]}")
+    log(f"nvcc: {_build.nvcc_version().strip().splitlines()[-1]}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     log("TF32 off for cuDNN and matmul: f32 comparisons are full f32")
@@ -646,6 +654,7 @@ def phase4():
                                      + out_path.read_text()[-4000:])
         log(f"/metrics: detect_step {snap['timers']['detect_step']}, "
             f"counters {counters}")
+        _uicheck(base)
         search = _object_search(base, tmp / "data" / "cameras", proc, out_path)
     finally:
         proc.send_signal(signal.SIGTERM)
@@ -671,6 +680,51 @@ def phase4():
             raise AssertionError(f"{what} never launched the {name} kernel")
     log(f"launches on the served paths: {launches}; object search: {search}")
     return launches
+
+
+def overlay_tick(base: str, cam: str) -> tuple:
+    """The camera page booted against the live server in the port's JS
+    engine, its /get_preds overlay tick run once -> (rows that tick's
+    /get_preds gave, boxes the overlay drew). tests/test_torch_port_ui.py
+    runs it against a CPU detector's rows."""
+    from clearcam_tpu_torch.jsengine.dom import Browser, live_fetch
+    fetch, seen = live_fetch(base), []
+
+    def recording(method, url, body):
+        status, payload = fetch(method, url, body)
+        if url.startswith("/get_preds"):
+            seen.append(len(json.loads(payload)["preds"]))
+        return status, payload
+    now = time.time()
+    # the page draws only on "today" by the browser's UTC clock
+    today = time.strftime("%Y-%m-%d", time.gmtime(now))
+    page = _get(f"{base}/?cam={urllib.parse.quote(cam)}&folder={today}", 30).decode()
+    b = Browser(page, fetch=recording, hls=False, now_ms=now * 1000)
+    b.call("drawPreds")
+    ops = b.el("overlay").js_get("getContext")("2d").ops
+    return seen[-1], sum(op == "strokeRect" for op, _ in ops)
+
+
+def _uicheck(base: str) -> dict:
+    """The port's UI verifier as a user runs it, against the live server and
+    on the repo's pages (each must report 0 problems), then each camera
+    page's overlay tick: every /get_preds row drawn."""
+    t0 = time.time()
+    for args in (["--url", base], ["--offline"]):
+        lines, _, _ = _tool(["uicheck", *args, "--json"], 300)
+        if lines != [{"ok": True, "problems": []}]:
+            raise AssertionError(f"uicheck {args[0]}: {lines}")
+    pages = sorted(p.name for p in (PKG_ROOT / "clearcam_tpu_torch" / "server" / "web")
+                   .glob("*.html"))
+    cams = sorted(json.loads(_get(f"{base}/list_cameras", 30)))
+    drawn = {cam: overlay_tick(base, cam) for cam in cams}
+    log(f"uicheck --url: 0 problems (mainview, cameraview {cams[:4]}: their scripts "
+        f"parsed and resolved, booted, drawPreds and refreshCounts run); --offline: 0 "
+        f"problems over {pages}; overlay tick (/get_preds rows, boxes drawn) {drawn}; "
+        f"{time.time() - t0:.1f} s")
+    if any(rows != boxes for rows, boxes in drawn.values()):
+        raise AssertionError(f"the overlay did not draw every /get_preds row: {drawn}")
+    return drawn
 
 
 def _object_search(base: str, cameras: Path, proc, out_path: Path) -> dict:
@@ -2845,7 +2899,8 @@ def _tool(args: list, timeout: int) -> tuple:
                            *args[1:]], capture_output=True, text=True, timeout=timeout,
                           cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(PKG_ROOT)))
     if proc.returncode != 0:
-        raise AssertionError(f"{args[0]}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+        raise AssertionError(f"{args[0]}: rc {proc.returncode}\n{proc.stdout[-2000:]}"
+                             f"{proc.stderr[-3000:]}")
     for x in proc.stdout.splitlines():
         log(f"  {args[0]}| {x}")
     lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
@@ -3688,6 +3743,39 @@ def phase18(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the stem's and the host link's probes
+# ---------------------------------------------------------------------------
+
+def phase19(torch):
+    log("== phase 19: tools.stem_probe, tools.stem_kernel_probe, tools.tunnel_probe at "
+        "their defaults")
+    out = {}
+    lines, _, _ = _tool(["stem_probe"], 300)
+    out["stem_probe"] = lines[-1]
+    lines, n, _ = _tool(["stem_kernel_probe"], 300)
+    k = lines[-1]
+    if not (n and n["stem"] > 0) or not k["max_abs_diff"] <= BF16_TOL \
+            or k["s2d_layout_ms_unfused"] is not None:
+        raise AssertionError(f"stem_kernel_probe: {k}, launches {n}")
+    out["stem_kernel_probe"] = {**k, "launches": n["stem"]}
+    lines, _, text = _tool(["tunnel_probe"], 120)
+    m = re.search(r"^# kernel launches a call: (\d+)$", text, re.M)
+    if m is None or int(m.group(1)) < 1:
+        raise AssertionError(f"tunnel_probe launched no kernel:\n{text[-2000:]}")
+    out["tunnel_probe"] = {**lines[-1], "launches_a_call": int(m.group(1))}
+    sp = out["stem_probe"]
+    log(f"stem [128,640,640,3] bf16: kernel {k['kernel_stem_ms']:.4f} ms, cuDNN pair "
+        f"{k['cudnn_stem_ms']:.4f} ms ({k['speedup_vs_cudnn']:.2f}x), max|d| "
+        f"{k['max_abs_diff']:.3e}, {n['stem']} launches; pair by conv {sp['conv1_ms']:.4f} + "
+        f"{sp['conv2_ms']:.4f} ms, s2d conv1 {sp['conv1_s2d_2x2s1_ms']:.4f} ms; bounds "
+        f"{sp['roofline_ms_min_traffic']:.4f} ms (bytes), "
+        f"{sp['roofline_ms_with_mid_roundtrip']:.4f} (with the intermediate), "
+        f"{sp['tensor_core_ms_at_peak']:.4f} (operations)")
+    print(json.dumps({"phase19": out}), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
@@ -3716,7 +3804,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     build_s = max_err = times = fps = launches = attn_err = attn_times = clip_fps = None
     kern = llm_errs = llm_tps = int4_launches = served = k10 = vl_errs = vlm = None
-    probe = spec = fam = tools = ft = multi = None
+    probe = spec = fam = tools = ft = multi = probes = None
     phase_s = {}
 
     def run(n, fn, *a):
@@ -3763,6 +3851,8 @@ def main(argv=None) -> int:
         ft = run(17, phase17, torch)
     if 18 in phases:
         multi = run(18, phase18, torch)
+    if 19 in phases:
+        probes = run(19, phase19, torch)
     log(f"== done in {time.time() - t0:.1f} s (phases {phase_s}); build {build_s} s; detect "
         f"fps {fps}; image tower img/s (kernel, plain) {clip_fps}; 28-block int4 engine "
         f"decode tokens/s (kernel: True, plain: False) {llm_tps}; summaries "
@@ -3792,7 +3882,9 @@ def main(argv=None) -> int:
     # with spread positions for decode attention; the summary slice's rows
     # at phase 10's summary shapes, launches from phase 12's runs, the int8
     # batch form's from phase 9's --kv-quant --pallas server; the probe's
-    # f32 tile, launches from phase 13's run of the tool
+    # f32 tile, launches from phase 13's run of the tool. The stem's launches
+    # add phase 17's training and replay and phase 19's stem_kernel_probe, its
+    # error the larger of phase 2's and the probe's
     def row(name, source, replaces, n, err, t):
         ms, plain, lib, bms, by = t
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3803,7 +3895,9 @@ def main(argv=None) -> int:
     vl = vlm["launches"]
     print(json.dumps({"kernels": [
         row("stem", STEM_SOURCE, STEM_REPLACES,
-            launches["stem"] + ft["train_launches"] + ft["replay"]["launches"], max_err,
+            launches["stem"] + ft["train_launches"] + ft["replay"]["launches"]
+            + probes["stem_kernel_probe"]["launches"],
+            max(max_err, probes["stem_kernel_probe"]["max_abs_diff"]),
             (st[0], st[1], None, st[2], st[3])),
         row("vit_attention", ATTN_SOURCE, ATTN_REPLACES, launches["vit_attention"],
             attn_err["float32"], (at[0], at[1], at[2], at[3], at[4])),

@@ -20,3 +20,16 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev
+
+
+def card_line(dev: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them, for a
+    line beside its numbers; on the CPU, a line saying the numbers are the
+    host's."""
+    if dev.type != "cuda":
+        return "device: cpu (host numbers, not a card's)"
+    import subprocess
+    return "nvidia-smi: " + subprocess.run(
+        ["nvidia-smi", f"--id={dev.index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()

@@ -3,9 +3,11 @@
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, at first use, and loaded with ``ctypes``
 (no PyTorch headers, which would make nvcc far slower). The library goes to
-``clearcam_tpu_torch/build/`` (gitignored), named by a hash of the sources
-and flags, so an edited source is never shadowed by an old build. A failed
-build raises; nothing falls back to the plain versions.
+``clearcam_tpu_torch/build/`` (gitignored), named by a hash of the sources,
+the flags and ``nvcc --version``, so neither an edited source nor another
+toolkit is shadowed by an old build, even in a build directory shared or
+carried across machines. A failed build raises; nothing falls back to the
+plain versions.
 
 Override the toolkit with ``CUDA_HOME``; ``nvcc`` on ``PATH`` wins.
 """
@@ -81,8 +83,15 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def nvcc_version() -> str:
+    """What ``nvcc --version`` prints: the toolkit's release and build."""
+    return subprocess.run([nvcc_path(), "--version"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc_version().encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())

@@ -1137,3 +1137,28 @@ def test_ring_attention_shard_on_cuda_nccl_world_one(cuda, tmp_path):
     p = np.exp(s - s.max(-1, keepdims=True))
     ref = np.einsum("bhqk,bkhd->bqhd", p / p.sum(-1, keepdims=True), v)
     np.testing.assert_allclose(o["out"], ref, rtol=1e-4, atol=1e-4)
+
+
+def test_stem_and_tunnel_probes_on_the_card(cuda, capsys):
+    """tools/stem_kernel_probe holds the kernel against the cuDNN pair within
+    the stem's bf16 bound and launches it; tools/stem_probe and
+    tools/tunnel_probe time on the card and print its name and the
+    kernels a tunnel call launches."""
+    import re
+
+    from clearcam_tpu_torch.tools import stem_kernel_probe, stem_probe, tunnel_probe
+    n0 = tstem.stem.launches
+    argv = ["--batch", "8", "--res", "384", "--steps", "3"]
+    r = stem_kernel_probe.main(argv)
+    assert r["max_abs_diff"] < 0.05 and r["s2d_layout_ms_unfused"] is None
+    assert r["kernel_stem_ms"] > 0 and r["cudnn_stem_ms"] > 0
+    assert tstem.stem.launches - n0 == 1 + 2 * 3    # the check, a warm-up of 3, 3 timed
+    r = stem_probe.main(argv)
+    assert all(r[k] > 0 for k in ("stem_ms", "stem_split_ms", "conv1_ms", "conv2_ms",
+                                  "conv1_s2d_2x2s1_ms"))
+    r = tunnel_probe.main([])
+    assert all(r[k] > 0 for k in ("a_chained_ms", "b_upload_per_call_ms",
+                                  "c_lagged_readback_ms", "d_lagged_async_readback_ms"))
+    out = capsys.readouterr().out
+    assert out.count("# nvidia-smi: ") == 3
+    assert int(re.search(r"^# kernel launches a call: (\d+)$", out, re.M).group(1)) >= 1

@@ -62,7 +62,9 @@ def test_port_imports_with_jax_blocked():
         "tools.finetune", "tools.export", "tools.clip_cli", "cloud.viewer",
         "parallel", "parallel.comm", "parallel.mesh", "parallel.federation",
         "parallel.ringattn", "parallel.long_prefill", "parallel.pipeline",
-        "tools.gloo_cuda_probe")}
+        "tools.gloo_cuda_probe", "jsengine", "jsengine.es", "jsengine.interp",
+        "jsengine.dom", "jsengine.check", "tools.uicheck", "tools.fetch_weights",
+        "tools.stem_probe", "tools.stem_kernel_probe", "tools.tunnel_probe")}
     assert expected <= names, expected - names
 
 

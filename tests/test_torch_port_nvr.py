@@ -108,6 +108,27 @@ def test_batch_detector_fails_at_construction_without_nvcc(monkeypatch, tmp_path
         BatchDetector("t", res=64)
 
 
+def test_library_is_keyed_by_the_toolkit(monkeypatch, tmp_path):
+    """The kernel library's name hashes ``nvcc --version`` beside the sources
+    and flags (the role the JAX package's utils/jaxcache plays for XLA's
+    cache), so a build directory carried to a host with another toolkit
+    never loads the other toolkit's library."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\necho \"Cuda compilation tools, release $CC_RELEASE\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CC_RELEASE", "12.9, V12.9.41")
+    assert _build.nvcc_version() == "Cuda compilation tools, release 12.9, V12.9.41\n"
+    a = _build.library_path()
+    assert _build.library_path() == a and a.parent == _build.BUILD_DIR
+    monkeypatch.setenv("CC_RELEASE", "12.8, V12.8.93")
+    b = _build.library_path()
+    assert b != a and b.parent == a.parent
+    monkeypatch.setattr(_build, "nvcc_version", lambda: "Cuda compilation tools, "
+                        "release 12.9, V12.9.41\n")
+    assert _build.library_path() == a
+
+
 def _free_port():
     s = socket.socket()
     s.bind(("127.0.0.1", 0))

@@ -1,5 +1,6 @@
 """The port's measurement tools (clearcam_tpu_torch.tools.latency_probe,
-clip_bench, clip_probe, cotenancy_bench) on the CPU with ``--device cpu``
+clip_bench, clip_probe, cotenancy_bench, stem_probe, stem_kernel_probe,
+tunnel_probe) on the CPU with ``--device cpu``
 at their smallest settings: each tool's options are the JAX tool's plus
 ``--device``, its JSON lines carry the JAX tool's keys, and each refuses
 ``--device cuda`` without a GPU. The CLIP tools run a 1-block tower here
@@ -8,6 +9,7 @@ them at the same size where that is cheap."""
 import argparse
 import functools
 import json
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -21,6 +23,9 @@ from clearcam_tpu.tools import cotenancy_bench as jcot
 from clearcam_tpu.tools import evaluate as jeval
 from clearcam_tpu.tools import latency_probe as jlat
 from clearcam_tpu.tools import mot as jmot
+from clearcam_tpu.tools import stem_kernel_probe as jskp
+from clearcam_tpu.tools import stem_probe as jsp
+from clearcam_tpu.tools import tunnel_probe as jtunnel
 from clearcam_tpu_torch.models import clip as tclip
 from clearcam_tpu_torch.ops import vit_attention
 from clearcam_tpu_torch.testing import torch_threads
@@ -30,11 +35,15 @@ from clearcam_tpu_torch.tools import cotenancy_bench as tcot
 from clearcam_tpu_torch.tools import evaluate as teval
 from clearcam_tpu_torch.tools import latency_probe as tlat
 from clearcam_tpu_torch.tools import mot as tmot
+from clearcam_tpu_torch.tools import stem_kernel_probe as tskp
+from clearcam_tpu_torch.tools import stem_probe as tsp
+from clearcam_tpu_torch.tools import tunnel_probe as ttunnel
 
 CPU = torch.device("cpu")
 TOOLS = {"latency_probe": (jlat, tlat), "clip_bench": (jbench, tbench),
          "clip_probe": (jprobe, tprobe), "cotenancy_bench": (jcot, tcot),
-         "evaluate": (jeval, teval), "mot": (jmot, tmot)}
+         "evaluate": (jeval, teval), "mot": (jmot, tmot), "stem_probe": (jsp, tsp),
+         "stem_kernel_probe": (jskp, tskp)}
 # the JSON lines of the JAX cotenancy_bench (cotenancy_bench.py:196-219): it
 # needs the whole NVR workload, too slow to run beside the port's here
 COT_LADDER_KEYS = {"p50_ms", "p90_ms", "p99_ms", "streams_at_30fps"}
@@ -104,7 +113,8 @@ def test_device_cuda_raises_without_a_gpu(tool, tmp_path):
         pytest.skip("a CUDA device is present")
     argv = {"latency_probe": ["--reps", "1"], "clip_bench": ["--batches", "1"],
             "clip_probe": ["--batches", "1"], "cotenancy_bench": ["--blocks", "1"],
-            "evaluate": [str(tmp_path)], "mot": [str(tmp_path / "none.mp4")]}[tool]
+            "evaluate": [str(tmp_path)], "mot": [str(tmp_path / "none.mp4")],
+            "stem_probe": ["--batch", "1"], "stem_kernel_probe": ["--batch", "1"]}[tool]
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         TOOLS[tool][1].main(argv)
 
@@ -328,3 +338,87 @@ def test_clip_tools_full_tower(capsys):
     assert [r["stage"] for r in rows] == list(tprobe.STAGES)
     out = capsys.readouterr().out
     assert out.startswith("# device cpu")
+
+
+# ---------------------------------------------------------------------------
+# stem_probe, stem_kernel_probe, tunnel_probe
+# ---------------------------------------------------------------------------
+
+PROBE_ARGV = {"stem_probe": ["--batch", "2", "--res", "64", "--steps", "2"],
+              "stem_kernel_probe": ["--batch", "2", "--res", "64", "--steps", "2"],
+              "tunnel_probe": []}
+# the JAX stem_kernel_probe's keys (stem_kernel_probe.py:89-96; its Pallas
+# kernel does not run on the CPU outside interpret mode), the port's renames
+SKP_RENAMES = {"batch": "batch", "xla_stem_ms": "cudnn_stem_ms",
+               "pallas_stem_ms": "kernel_stem_ms",
+               "s2d_layout_ms_unfused": "s2d_layout_ms_unfused",
+               "speedup_vs_xla": "speedup_vs_cudnn", "max_abs_diff": "max_abs_diff"}
+
+
+def _jax_probe_keys(tool, capsys) -> set:
+    """The keys of the JSON line the JAX probe prints, run on the CPU."""
+    if tool == "stem_kernel_probe":
+        return set(SKP_RENAMES)
+    if tool == "stem_probe":
+        jsp.main(PROBE_ARGV[tool])
+    else:
+        jtunnel.main()
+    keys = set(_json_lines(capsys.readouterr().out)[-1])
+    keys.discard("async_err")       # the JAX tunnel_probe's caught error, if any
+    return keys
+
+
+@pytest.mark.parametrize("tool", sorted(PROBE_ARGV))
+def test_probe_keys_on_the_cpu(tool, capsys):
+    """Each probe at --device cpu prints the JAX probe's keys (with the
+    renames its docstring maps) plus ``device``, every number finite; the
+    card's line is a CPU line here."""
+    want = _jax_probe_keys(tool, capsys)
+    if tool == "stem_probe":
+        want = want - {"mxu_ms_at_2.6pct_util"} | {"tensor_core_ms_at_peak"}
+    elif tool == "stem_kernel_probe":
+        want = {SKP_RENAMES[k] for k in want}
+    n0 = tskp.S.stem.launches
+    mod = {"stem_probe": tsp, "stem_kernel_probe": tskp, "tunnel_probe": ttunnel}[tool]
+    res = mod.main(PROBE_ARGV[tool] + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert _json_lines(out) == [res]
+    assert set(res) == want | {"device"} and res["device"] == "cpu"
+    assert "# device: cpu (host numbers, not a card's)" in out.splitlines()
+    nums = {k: v for k, v in res.items() if k not in ("device", "s2d_layout_ms_unfused")}
+    assert all(isinstance(v, (int, float)) and np.isfinite(v) for v in nums.values()), res
+    if tool == "stem_kernel_probe":
+        assert res["s2d_layout_ms_unfused"] is None and res["max_abs_diff"] < 0.05
+        assert f'# launches {{"stem": {n0}}}' in out     # the CPU route launches nothing
+    if tool == "tunnel_probe":
+        assert "# kernel launches a call: none on the CPU" in out
+
+
+def test_tunnel_probe_options_and_refusal():
+    """The JAX tunnel_probe takes no option; the port's takes --device only,
+    and --device cuda (the default) raises without a GPU."""
+    assert _options(_parser(ttunnel.main)) == {"--device": ("device", "cuda", None)}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            ttunnel.main([])
+
+
+def test_stem_bounds_are_the_cards_at_the_defaults():
+    """At [128,640,640,3] bf16: 524 MB over 3.35 TB/s, +839 MB with the
+    intermediate's round trip, 41.5 GFLOP over the 989 TFLOP/s bf16 peak."""
+    b = tsp.bounds(128, 640)
+    assert b["roofline_ms_min_traffic"] == pytest.approx(524_288_000 / 3.35e12 * 1e3)
+    assert b["roofline_ms_with_mid_roundtrip"] == pytest.approx(
+        (524_288_000 + 838_860_800) / 3.35e12 * 1e3)
+    assert b["stem_gflop"] == pytest.approx(41.5236, rel=1e-4)
+    assert b["tensor_core_ms_at_peak"] == pytest.approx(41.5236e9 / 989e12 * 1e3, rel=1e-4)
+    assert [round(b[k], 3) for k in ("roofline_ms_min_traffic", "roofline_ms_with_mid_roundtrip",
+                                     "tensor_core_ms_at_peak")] == [0.157, 0.407, 0.042]
+
+
+def test_probes_carry_no_tpu_constant():
+    """Neither the v5e's 819 GB/s nor the MXU's 197 TFLOP/s at 2.6% is a
+    rate of the port's probes."""
+    for mod in (tsp, tskp, ttunnel):
+        src = Path(mod.__file__).read_text()
+        assert not any(c in src for c in ("819e9", "819 GB", "197e12", "0.026")), mod

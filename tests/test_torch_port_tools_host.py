@@ -1,10 +1,13 @@
-"""The port's export, parity, clip_cli and viewer tools on the CPU, held
-against the JAX package's where both have the tool: the exported detect
+"""The port's export, parity, clip_cli, viewer and fetch_weights tools on
+the CPU, held against the JAX package's where both have the tool: the
+exported detect
 program replays equal to eager ``detect`` and to the JAX bundle's rows, in
 a process that imports no model module; parity's checks skip missing files
 and a golden recorded by either package passes the other's check; and the
 tracing fault of the device-constant caches (a ``torch.export`` before any
-eager call left FakeTensors in them) stays repaired."""
+eager call left FakeTensors in them) stays repaired. fetch_weights plans the
+JAX tool's downloads and, with the JAX package blocked, extracts the same
+ggml grids; nothing here touches the network."""
 import json
 import os
 import subprocess
@@ -18,6 +21,7 @@ import torch
 
 from clearcam_tpu.models import yolov9 as J
 from clearcam_tpu.tools import export as jexport
+from clearcam_tpu.tools import fetch_weights as jfetch
 from clearcam_tpu.tools import finetune as jfinetune
 from clearcam_tpu.tools import parity as jparity
 from clearcam_tpu_torch.cloud.crypto import encrypt_bytes, encrypt_file
@@ -26,6 +30,7 @@ from clearcam_tpu_torch.models import rfdetr
 from clearcam_tpu_torch.models import yolov9 as T
 from clearcam_tpu_torch.testing import compared_rows, detection_mismatches, torch_threads
 from clearcam_tpu_torch.tools import clip_cli, parity
+from clearcam_tpu_torch.tools import fetch_weights as tfetch
 from clearcam_tpu_torch.tools import export as texport
 
 from test_viewer import CLIP, KEY, relay  # noqa: F401  (the mock relay fixture)
@@ -230,3 +235,124 @@ def test_viewer_flows(relay, tmp_path):  # noqa: F811
         c.download_event(events[0], "badkey")
     assert not ViewerClient("wrong", base_url=relay).validate_user()
     assert encrypt_bytes(CLIP, KEY) != CLIP
+
+
+# ---------------------------------------------------------------------------
+# fetch_weights
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def no_network(monkeypatch):
+    """urlopen of anything but a file:// URL fails the test."""
+    import urllib.request
+    real = urllib.request.urlopen
+
+    def local_only(url, *a, **k):
+        assert str(getattr(url, "full_url", url)).startswith("file://"), url
+        return real(url, *a, **k)
+    monkeypatch.setattr(urllib.request, "urlopen", local_only)
+
+
+@pytest.mark.parametrize("group", sorted(jfetch.URLS) + ["all"])
+def test_fetch_plan_is_the_jax_tools(group, tmp_path):
+    """Every model group plans the JAX tool's URL candidates into the same
+    destinations."""
+    assert tfetch.URLS.keys() == jfetch.URLS.keys()
+    models = list(jfetch.URLS) if group == "all" else [group]
+    args = (models, tmp_path / "w", tmp_path / "f", ["t", "s", "e"], 4)
+    assert tfetch.plan(*args) == jfetch.plan(*args) != []
+
+
+def test_fetch_dry_run_touches_nothing(tmp_path, capsys, no_network):
+    argv = ["--dest", str(tmp_path / "w"), "--fixtures", str(tmp_path / "f"),
+            "--models", "all", "--yolo-sizes", "t", "s", "--dry-run"]
+    out = []
+    for tool in (tfetch, jfetch):
+        with pytest.raises(SystemExit) as e:
+            tool.main(argv)
+        assert e.value.code == 0
+        out.append(capsys.readouterr().out)
+    assert list(tmp_path.iterdir()) == []
+    assert out[0] == out[1] and out[0].count("would fetch") == 11
+
+
+def test_fetch_copies_a_file_url_and_leaves_no_part_file(tmp_path, capsys, no_network):
+    src = tmp_path / "src.bin"
+    src.write_bytes(bytes(range(256)) * 5000)
+    dest = tmp_path / "w" / "model.safetensors"
+    dest.parent.mkdir()
+    missing = (tmp_path / "missing.bin").as_uri()
+    assert not tfetch.fetch([missing], dest)
+    assert "FAILED" in capsys.readouterr().out and list(dest.parent.iterdir()) == []
+    assert tfetch.fetch([missing, src.as_uri()], dest)
+    assert dest.read_bytes() == src.read_bytes() and list(dest.parent.iterdir()) == [dest]
+    assert tfetch.fetch([missing], dest)
+    assert "already present" in capsys.readouterr().out
+
+
+_GRIDS = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["clearcam_tpu"] = None
+from clearcam_tpu_torch.tools import fetch_weights
+try:
+    fetch_weights.main(sys.argv[1:])
+finally:
+    loaded = [m for m in sys.modules if sys.modules[m] is not None
+              and m.split(".")[0] in ("jax", "clearcam_tpu")]
+    assert not loaded, loaded
+"""
+
+
+def _ggml_header(rng) -> str:
+    """A ggml-common.h of random tables in GGML_TABLE_BEGIN form
+    (tests/test_gguf_iq.py's synthetic header)."""
+    from clearcam_tpu_torch.io.ggml_grids import GRID_SPECS
+    lines = []
+    for name, (_, n, nb) in GRID_SPECS.items():
+        vals = rng.integers(0, 1 << (8 * nb), n, np.uint64)
+        ctype = "uint32_t" if nb == 4 else "uint64_t"
+        lines.append(f"GGML_TABLE_BEGIN({ctype}, {name}, {n})\n"
+                     + ", ".join(f"0x{v:x}" for v in vals) + ",\nGGML_TABLE_END()\n")
+    return "\n".join(lines)
+
+
+def test_fetch_ggml_grids_with_the_jax_package_blocked(tmp_path):
+    """--models ggml-grids on a header already in --dest, in a process where
+    jax and the JAX package cannot be imported, writes the npz the repo's
+    tools/extract_ggml_grids.py writes, array for array."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("extract_ggml_grids",
+                                                  ROOT / "tools" / "extract_ggml_grids.py")
+    ref_tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref_tool)
+    text = _ggml_header(np.random.default_rng(0))
+    dest = tmp_path / "w"
+    dest.mkdir()
+    (dest / "ggml-common.h").write_text(text)
+    ref_tool.extract_to_npz(text, tmp_path / "ref.npz")
+    proc = subprocess.run(
+        [sys.executable, "-c", _GRIDS, "--dest", str(dest), "--fixtures",
+         str(tmp_path / "f"), "--models", "ggml-grids"],
+        cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-3000:]
+    assert "ggml-common.h: already present" in proc.stdout
+    with np.load(dest / "ggml_grids.npz") as got, np.load(tmp_path / "ref.npz") as ref:
+        assert sorted(got.files) == sorted(ref.files) == sorted(
+            ["iq3xxs_grid", "iq3s_grid", "iq2s_grid"])
+        for name in ref.files:
+            assert got[name].dtype == ref[name].dtype
+            np.testing.assert_array_equal(got[name], ref[name])
+
+
+def test_fetch_ggml_grids_reports_a_bad_header(tmp_path, capsys):
+    """A header without the tables fails the run (exit 1) and writes no npz."""
+    dest = tmp_path / "w"
+    dest.mkdir()
+    (dest / "ggml-common.h").write_text("/* no tables */\n")
+    with pytest.raises(SystemExit) as e:
+        tfetch.main(["--dest", str(dest), "--fixtures", str(tmp_path / "f"),
+                     "--models", "ggml-grids"])
+    assert e.value.code == 1 and not (dest / "ggml_grids.npz").exists()
+    assert "extraction FAILED (could not extract iq3xxs_grid" in capsys.readouterr().out
