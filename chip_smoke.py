@@ -76,11 +76,13 @@ so the script exits non-zero:
      decode logits max|d| < 2e-3; bf16 weights with a bf16 KV cache, on
      the card (decode kernel, plain attention) and the CPU, against f32
      products of the same bf16 values: logits within 5% of their range
-     and the card within 2x the CPU's gap; then the 28-block model with int4
-     weights and a bf16 KV cache in the engine, 8 concurrent requests,
-     decode tokens/s with the kernel and with the plain attention
+     and the card within 2x the CPU's gap; then 14 of the 28 blocks (cut for
+     the smoke's time limit) with int4 weights and a bf16 KV cache in the
+     engine, 8 concurrent requests, decode tokens/s with the kernel and with
+     the plain attention
   9  `python -m clearcam_tpu_torch.tools.serve_llm --synthetic --int8
-     --pallas` (8 blocks, ctx 8192, 8 slots): /healthz, /v1/models,
+     --pallas` (8 blocks, ctx 8192, 8 slots; both servers boot at once,
+     their weights drawn on the card): /healthz, /v1/models,
      /generate plain and streamed, 8 concurrent /v1/chat/completions (one
      with response_format json_object, whose text must be a JSON prefix),
      /v1/completions with logprobs; quant_matmul and decode_attention
@@ -104,7 +106,7 @@ so the script exits non-zero:
      within 2e-3 (2e-2 with the int8 cache) and each step's top-8 ids; the
      int8 cache after the image prefill, card vs CPU: how many int8 values
      differ, by how many steps, and the scales
- 12  the 14 (of 28) + 24-block model, int8 weights, in the port's NVR in-process
+ 12  the 6 (of 28) + 24-block model, int8 weights, in the port's NVR in-process
      with a synthetic camera and a key-colour stand-in detector: seconds
      from the alert to the AI Summary notification (cooperative, bf16 and
      int8 KV), 4 concurrent alerts through VLMServingEngine (4 slots), and
@@ -126,7 +128,7 @@ so the script exits non-zero:
      requests admitted 2 ticks apart on 2 slots (a periodic prompt, a random
      one, one whose greedy output cycles), then the cycling one alone: the
      spec engine's tokens on the card equal the CPU's and the non-spec
-     engine's, with more tokens than decode dispatches; (b) 14 of the 28
+     engine's, with more tokens than decode dispatches; (b) 6 of the 28
      blocks (cut for the smoke's time limit), int8 weights, 8 slots,
      200-token prompts: decode tokens/s with
      spec_lookup=4 and without, tokens per dispatch, and the int8 cache
@@ -139,14 +141,15 @@ so the script exits non-zero:
      weights drawn on the card from a torch.Generator, f32 and int8 (the
      MoE int4 too),
      prefill_slot, prefill_many and 3 teacher-forced decode_all steps, at
-     full width and 2 blocks (the hybrid 4, to hold an attention block):
+     full width and 1 block (MLA 2, its dense one and an MoE one; the
+     hybrid 4, to hold an attention block):
      Qwen/Qwen3-30B-A3B's widths (through the decode kernel),
      deepseek-ai/DeepSeek-V2-Lite's (MLA + MoE; its YaRN rope scaling has
      no field in TransformerConfig, so both packages run plain RoPE) and
      the JAX package's qwen3_next_cfg: logprob rows and logits within
      phase 8's bounds, greedy tokens equal; (b) each family's 8-slot
-     engine at half its published depth (24, 14 and 12 of 48, 27 and 28
-     blocks, cut for the smoke's time limit), int8 weights
+     engine at 8, 6 and 4 of its published 48, 27 and 28 blocks (cut for
+     the smoke's time limit), int8 weights
      quantized tensor by tensor as they are drawn on the card, bf16 KV,
      ctx 2048, one 32-token prefill chunk at B = 1, then 8 requests of
      24-88 tokens admitted two a tick, 24 new: decode tokens/s, the decode
@@ -172,8 +175,8 @@ so the script exits non-zero:
      latency_probe (its five stages), clip_bench --batches 1,16,64,
      clip_probe --batches 16 (the attention kernel launched under
      full_flash and nowhere else) and cotenancy_bench --streams 16 --ticks
-     80 --quant int8 --blocks 14 (14 of 28, cut for the smoke's time
-     limit; both ladders and the overhead line; the stem, ViT
+     40 --quant int8 --blocks 4 (4 of 28 blocks and 40 ticks, cut for the
+     smoke's time limit; both ladders and the overhead line; the stem, ViT
      attention and quant-matmul kernels launched)
  17  YOLOv9 fine-tuning, export and parity: (a) `python -m
      clearcam_tpu_torch.tools.finetune` on 16 synthetic 1920x1080 JPEGs
@@ -207,13 +210,25 @@ so the script exits non-zero:
      decode kernels on bf16 and int8 caches (8 slots, 8 requests of 24-88
      tokens + 24 new) with the one-rank engine's tokens, its decode
      tokens/s, ms a step, the collectives' ms a step and each rank's
-     kernel launches; (a)'s ring, sharded prefill and pipelines across the
-     2 ranks (under gloo their point-to-point goes through pinned host
-     memory, named on the line with the other ops' staging);
+     kernel launches; the same engine with spec_lookup=4 on plain
+     attention (the same requests, one at temperature 0.7 with a
+     repetition penalty, sync_lag 8) with a fault injected before rank 0's
+     third decode call under max_restarts=1: one restart, nothing failed,
+     the greedy rows' tokens equal the one-rank spec engine's, aux (ids,
+     pos, last) equal on both ranks at the end, quant_linear launched on
+     both, its decode dispatches, tokens emitted and ms a dispatch (over
+     the run, and from the first window after the restart on) beside the
+     plain run's ms a step, then on each rank quant_linear in int8 and
+     int4 against its plain version at every shard shape the engine
+     multiplies by, at 8 and 40 rows of f32 and bf16 x; (a)'s ring, sharded prefill and pipelines
+     across the 2 ranks (under gloo their point-to-point goes through
+     pinned host memory, named on the line with the other ops' staging);
      VLMServingEngine(mesh=) at Qwen3-VL-2B widths (2 language + 2 vision
      blocks) with solo Qwen3VL.generate's text and the ViT attention on
-     both ranks; 2 data ranks of detect with the stem on each; finetune's
-     ranks on a (1, 2) mesh, the loss within 1e-4 relative of one device.
+     both ranks, then under CLEARCAM_SPEC_LOOKUP=4 with the same text and
+     the ViT attention on both ranks; 2 data ranks of detect with the
+     stem on each; finetune's ranks on a (1, 2) mesh, the loss within
+     1e-4 relative of one device.
      Two ranks on one card check correctness and the shard shapes, not
      scale-out
  19  `python -m clearcam_tpu_torch.tools.{stem_probe, stem_kernel_probe,
@@ -878,8 +893,9 @@ def phase6(torch):
     from clearcam_tpu_torch.ops.vit_attention import mha_flash
 
     t0 = time.time()
-    params = clip.init_params(seed=0)
-    log(f"clip.init_params(seed=0): {time.time() - t0:.1f} s")
+    params = _fetched("clip", lambda: clip.init_params(seed=0))
+    log(f"clip.init_params(seed=0) (drawn in the background from phase 1 on): waited "
+        f"{time.time() - t0:.1f} s")
     rng = np.random.default_rng(0)
     px = rng.integers(0, 256, (2, 224, 224, 3), np.uint8)
     toks = np.zeros((2, 77), np.int64)
@@ -1415,6 +1431,35 @@ def _engine_tokens_per_s(torch, engine, prompts, max_new):
 
 
 _SHARED: dict = {}
+# the host's numpy weight draws, started in one background thread before
+# phase 1 (numpy draws and casts without the GIL) and taken by the phases
+# that need them
+_PREFETCH: dict = {}
+
+
+def _prefetch(phases: set) -> None:
+    """Start the numpy draws of phases 6, 8 (and 14), 11 and 12, in that
+    order, in one thread: they overlap the build and phases 2-5."""
+    import concurrent.futures as cf
+
+    from clearcam_tpu_torch.models import clip, llm
+    from clearcam_tpu_torch.models import qwen3vl as qvl
+    jobs = {6: [("clip", lambda: clip.init_params(seed=0))],
+            8: [("f32_2", lambda: llm.init_params(llm.qwen3_2b_cfg(2, 512), seed=0))],
+            11: [("vl_2", lambda: llm.init_params(qvl.qwen3vl_2b_cfg(2, 2048), seed=0)),
+                 ("vision_2", lambda: qvl.vision_2b_random(blocks=2, deepstack=(1,)))],
+            12: [("vision_24", qvl.vision_2b_random)]}
+    ex = cf.ThreadPoolExecutor(1, thread_name_prefix="prefetch")
+    for n in sorted(phases & jobs.keys()):
+        for name, fn in jobs[n]:
+            _PREFETCH[name] = ex.submit(fn)
+    ex.shutdown(wait=False)
+
+
+def _fetched(name: str, fn):
+    """The prefetched draws ``name``, or ``fn()`` where none were started."""
+    fut = _PREFETCH.pop(name, None)
+    return fn() if fut is None else fut.result()
 
 
 def _bf16_28_blocks(torch):
@@ -1434,17 +1479,29 @@ def _bf16_28_blocks(torch):
     return _SHARED["bf16_28"]
 
 
+def _first_blocks(params: dict, n: int) -> dict:
+    """The weights of a model cut to its first ``n`` blocks."""
+    return {k: v for k, v in params.items()
+            if not k.startswith("blk.") or int(k.split(".")[1]) < n}
+
+
 def _f32_2_blocks():
     """A 2-block Qwen3-1.7B-width model (ctx 512), f32 on the CPU from seed
     0 (~20 s of numpy draws), shared by phases 8 and 14."""
     if "f32_2" not in _SHARED:
         from clearcam_tpu_torch.models import llm
-        _SHARED["f32_2"] = llm.init_params(llm.qwen3_2b_cfg(2, 512), seed=0)
+        _SHARED["f32_2"] = _fetched(
+            "f32_2", lambda: llm.init_params(llm.qwen3_2b_cfg(2, 512), seed=0))
     return _SHARED["f32_2"]
 
 
+# the int4 engine's depth: 14 of Qwen3-1.7B's 28 blocks, cut for the smoke's
+# time limit (the route is the same at any depth)
+INT4_BLOCKS = 14
+
+
 def phase8(torch):
-    log("== phase 8: the LLM on the card vs the CPU; the 28-block int4 engine")
+    log(f"== phase 8: the LLM on the card vs the CPU; the {INT4_BLOCKS}-block int4 engine")
     from clearcam_tpu_torch.models import llm
     from clearcam_tpu_torch.ops import decode_attention as dec
     from clearcam_tpu_torch.ops import quant_matmul as qm
@@ -1468,8 +1525,8 @@ def phase8(torch):
         errs["bf16"] = _llm_2block_bf16_check(torch, llm, cfg, p_cpu)
     del p_cpu
     torch.cuda.empty_cache()
-    cfg = llm.qwen3_2b_cfg(28, 8192)
-    params = llm.quantize_params_int4(_bf16_28_blocks(torch))
+    cfg = llm.qwen3_2b_cfg(INT4_BLOCKS, 8192)
+    params = llm.quantize_params_int4(_first_blocks(_bf16_28_blocks(torch), INT4_BLOCKS))
     prompts = np.random.default_rng(2).integers(1, cfg.vocab_size, (8, 200))
     tps = {}
     launches = None
@@ -1486,14 +1543,15 @@ def phase8(torch):
         tps.setdefault(pallas, []).append((rate, steps))
         if not all(len(r.tokens) == 48 and all(0 <= t < cfg.vocab_size for t in r.tokens)
                    for r in reqs):
-            raise AssertionError("28-block engine: a request did not finish 48 tokens")
-        log(f"28-block int4 engine, 8 slots, bf16 KV, 200-token prompts, 48 new: "
+            raise AssertionError(f"{INT4_BLOCKS}-block engine: a request did not finish "
+                                 "48 tokens")
+        log(f"{INT4_BLOCKS}-block int4 engine, 8 slots, bf16 KV, 200-token prompts, 48 new: "
             f"{'decode kernel' if pallas else 'plain attention'} {rate:.1f} tokens/s "
             f"({steps:.1f} decode steps/s, {1e3 / steps:.2f} ms/step)")
         del eng
         torch.cuda.empty_cache()
     if launches["int4"] < 1 or launches["decode"] < 1:
-        raise AssertionError(f"28-block int4 engine launches: {launches}")
+        raise AssertionError(f"{INT4_BLOCKS}-block int4 engine launches: {launches}")
     log(f"launches in the int4 engine run: {launches}")
     del params
     torch.cuda.empty_cache()
@@ -1700,12 +1758,13 @@ def phase11(torch):
     from clearcam_tpu_torch.ops.vit_attention import mha_flash
     t0 = time.time()
     cfg = qvl.qwen3vl_2b_cfg(2, 2048)
-    p_cpu = llm.init_params(cfg, seed=0)
+    p_cpu = _fetched("vl_2", lambda: llm.init_params(cfg, seed=0))
     p_gpu = {k: v.cuda() for k, v in p_cpu.items()}
-    vkv, vp = qvl.vision_2b_random(blocks=2, deepstack=(1,))
+    vkv, vp = _fetched("vision_2", lambda: qvl.vision_2b_random(blocks=2, deepstack=(1,)))
     towers = {"cpu": qvl.VisionTower(vkv, vp, device="cpu"),
               "cuda": qvl.VisionTower(vkv, vp, device="cuda")}
-    log(f"init (numpy draws, upload): {time.time() - t0:.1f} s")
+    log(f"init (numpy draws in the background from phase 1 on, upload): "
+        f"{time.time() - t0:.1f} s")
     img = np.random.default_rng(11).integers(0, 256, (*SUMMARY_RES, 3), np.uint8)
     before = mha_flash.launches
     e_gpu, d_gpu = towers["cuda"](torch.from_numpy(img).cuda().float())
@@ -1866,7 +1925,7 @@ def _nvr_summaries(qwen, n_cams: int, slots: int, seconds: float = 300.0) -> dic
     return {cam: (sums[cam][0] - alerts[cam][0], sums[cam][1]) for cam in sums}
 
 
-def _summary_layers(torch, qwen, lang, img, prompt, steps: int = 32) -> dict:
+def _summary_layers(torch, qwen, lang, img, prompt, steps: int = 16) -> dict:
     """The cooperative summary's layers apart, in milliseconds, each timed
     with CUDA events after a sync (3 runs after a warm-up): the vision
     tower alone; the image prefill (feed_image, which runs the tower, less
@@ -1913,22 +1972,23 @@ def _kernels(torch, fn, match=("decode_split", "decode_merge")) -> tuple:
                 if any(m in e.key for m in match)) / 1e3)
 
 
+# the summary model's language depth: 6 of Qwen3-VL-2B's 28 blocks (28 until
+# phase 18 joined the smoke, then 14; cut for its 1200 s limit)
+SUMMARY_BLOCKS = 6
+
+
 def phase12(torch):
-    log("== phase 12: Qwen3-VL-2B alert summaries (14 of 28 language blocks + 24 vision "
-        "blocks) in the "
-        "port's NVR")
+    log(f"== phase 12: Qwen3-VL-2B alert summaries ({SUMMARY_BLOCKS} of 28 language blocks + "
+        "24 vision blocks) in the port's NVR")
     from clearcam_tpu_torch.models import llm
     from clearcam_tpu_torch.models import qwen3vl as qvl
     from clearcam_tpu_torch.ops import decode_attention as dec
     from clearcam_tpu_torch.ops import quant_matmul as qm
     from clearcam_tpu_torch.ops.vit_attention import mha_flash
     t0 = time.time()
-    # 14 language blocks (28 until phase 18 joined the smoke: its 1200 s limit)
-    cfg = qvl.qwen3vl_2b_cfg(14, 2048)
-    params = llm.quantize_params_int8(
-        {k: v for k, v in _bf16_28_blocks(torch).items()
-         if not k.startswith("blk.") or int(k.split(".")[1]) < cfg.num_blocks})
-    tower = qvl.VisionTower(*qvl.vision_2b_random(), device="cuda")
+    cfg = qvl.qwen3vl_2b_cfg(SUMMARY_BLOCKS, 2048)
+    params = llm.quantize_params_int8(_first_blocks(_bf16_28_blocks(torch), cfg.num_blocks))
+    tower = qvl.VisionTower(*_fetched("vision_24", qvl.vision_2b_random), device="cuda")
     log(f"{cfg.num_blocks}-block language model (int8 weights) and 24-block vision tower "
         f"(f32), random from seed 0: {time.time() - t0:.1f} s")
     tok = _smoke_tok()
@@ -2129,9 +2189,9 @@ def _spec_tokens(torch, engine, prompts, max_new, stagger=0):
     return [r.wait(1) for r in reqs]
 
 
-# phase 14 (b)'s engine depth: 14 of the 28 blocks (cut when phase 18 joined
-# the smoke, for its 1200 s limit)
-SPEC_BLOCKS = 14
+# phase 14 (b)'s engine depth: 6 of the 28 blocks (14 when phase 18 joined
+# the smoke; cut for its 1200 s limit)
+SPEC_BLOCKS = 6
 
 
 def phase14(torch):
@@ -2187,9 +2247,7 @@ def phase14(torch):
     # text; repeated-token prompts make cycles likelier). Acceptance on
     # random weights says nothing of real text's
     cfg = llm.qwen3_2b_cfg(SPEC_BLOCKS, 8192)
-    params = llm.quantize_params_int8(
-        {k: v for k, v in _bf16_28_blocks(torch).items()
-         if not k.startswith("blk.") or int(k.split(".")[1]) < cfg.num_blocks})
+    params = llm.quantize_params_int8(_first_blocks(_bf16_28_blocks(torch), cfg.num_blocks))
     rng = np.random.default_rng(15)
     prompts = np.concatenate([rng.integers(1, cfg.vocab_size, (4, 200)),
                               np.repeat(rng.integers(1, cfg.vocab_size, (4, 1)), 200, 1)])
@@ -2250,13 +2308,14 @@ def phase14(torch):
 # ---------------------------------------------------------------------------
 # the MoE, MLA and GatedDeltaNet-hybrid stacks
 
-# the engines' depth, half the published 48, 27 and 28 (cut when phase 18
-# joined the smoke, for its 1200 s limit: with the MoE at 48 the whole smoke
-# took 1199.3 s on a slow host; the hybrid keeps every 4th block attention)
-FAMILY_BLOCKS = {"moe": 24, "mla": 14, "hybrid": 12}
-# card vs CPU: 2 blocks of each family (the hybrid 4, so that its first
-# attention block is in)
-FAMILY_CHECK_BLOCKS = {"moe": 2, "mla": 2, "hybrid": 4}
+# the engines' depth, cut from the published 48, 27 and 28 for the smoke's
+# 1200 s limit (half of it until the smoke passed 1200 s on a slow host; the
+# hybrid keeps its 4th block, the first attention one)
+FAMILY_BLOCKS = {"moe": 8, "mla": 6, "hybrid": 4}
+# card vs CPU: 1 MoE block (2 until the smoke passed its 1200 s limit on a
+# slow host), 2 MLA blocks (the dense one and an MoE one) and 4 hybrid
+# blocks (so that its first attention block is in)
+FAMILY_CHECK_BLOCKS = {"moe": 1, "mla": 2, "hybrid": 4}
 
 
 def qwen3_30b_a3b_cfg(llm, blocks: int = 48, ctx: int = 2048):
@@ -2574,7 +2633,8 @@ def phase15(torch):
     log("== phase 15: MoE (Qwen3-30B-A3B widths), MLA (DeepSeek-V2-Lite widths; its YaRN "
         "rope scaling has no field in TransformerConfig, so both packages run plain RoPE) "
         "and the GatedDeltaNet hybrid (qwen3_next_cfg): card vs CPU at "
-        f"{FAMILY_CHECK_BLOCKS['moe']} blocks (the hybrid {FAMILY_CHECK_BLOCKS['hybrid']}); "
+        + ", ".join(str(FAMILY_CHECK_BLOCKS[f]) for f in ("moe", "mla", "hybrid"))
+        + " blocks; "
         "the 8-slot engines at "
         + ", ".join(str(FAMILY_BLOCKS[f]) for f in ("moe", "mla", "hybrid"))
         + " blocks (published 48, 27, 28); llm_bench --ssm")
@@ -2582,9 +2642,12 @@ def phase15(torch):
     out = {"check": {}, "engine": {}, "prefill_chunk_ms": {}}
     t0 = time.time()
     out["moe_decode_kernels"] = _moe_decode_kernels(torch)
+    seconds = {}
     for family in ("moe", "mla", "hybrid"):
+        t1 = time.time()
         out["check"][family] = _family_card_vs_cpu(torch, llm, family)
-    log(f"(a) card vs CPU: {time.time() - t0:.1f} s")
+        seconds[family] = round(time.time() - t1, 1)
+    log(f"(a) card vs CPU: {time.time() - t0:.1f} s (by family {seconds})")
     # (b) the engines at each family's depth, int8 weights drawn on the card
     # and quantized tensor by tensor as they are drawn
     for family in ("moe", "mla", "hybrid"):
@@ -2641,14 +2704,12 @@ def _post_json(url, body, timeout=300.0):
     return json.loads(_post(url, json.dumps(body).encode(), timeout))
 
 
-def _serve_llm(flags: list, drive, names: tuple, blocks: int = 28) -> tuple:
-    """Boot ``python -m clearcam_tpu_torch.tools.serve_llm --synthetic``
-    with ``flags`` (``blocks`` blocks, ctx 8192, 8 slots), call ``drive(base_url)``,
-    stop it with SIGTERM, and return (the launch counts it printed for
-    ``names``, each >= 1, and drive's result)."""
+def _serve_llm_boot(flags: list, blocks: int) -> dict:
+    """Start ``python -m clearcam_tpu_torch.tools.serve_llm --synthetic``
+    with ``flags`` (``blocks`` blocks, ctx 8192, 8 slots); ``_serve_llm``
+    drives and stops it."""
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_llm_"))
     port = _free_port()
-    base = f"http://127.0.0.1:{port}"
     env = dict(os.environ, PYTHONPATH=str(PKG_ROOT), PYTHONUNBUFFERED="1")
     out_path = tmp / "server.log"
     t0 = time.time()
@@ -2658,20 +2719,37 @@ def _serve_llm(flags: list, drive, names: tuple, blocks: int = 28) -> tuple:
              *flags, "--blocks", str(blocks), "--ctx", "8192", "--slots", "8",
              "--port", str(port), "--data", str(tmp / "data")],
             env=env, cwd=str(tmp), stdout=out, stderr=subprocess.STDOUT)
+    return {"proc": proc, "tmp": tmp, "out_path": out_path, "t0": t0, "flags": flags,
+            "base": f"http://127.0.0.1:{port}"}
+
+
+def _serve_llm_stop(server: dict) -> str:
+    """SIGTERM the server, wait for it, and give its log."""
+    proc = server["proc"]
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+    text = server["out_path"].read_text()
+    shutil.rmtree(server["tmp"], ignore_errors=True)
+    return text
+
+
+def _serve_llm(server: dict, drive, names: tuple) -> tuple:
+    """Wait for a server ``_serve_llm_boot`` started, call
+    ``drive(base_url)``, stop it with SIGTERM, and return (the launch counts
+    it printed for ``names``, each >= 1, and drive's result)."""
+    base, proc, flags = server["base"], server["proc"], server["flags"]
     try:
         health = _wait("/healthz", lambda: json.loads(_get(f"{base}/healthz", 2)),
-                       proc, out_path, 400)
-        log(f"/healthz after {time.time() - t0:.1f} s: {health}")
+                       proc, server["out_path"], 400)
+        log(f"/healthz after {time.time() - server['t0']:.1f} s: {health}")
         result = drive(base)
     finally:
-        proc.send_signal(signal.SIGTERM)
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=30)
-    text = out_path.read_text()
-    shutil.rmtree(tmp, ignore_errors=True)
+        text = _serve_llm_stop(server)
     for line in text.splitlines()[-12:]:
         log(f"  server| {line}")
     launches = {}
@@ -2732,10 +2810,17 @@ def phase9():
         result.update(http_tokens_per_s=toks / dt, json_reply=text)
         return result
 
-    # 8 blocks (28 before phase 18 joined the smoke): the served route is the
-    # same at any depth, and the 28-block boot's weight draws took ~60 s
-    launches, result = _serve_llm(["--int8", "--pallas"], drive,
-                                  ("quant_matmul", "decode_attention"), blocks=8)
+    # both servers boot at once (each draws its weights on the card); the
+    # second waits, idle, while the first is driven. 8 and 4 blocks: the
+    # served routes are the same at any depth
+    servers = [_serve_llm_boot(["--int8", "--pallas"], 8),
+               _serve_llm_boot(["--int8", "--kv-quant", "--pallas"], 4)]
+    try:
+        launches, result = _serve_llm(servers[0], drive,
+                                      ("quant_matmul", "decode_attention"))
+    except BaseException:
+        _serve_llm_stop(servers[1])
+        raise
 
     def drive_q8(base):
         """The int8-cache kernel route: one /generate and 4 concurrent ones."""
@@ -2751,10 +2836,7 @@ def phase9():
         log(f"--kv-quant --pallas /generate: {g['tokens']} tokens, text {g['text']!r}; "
             f"4 concurrent: {[x['tokens'] for x in gs]} tokens")
         return g
-    # 4 blocks: the route is the same at any depth, and a 28-block boot
-    # costs ~70 s of weight draws
-    q8, _ = _serve_llm(["--int8", "--kv-quant", "--pallas"], drive_q8,
-                       ("quant_matmul", "decode_attention_batch_q8"), blocks=4)
+    q8, _ = _serve_llm(servers[1], drive_q8, ("quant_matmul", "decode_attention_batch_q8"))
     launches["decode_attention_batch_q8"] = q8["decode_attention_batch_q8"]
     return launches, result
 
@@ -2972,10 +3054,10 @@ def phase16(torch):
         raise AssertionError(f"clip_probe: the kernel must launch under full_flash only: "
                              f"{text[-2000:]}")
     out["clip_probe"] = lines
-    # 14 of the summary model's 28 language blocks (cut when phase 18 joined
-    # the smoke, for its 1200 s limit)
-    lines, n, _ = _tool(["cotenancy_bench", "--streams", "16", "--ticks", "80",
-                         "--quant", "int8", "--blocks", "14"], 600)
+    # 4 of the summary model's 28 language blocks and 40 ticks (cut for the
+    # smoke's 1200 s limit)
+    lines, n, _ = _tool(["cotenancy_bench", "--streams", "16", "--ticks", "40",
+                         "--quant", "int8", "--blocks", "4"], 600)
     final = lines[-1] if lines else {}
     if final.get("metric") != "cotenancy_detect_p50_overhead_ms" \
             or not final["full"]["summaries_done"] > 0 \
@@ -3074,7 +3156,17 @@ def phase17(torch):
     from clearcam_tpu_torch.tools import export, finetune, parity
     out = {}
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ft_"))
+    parity_runs = []
     try:
+        # (e)'s two parity processes start now and are read at (e): they
+        # find no file they need and put no work on the card
+        empty = tmp / "empty"
+        empty.mkdir()
+        for flags in ([], ["--strict"]):
+            parity_runs.append((flags, subprocess.Popen(
+                [sys.executable, "-m", "clearcam_tpu_torch.tools.parity", "run", *flags],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=str(empty),
+                env=dict(os.environ, PYTHONPATH=str(PKG_ROOT)))))
         # (a) the tool as a user runs it, then --remat, then a checkpointed
         # run and its resume
         t1 = time.time()
@@ -3227,21 +3319,16 @@ def phase17(torch):
         # (e) parity: every check SKIPs here (no file it needs is in the
         # repository), --strict fails; then a golden of random weights
         # recorded on the CPU route passes check_yolo_golden on the card
-        empty = tmp / "empty"
-        empty.mkdir()
         rcs = []
-        for flags in ([], ["--strict"]):
-            proc = subprocess.run([sys.executable, "-m", "clearcam_tpu_torch.tools.parity",
-                                   "run", *flags], capture_output=True, text=True,
-                                  timeout=120, cwd=str(empty),
-                                  env=dict(os.environ, PYTHONPATH=str(PKG_ROOT)))
-            for line in proc.stdout.splitlines():
+        for flags, proc in parity_runs:
+            stdout, stderr = proc.communicate(timeout=120)
+            for line in stdout.splitlines():
                 log(f"  parity {' '.join(flags)}| {line}")
             rcs.append(proc.returncode)
-            statuses = [line.split()[1] for line in proc.stdout.splitlines()
+            statuses = [line.split()[1] for line in stdout.splitlines()
                         if line.split() and line.split()[0] in parity.CHECKS]
             if statuses != ["SKIP"] * len(parity.CHECKS):
-                raise AssertionError(f"parity {flags}: {proc.stdout}\n{proc.stderr[-2000:]}")
+                raise AssertionError(f"parity {flags}: {stdout}\n{stderr[-2000:]}")
         if rcs != [0, 1]:
             raise AssertionError(f"parity run rc {rcs[0]}, --strict rc {rcs[1]} (want 0, 1)")
         (tmp / "weights").mkdir()
@@ -3255,6 +3342,10 @@ def phase17(torch):
         log("(e) parity run: rc 0, every check SKIP; --strict rc 1; a golden recorded on "
             "the CPU route passes check_yolo_golden on the card")
     finally:
+        for _, proc in parity_runs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
         shutil.rmtree(tmp, ignore_errors=True)
     return out
 
@@ -3278,6 +3369,9 @@ def _json_prefix(text: str) -> bool:
 P18_DEADLINE = 600           # s, one spawn of phase 18's ranks
 P18_RING_TOL = 2e-5          # ring / sharded prefill vs one device (f32, TF32 off)
 P18_FT_TOL = 1e-4            # finetune --mesh loss vs one rank, relative
+P18_SPEC = 4                 # (b)'s speculative tp engine and VLM: G
+P18_STOCH_ROW = 7            # its request at temperature 0.7 with a penalty
+P18_FAULT_AT = 3             # the decode call rank 0 fails before
 
 
 def _p18_entry(rank, world, rdv, backend, part, args, q):
@@ -3365,12 +3459,22 @@ def _p18_detect(torch, mesh, frames, dtype):
     return rows, (time.perf_counter() - t0) * 1e3, stem.launches - s0
 
 
-def _p18_engine(torch, mesh, cfg, params, requests, **kw):
-    """A tp engine on every rank; rank 0 serves ``requests`` [(prompt,
-    max_new)] all at once. -> per rank: tokens (rank 0), decode steps, the
+def _p18_submit(eng, requests):
+    """``requests`` [(prompt, max_new) or (prompt, max_new, sampling kw)]."""
+    return [eng.submit(list(r[0]), max_new=r[1], **(r[2] if len(r) > 2 else {}))
+            for r in requests]
+
+
+def _p18_engine(torch, mesh, cfg, params, requests, fault_at=None, **kw):
+    """A tp engine on every rank; rank 0 serves ``requests`` (``_p18_submit``)
+    all at once. ``fault_at``: rank 0 raises before its decode call of that
+    number (no command sent) and its scheduler, on its own thread, recovers
+    (``max_restarts``). -> per rank: tokens (rank 0), decode steps, the
     decode phase's seconds, the step's collectives (command channel and
-    token broadcast; the block reductions, calls and host seconds) and this
-    rank's quant_linear / decode-attention launches."""
+    token broadcasts; the block reductions, calls and host seconds), this
+    rank's quant_linear / decode-attention launches, and under
+    ``spec_lookup`` the tokens emitted, the restarts and this rank's
+    ``aux`` at the end."""
     from clearcam_tpu_torch.ops import decode_attention as dec
     from clearcam_tpu_torch.ops.quant_matmul import quant_linear
     from clearcam_tpu_torch.parallel import mesh as pmesh
@@ -3380,11 +3484,32 @@ def _p18_engine(torch, mesh, cfg, params, requests, **kw):
     out = {"kv_heads": int(eng.state[0]["k"].shape[1])}
     t0 = time.perf_counter()
     if mesh.is_leader:
-        reqs = [eng.submit(list(pr), max_new=n) for pr, n in requests]
-        eng.run_until_idle()
+        # the time and dispatch count at the first decode call (after the
+        # fault's restart, where there is one): the span from there on has
+        # no prefill before its windows and no recovery
+        orig, calls, mark = eng.decode_all, [0], {}
+
+        def timed(*a):
+            calls[0] += 1
+            if calls[0] == fault_at:
+                raise RuntimeError("injected decode failure (phase 18)")
+            if calls[0] == (fault_at or 0) + 1:
+                mark.update(t=time.perf_counter(), steps=eng.ranks.steps)
+            return orig(*a)
+        eng.decode_all = timed
+        if fault_at is not None:
+            eng.start()
+        reqs = _p18_submit(eng, requests)
+        if fault_at is None:
+            eng.run_until_idle()
+        out["tokens"] = [r.wait(600) for r in reqs]
         torch.cuda.synchronize()
-        out["tokens"] = [r.wait(5) for r in reqs]
-        out["ttft_s"] = max(r.ttft_s for r in reqs)
+        out["decode_ms_a_dispatch"] = 1e3 * (time.perf_counter() - mark["t"]) \
+            / max(eng.ranks.steps - mark["steps"], 1)
+        out["failed"] = [r.failed for r in reqs]
+        out["ttft_s"] = max((r.ttft_s for r in reqs if r.ttft_s is not None), default=None)
+        out["restarts"] = eng.stats["scheduler_restarts"]
+        out["spec_emitted"] = eng.stats["spec_emitted"]
         eng.close()
         mesh.stop_followers()
     else:
@@ -3398,15 +3523,61 @@ def _p18_engine(torch, mesh, cfg, params, requests, **kw):
                        "decode_attention_batch": dec.decode_attention_batch.launches - l0[1],
                        "decode_attention_batch_q8":
                            dec.decode_attention_batch_q8.launches - l0[2]}
+    if eng.spec:
+        out["aux"] = {k: v.cpu().numpy() for k, v in eng.aux.items()}
+        out["qm_shards"] = _p18_qm_shards(torch, mesh, params, eng.params,
+                                          (eng.n_slots, eng.n_slots * (eng.spec + 1)))
     del eng
     torch.cuda.empty_cache()
     return out
 
 
+def _p18_qm_shards(torch, mesh, params, shard, rows):
+    """quant_linear against quant_linear_reference, after the engine's run,
+    at each weight shape this rank's tp engine multiplies by: its int8
+    shards of ``params`` and int4 twins sliced as ``shard_llm_params``
+    slices, each at ``rows`` rows (a decode step's and a spec window's) of
+    f32 and bf16 x, within QM_TOL. Raises on a miss. -> the shapes and the
+    largest max|d|/max|plain| of each format and x type."""
+    from clearcam_tpu_torch.ops import quant_matmul as qm
+    m, r = mesh.shape["model"], mesh.coord("model")
+    gen = torch.Generator(device="cuda").manual_seed(40 + r)
+    shapes, worst = [], {}
+    for k, w in shard.items():
+        if not isinstance(w, qm.QuantLinear) or list(w.shape) in shapes:
+            continue
+        shapes.append(list(w.shape))
+        full = params[k]
+        w4 = qm.quantize_int4(full.dequantize())
+        if w.out_features < full.out_features:
+            w4 = qm.slice_rows(w4, r * w.out_features, (r + 1) * w.out_features)
+        elif w.in_features < full.in_features:
+            w4 = qm.slice_cols(w4, r * w.in_features, (r + 1) * w.in_features)
+        for bits, ql in ((8, w), (4, w4)):
+            for n in rows:
+                for dtype in (torch.float32, torch.bfloat16):
+                    name = str(dtype)[6:]
+                    x = torch.randn((n, w.in_features), generator=gen,
+                                    device="cuda").to(dtype)
+                    got, ref = qm.quant_linear(x, ql), qm.quant_linear_reference(x, ql)
+                    rel = ((got.float() - ref.float()).abs().max()
+                           / ref.float().abs().max()).item()
+                    if not (got.shape == ref.shape and got.dtype == dtype
+                            and rel <= QM_TOL[name]):
+                        raise AssertionError(
+                            f"phase 18 (b) rank {r}/{m}: quant int{bits} [{n},"
+                            f"{w.in_features}]x{list(w.shape)} {name}: max|d|/max|plain| "
+                            f"{rel} (bound {QM_TOL[name]})")
+                    key = f"int{bits} {name}"
+                    worst[key] = max(worst.get(key, 0.0), rel)
+        del w4
+    return {"shapes": shapes, "rows": list(rows), "rel": worst}
+
+
 def _p18_solo_tokens(torch, cfg, params, requests, **kw):
     from clearcam_tpu_torch.serving.engine import ServingEngine
     eng = ServingEngine(params, cfg, **kw)
-    reqs = [eng.submit(list(pr), max_new=n) for pr, n in requests]
+    reqs = _p18_submit(eng, requests)
     t0 = time.perf_counter()
     eng.run_until_idle()
     torch.cuda.synchronize()
@@ -3577,6 +3748,23 @@ def _p18b(rank, world, backend, frames, prompts, ds):
             row["new_tokens"] = sum(len(t) for t in row.pop("tokens"))
         out[name] = row
         out["t"][name] = time.perf_counter() - t0
+    # the same engine serving speculative windows (plain attention: a window
+    # has G+1 queries), a stochastic penalised row beside 7 greedy ones, and
+    # a fault injected before rank 0's third decode call that the scheduler
+    # recovers from (sync_lag 8: no token is read before it, so all requeue)
+    t0 = time.perf_counter()
+    sreqs = [(p_, 24, dict(temperature=0.7, repetition_penalty=1.3) if i == P18_STOCH_ROW
+              else {}) for i, p_ in enumerate(prompts)]
+    kw = dict(n_slots=8, state_dtype=torch.bfloat16, spec_lookup=P18_SPEC, sync_lag=8,
+              max_restarts=1)
+    row = _p18_engine(torch, mesh, cfg, params, sreqs, fault_at=P18_FAULT_AT, **kw)
+    if rank == 0:
+        solo, _, _ = _p18_solo_tokens(torch, cfg, params, sreqs, **kw)
+        row["greedy_equal"] = all(a == b for i, (a, b) in enumerate(zip(row["tokens"], solo))
+                                  if i != P18_STOCH_ROW)
+        row["new_tokens"] = sum(len(t) for t in row.pop("tokens"))
+    out["spec"] = row
+    out["t"]["spec"] = time.perf_counter() - t0
     del params
     torch.cuda.empty_cache()
     # ring attention, the sequence-parallel prefill and the pipelines across
@@ -3613,6 +3801,26 @@ def _p18b(rank, world, backend, frames, prompts, ds):
     else:
         mesh.follow()
         vlm["vit_attention_launches"] = mha_flash.launches - v0
+    # the same model under CLEARCAM_SPEC_LOOKUP (every rank builds its
+    # engine with it): speculative windows over the image prefill's cache
+    os.environ["CLEARCAM_SPEC_LOOKUP"] = str(P18_SPEC)
+    try:
+        v0 = mha_flash.launches
+        eng = VLMServingEngine(qwen, n_slots=2, mesh=mesh)
+    finally:
+        del os.environ["CLEARCAM_SPEC_LOOKUP"]
+    vlm["spec"] = eng.engine.spec
+    if mesh.is_leader:
+        r = eng.submit([img], "What has been detected on my CCTV camera?", max_new=8,
+                       temperature=0.0)
+        eng.run_until_idle()
+        vlm["spec_text_equal"] = eng.text(r) == solo
+        vlm["spec_decode_steps"] = eng.engine.stats["decode_steps"]
+        eng.close()
+        mesh.stop_followers()
+    else:
+        mesh.follow()
+    vlm["spec_vit_attention_launches"] = mha_flash.launches - v0
     out["vlm"] = vlm
     del eng, qwen, lang, vparams, tower
     torch.cuda.empty_cache()
@@ -3722,8 +3930,47 @@ def phase18(torch):
                 x[name]["launches"][kern] for x in b) < 1:
             raise AssertionError(f"phase 18 (b) {name}: tokens differ or a kernel did "
                                  "not launch at the shard's shapes")
+    sp, plain = b[0]["spec"], b[0]["bf16 KV"]
+    sp["launches_by_rank"] = [x["spec"]["launches"] for x in b]
+    aux = [x["spec"].pop("aux") for x in b]
+    sp["aux_equal"] = all(np.array_equal(aux[0][k], a[k]) for a in aux[1:] for k in aux[0])
+    sp["qm_shards_by_rank"] = [x["spec"].pop("qm_shards") for x in b]
+    # over the whole run: the fault, the reset and the re-prefill of the
+    # requeued requests included (decode_ms_a_dispatch leaves them out)
+    sp["ms_a_dispatch"] = 1e3 * sp["seconds"] / max(sp["decode_steps"], 1)
+    # new tokens a dispatch, summed over the slots (random weights accept
+    # no draft, so a live row emits one token a window, as without spec)
+    sp["tokens_a_dispatch"] = sp["new_tokens"] / max(sp["decode_steps"], 1)
+    plain["tokens_a_step"] = plain["new_tokens"] / max(plain["decode_steps"], 1)
+    log(f"(b) {backend} x2, Qwen3-1.7B 28 blocks int8, bf16 KV, spec_lookup={P18_SPEC} "
+        f"(plain attention), 8 slots, the same 8 requests + 24 new, request "
+        f"{P18_STOCH_ROW} at temperature 0.7 with a repetition penalty, a fault before "
+        f"decode call {P18_FAULT_AT} (max_restarts 1): greedy tokens equal one rank "
+        f"{sp['greedy_equal']}, restarts {sp['restarts']}, failed {sum(sp['failed'])}, "
+        f"aux (ids, pos, last) equal on both ranks {sp['aux_equal']}; "
+        f"{sp['decode_steps']} decode dispatches, {sp['spec_emitted']} tokens emitted by "
+        f"windows, {sp['tokens_a_dispatch']:.2f} new tokens a dispatch over the slots, "
+        f"{sp['ms_a_dispatch']:.1f} ms a dispatch over the run with the fault, reset and "
+        f"re-prefill, {sp['decode_ms_a_dispatch']:.1f} ms from the first window after the "
+        f"restart on (plain tp, bf16 KV through the decode kernel: "
+        f"{plain['tokens_a_step']:.2f} new tokens and {plain['ms_a_step']:.1f} ms a step over "
+        f"the run, {plain['decode_ms_a_dispatch']:.1f} ms from its first decode step on, "
+        f"{plain['decode_steps']} steps); channel and "
+        f"broadcasts {1e3 * sp['channel_s'] / max(sp['decode_steps'], 1):.2f} ms a dispatch; "
+        f"launches by rank {sp['launches_by_rank']}; quant_linear vs plain after the run at "
+        f"the shard shapes {sp['qm_shards_by_rank'][0]['shapes']} x "
+        f"{sp['qm_shards_by_rank'][0]['rows']} rows, worst max|d|/max|plain| by rank "
+        f"{[{k: f'{e:.2e}' for k, e in q['rel'].items()} for q in sp['qm_shards_by_rank']]} "
+        f"(bound "
+        f"{QM_TOL['float32']} f32, {QM_TOL['bfloat16']} bf16)")
+    if not sp["greedy_equal"] or sp["restarts"] != 1 or any(sp["failed"]) \
+            or not sp["aux_equal"] or min(x["quant_linear"] for x in sp["launches_by_rank"]) < 1:
+        raise AssertionError("phase 18 (b) spec: greedy tokens differ, the fault did not "
+                             "recover, aux differs across ranks or quant_linear did not "
+                             "launch on a rank")
     v = b[0]["vlm"]
     v["vit_by_rank"] = [x["vlm"]["vit_attention_launches"] for x in b]
+    v["spec_vit_by_rank"] = [x["vlm"]["spec_vit_attention_launches"] for x in b]
     d = b[0]["detect"]
     d["stem_by_rank"] = [x["detect"]["stem_launches"] for x in b]
     f = b[0]["finetune"]
@@ -3731,12 +3978,16 @@ def phase18(torch):
     log(f"(b) {backend} x2, host-staged ops {b[0]['host_staged']}: {_p18_seq_line(b[0])}; "
         f"VLMServingEngine(mesh=) Qwen3-VL-2B widths, 2 blocks: text equal solo "
         f"{v['text_equal']}, KV heads a rank {v['kv_heads']}, vit_attention launches by "
-        f"rank {v['vit_by_rank']}; detect x2 data ranks: stem launches by rank "
+        f"rank {v['vit_by_rank']}; with CLEARCAM_SPEC_LOOKUP={v['spec']}: text equal solo "
+        f"{v['spec_text_equal']} ({v['spec_decode_steps']} decode dispatches), "
+        f"vit_attention launches by rank {v['spec_vit_by_rank']}; detect x2 data ranks: "
+        f"stem launches by rank "
         f"{d['stem_by_rank']}; finetune (1, 2) mesh losses {f['losses']} vs one rank "
         f"{f['one_rank']} (rel {f['rel']:.1e}); seconds {b[0]['t']}")
     _p18_seq_check("b", b[0])
     if not v["text_equal"] or min(v["vit_by_rank"]) < 1 or min(d["stem_by_rank"]) < 1 \
-            or not f["rel"] <= P18_FT_TOL:
+            or not v["spec_text_equal"] or v["spec"] != P18_SPEC \
+            or min(v["spec_vit_by_rank"]) < 1 or not f["rel"] <= P18_FT_TOL:
         raise AssertionError("phase 18 (b): VLM text, a kernel launch or the finetune "
                              "loss off")
     print(json.dumps({"phase18": out}, default=str), flush=True)
@@ -3801,6 +4052,7 @@ def main(argv=None) -> int:
         sys.exit(f"chip_smoke: run from the repository root ({e})")
     log(f"package: {Path(clearcam_tpu_torch.__file__).parent}")
 
+    _prefetch(phases)
     t0 = time.time()
     build_s = max_err = times = fps = launches = attn_err = attn_times = clip_fps = None
     kern = llm_errs = llm_tps = int4_launches = served = k10 = vl_errs = vlm = None
@@ -3854,7 +4106,8 @@ def main(argv=None) -> int:
     if 19 in phases:
         probes = run(19, phase19, torch)
     log(f"== done in {time.time() - t0:.1f} s (phases {phase_s}); build {build_s} s; detect "
-        f"fps {fps}; image tower img/s (kernel, plain) {clip_fps}; 28-block int4 engine "
+        f"fps {fps}; image tower img/s (kernel, plain) {clip_fps}; {INT4_BLOCKS}-block int4 "
+        f"engine "
         f"decode tokens/s (kernel: True, plain: False) {llm_tps}; summaries "
         f"{None if vlm is None else vlm['summary_s']}; probe "
         f"{None if probe is None else probe['tool']}; spec {SPEC_BLOCKS}-block [tokens/s, "

@@ -34,7 +34,9 @@ staging):
     the experts of an expert-parallel MoE block;
   * the serving engine under a mesh: one ``broadcast`` of the [2, B] token
     rows a decode step (the previous step's samples and the prefills'
-    first tokens) on the device group, after the command;
+    first tokens) on the device group, after the command; under
+    speculative serving instead one after each graph, of rank 0's first
+    tokens (prefill) or its window positions and last tokens (decode);
   * YOLOv9 training (``shard_params_tp``): the channel gather of each split
     conv's output (``nn.functional``), the ``all_reduce`` of the gradients
     over ``data`` and of the split gradients' squared norm over ``model``.
@@ -437,13 +439,27 @@ class EngineRanks:
 
     On rank 0 the engine's ``prefill_slot``, ``decode_all``,
     ``prefill_many`` and ``custom_prefill`` are wrapped: each sends its
-    host arguments as a command, then (decode) broadcasts the [2, B] token
-    rows the step consumes, then runs. On the other ranks this object is
-    the command's target: it runs the same graph on the rank's shards and
-    cache. The sampling-only tensors (penalty counts, bias, grammar table
-    and states, logprob rows) stay on rank 0; a follower passes inert ones
-    of the same shapes, and its samples are dropped, since the next step
-    takes rank 0's."""
+    host arguments as a command, then runs. On the other ranks this object
+    is the command's target: it runs the same graph on the rank's shards
+    and cache. The sampling-only tensors (penalty counts, bias, grammar
+    table and states, logprob rows) stay on rank 0; a follower passes inert
+    ones of the same shapes, so its samples may differ from rank 0's, and
+    it keeps none of them:
+
+    - a plain decode step takes rank 0's [2, B] token rows (the previous
+      step's samples and the prefills' first tokens), broadcast before the
+      graph;
+    - under ``spec_lookup`` a prefill's first tokens [B], and a window's
+      ``aux`` positions and last tokens [2, B], are broadcast after the
+      graph and replace the follower's own. Each window's inputs (the first
+      or last token, the drafts read from ``aux["ids"]`` at ``aux["pos"]``)
+      and the history rows it records are then rank 0's on every rank, and
+      only rank 0 decides what a window accepted: no rank compares its own
+      all-reduced logits.
+
+    ``broken``: rank 0 raised inside a wrapper, after its command went out,
+    where the other ranks may be waiting in one of the graph's reductions;
+    the engine then fails its waiters and never resets (``_recover``)."""
 
     def __init__(self, eng, mesh: Mesh):
         self.eng, self.mesh = eng, mesh
@@ -453,10 +469,10 @@ class EngineRanks:
         self.name = mesh.channel.register("engine", self)
         self.steps = 0
         self.comm_s = 0.0
+        self.broken = False
         dev, b, v = eng.device, eng.n_slots, eng.cfg.vocab_size
         if mesh.is_leader:
-            eng.prefill_slot = self._lead_prefill_slot
-            eng.decode_all = self._lead_decode_all
+            eng.prefill_slot, eng.decode_all = self._lead_prefill_slot, self._lead_decode_all
             if eng.prefill_many is not None:
                 eng.prefill_many = self._lead_prefill_many
             if eng.custom_prefill is not None:
@@ -470,83 +486,144 @@ class EngineRanks:
             self._bias = torch.zeros((b, v), device=dev)
             self._ctab = torch.zeros((1, v), dtype=torch.int16, device=dev)
             self._cinit = torch.full((b,), -1, dtype=torch.int32, device=dev)
+            # the inert tensors each graph takes after its host arguments
+            # (a spec graph has no grammar and no logprob rows)
+            self._prefill_tail = (self._cnt, self._cnt_o, self._bias) + (
+                () if eng.spec else (self._ctab, self._cinit, self._cinit))
+            self._decode_tail = (self._cnt_o, self._cnt, self._bias) + (
+                () if eng.spec else (self._ctab, self._cinit))
 
     def _send(self, method, *args):
         t0 = time.perf_counter()
         self.mesh.channel.send(self.name, method, *args)
         self.comm_s += time.perf_counter() - t0
 
-    def _toks(self, rows=None):
-        """The [2, B] token rows (prev, first) from rank 0, on every rank."""
+    def _bcast(self, t: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``t`` on every rank, in place."""
         t0 = time.perf_counter()
-        if rows is None:
-            rows = torch.empty((2, self.eng.n_slots), dtype=torch.int32,
-                               device=self.eng.device)
-        comm.broadcast(rows, 0)
+        comm.broadcast(t, 0)
         self.comm_s += time.perf_counter() - t0
-        return rows
+        return t
+
+    def _rows(self, n: int) -> torch.Tensor:
+        """A follower's buffer for rank 0's [n, B] int32 rows, received."""
+        return self._bcast(torch.empty((n, self.eng.n_slots), dtype=torch.int32,
+                                       device=self.eng.device))
 
     # -- rank 0 ------------------------------------------------------------
 
-    def _lead_prefill_slot(self, params, state, first_tok, first_lp, tokens, slot,
-                           start_pos, n_real, samp, seed, base_seed, *rest):
+    def _mirrored(self, method, args, run):
+        """Rank 0: ``method``'s command, then ``run()``, under the channel's
+        lock; a raise from the command on marks the mesh ``broken``."""
         with self.mesh.channel.lock:
-            self._send("prefill_slot", np.asarray(tokens), int(slot), int(start_pos),
-                       int(n_real), np.asarray(samp, np.float32), int(seed),
-                       int(base_seed))
-            return self._slot(params, state, first_tok, first_lp, tokens, slot,
-                                start_pos, n_real, samp, seed, base_seed, *rest)
+            try:
+                self._send(method, *args)
+                return run()
+            except BaseException:
+                self.broken = True
+                raise
 
-    def _lead_decode_all(self, params, state, prev_tok, first_tok, meta, samp,
-                         base_seed, *rest):
-        with self.mesh.channel.lock:
-            self._send("decode_all", np.asarray(meta, np.int32),
-                       np.asarray(samp, np.float32), int(base_seed))
-            self._toks(torch.stack([prev_tok, first_tok]).to(torch.int32))
-            self.steps += 1
-            return self._decode(params, state, prev_tok, first_tok, meta, samp,
-                                base_seed, *rest)
+    @staticmethod
+    def _slot_args(tokens, slot, start_pos, n_real, samp, seed, base_seed):
+        return (np.asarray(tokens), int(slot), int(start_pos), int(n_real),
+                np.asarray(samp, np.float32), int(seed), int(base_seed))
 
-    def _lead_prefill_many(self, params, state, first_tok, first_lp, tokens, meta,
-                           samp, base_seed, *rest):
-        with self.mesh.channel.lock:
-            self._send("prefill_many", np.asarray(tokens), np.asarray(meta, np.int32),
-                       np.asarray(samp, np.float32), int(base_seed))
-            return self._many(params, state, first_tok, first_lp, tokens, meta, samp,
-                                base_seed, *rest)
+    # The graphs' arguments: params, state, then (first_tok, first_lp) or
+    # under spec (aux, first_tok), then the host arguments from index 4,
+    # then device tensors.
+
+    def _prefilled(self, out):
+        """A prefill's result; under spec, after rank 0's first tokens went
+        out, which the followers take in place of their own."""
+        if self.eng.spec:
+            self._bcast(out[0])
+        return out
+
+    def _lead_prefill_slot(self, *args):
+        return self._mirrored("prefill_slot", self._slot_args(*args[4:11]),
+                              lambda: self._prefilled(self._slot(*args)))
+
+    def _lead_prefill_many(self, *args):
+        tokens, meta, samp, base_seed = args[4:8]
+        return self._mirrored(
+            "prefill_many", (np.asarray(tokens), np.asarray(meta, np.int32),
+                             np.asarray(samp, np.float32), int(base_seed)),
+            lambda: self._prefilled(self._many(*args)))
+
+    def _lead_decode_all(self, *args):
+        spec = self.eng.spec
+        meta, samp, base_seed = args[4:7]
+
+        def run():
+            if not spec:      # the token rows (prev_tok, first_tok) the followers read
+                self._bcast(torch.stack(args[2:4]).to(torch.int32))
+            out = self._decode(*args)
+            if spec:          # the window's positions and last tokens, which replace theirs
+                self._bcast(torch.stack([args[2]["pos"], args[2]["last"]]))
+            return out
+        self.steps += 1
+        return self._mirrored(
+            "decode_all", (np.asarray(meta, np.int32), np.asarray(samp, np.float32),
+                           int(base_seed)) + ((int(args[7]),) if spec else ()), run)
 
     def _lead_custom_prefill(self, state, slot, start_pos, payload):
-        with self.mesh.channel.lock:
-            host = payload.cpu() if isinstance(payload, torch.Tensor) else payload
-            self._send("custom_prefill", int(slot), int(start_pos), host)
-            return self._custom(state, slot, start_pos, payload)
+        host = payload.cpu() if isinstance(payload, torch.Tensor) else payload
+        return self._mirrored("custom_prefill", (int(slot), int(start_pos), host),
+                              lambda: self._custom(state, slot, start_pos, payload))
+
+    def reset_all(self) -> None:
+        """Rank 0, recovering from a fault outside a mirrored call: every
+        rank's cache, ``aux`` and sampling tensors afresh."""
+        self._mirrored("reset", (), self.eng.reset_device)
 
     # -- followers ---------------------------------------------------------
 
+    def _head(self) -> tuple:
+        """A follower's graph arguments after params and state."""
+        return (self.eng.aux, self._tok) if self.eng.spec else (self._tok, self._lp)
+
+    @torch.inference_mode()
     def prefill_slot(self, tokens, slot, start_pos, n_real, samp, seed, base_seed):
         e = self.eng
-        self._slot(e.params, e.state, self._tok, self._lp, tokens, slot, start_pos,
-                     n_real, samp, seed, base_seed, self._cnt, self._cnt_o, self._bias,
-                     self._ctab, self._cinit, self._cinit)
+        self._slot(e.params, e.state, *self._head(), tokens, slot, start_pos, n_real, samp,
+                   seed, base_seed, *self._prefill_tail)
+        if e.spec:
+            self._bcast(self._tok)
 
-    def decode_all(self, meta, samp, base_seed):
+    @torch.inference_mode()
+    def decode_all(self, meta, samp, base_seed, step=None):
         e = self.eng
-        rows = self._toks()
         self._cnt_o.zero_()
-        self._decode(e.params, e.state, rows[0], rows[1], meta, samp, base_seed,
-                     self._cnt_o, self._cnt, self._bias, self._ctab, self._cinit)
+        if e.spec:
+            head, step_arg = self._head(), (step,)
+        else:
+            head, step_arg = tuple(self._rows(2)), ()
+        self._decode(e.params, e.state, *head, meta, samp, base_seed, *step_arg,
+                     *self._decode_tail)
+        if e.spec:
+            rows = self._rows(2)
+            e.aux["pos"].copy_(rows[0])
+            e.aux["last"].copy_(rows[1])
 
+    @torch.inference_mode()
     def prefill_many(self, tokens, meta, samp, base_seed):
         e = self.eng
-        self._many(e.params, e.state, self._tok, self._lp, tokens, meta, samp,
-                     base_seed, self._cnt, self._cnt_o, self._bias, self._ctab,
-                     self._cinit, self._cinit)
+        self._many(e.params, e.state, *self._head(), tokens, meta, samp, base_seed,
+                   *self._prefill_tail)
+        if e.spec:
+            self._bcast(self._tok)
 
     def custom_prefill(self, slot, start_pos, payload):
         e = self.eng
         if isinstance(payload, torch.Tensor):
             payload = payload.to(e.device)
         self._custom(e.state, slot, start_pos, payload)
+
+    @torch.inference_mode()
+    def reset(self) -> None:
+        self.eng.reset_device()
+        for t in (self._tok, self._lp, self._cnt, self._cnt_o, self._bias):
+            t.zero_()
 
 
 # ---------------------------------------------------------------------------

@@ -46,9 +46,15 @@ the JAX engine (a recurrent state cannot be reused in part).
 Under a mesh (``mesh=``; ``parallel.mesh.serving_engine_tp``), where the
 JAX engine's graphs GSPMD-partition, every rank builds this engine on its
 shards and its slice of the cache; rank 0's is driven as on one device
-and the others mirror each graph call (``parallel.mesh.EngineRanks``).
-There ``spec_lookup`` is refused and a crashed step is not recovered
-(a reset on one rank alone would leave the others' caches behind).
+and the others mirror each graph call (``parallel.mesh.EngineRanks``),
+speculative windows included: rank 0's first tokens and window positions
+and last tokens are broadcast after each graph, so every rank's ``aux``
+stays rank 0's. Crash recovery there resets every rank's cache, ``aux``
+and sampling tensors (a ``reset`` command), but only after a fault raised
+outside a mirrored call: before its command went out or after it returned.
+A fault inside one (after the command, where the other ranks may wait in
+a block reduction for rank 0) makes the engine unrecoverable: its waiters
+fail and no reset is tried, since one would queue behind that reduction.
 """
 from __future__ import annotations
 
@@ -192,9 +198,6 @@ class ServingEngine:
                  constraints: dict | None = None, constraint_rows: int = 0,
                  device=None, mesh=None):
         assert cfg.max_context % llm.CHUNK == 0
-        if mesh is not None and spec_lookup:
-            raise ValueError("spec_lookup is not served over a mesh: its drafts and "
-                             "verify windows live in per-rank bookkeeping")
         # device-drafted (G+1)-token verify windows, 1..G+1 tokens a dispatch;
         # make_serving_fns refuses them with use_pallas_decode or SSM blocks
         self.spec = int(spec_lookup)
@@ -328,7 +331,6 @@ class ServingEngine:
         self.ranks = None
         if mesh is not None:
             from ..parallel import mesh as pmesh
-            self.max_restarts = 0
             self.ranks = pmesh.EngineRanks(self, mesh)
 
     # -- client API --------------------------------------------------------
@@ -527,7 +529,12 @@ class ServingEngine:
                 except Exception:     # never hang the waiters: recover within
                     import traceback  # the restart budget, else fail them
                     traceback.print_exc()
-                    if self._recover():
+                    try:
+                        recovered = self._recover()
+                    except Exception:     # a reset that failed fails them too
+                        traceback.print_exc()
+                        recovered = False
+                    if recovered:
                         continue
                     self._fail_all()
                     return
@@ -540,9 +547,12 @@ class ServingEngine:
         no materialized token is requeued at the front and re-runs from
         scratch (seeded ones redraw identically); one that already streamed
         tokens completes with ``failed=True``. Returns False when more than
-        ``max_restarts`` recoveries landed within ``restart_window_s``."""
+        ``max_restarts`` recoveries landed within ``restart_window_s``, or
+        when a fault inside a mirrored call left the mesh unrecoverable."""
         now = time.monotonic()
         with self._work:
+            if self.ranks is not None and self.ranks.broken:
+                return False
             while self._restart_marks and \
                     now - self._restart_marks[0] > self.restart_window_s:
                 self._restart_marks.popleft()
@@ -568,23 +578,10 @@ class ServingEngine:
                 self._waiting.appendleft(r)
             self._deadlines = sum(1 for w in self._waiting if w.deadline is not None)
             self._cancel = {r for r in self._cancel if not r.done}
-            with torch.inference_mode():
-                self.state = llm.init_state(self._state_cfg, batch=self.n_slots,
-                                            dtype=self._state_dtype,
-                                            kv_quant=self._kv_quant, device=self.device)
-                if self.spec:
-                    self.aux = llm.init_serving_aux(self.cfg, self.n_slots,
-                                                    device=self.device)
-                self._cnt_p.zero_()
-                self._cnt_o.zero_()
-                self._bias.zero_()
-                self._cinit_np[:] = -1
-                self._cinit_dev = llm.upload(self._cinit_np, self.device)
-                self._cinit_dirty = False
-                self._cstate.fill_(-1)
-                self._tok_dev = torch.zeros_like(self._tok_dev)
-                self._first_tok = torch.zeros_like(self._first_tok)
-                self._first_lp = torch.zeros_like(self._first_lp)
+            if self.ranks is not None:
+                self.ranks.reset_all()        # every rank's, in one command
+            else:
+                self.reset_device()
             self.cursor[:] = 0
             self.seg_idx = [0] * self.n_slots
             self.seg_start[:] = 0
@@ -595,6 +592,26 @@ class ServingEngine:
             self._pending.clear()
             self._acc = []
         return True
+
+    def reset_device(self) -> None:
+        """A fresh cache (this rank's slice under a mesh), ``aux`` and
+        sampling tensors: the device half of a recovery."""
+        with torch.inference_mode():
+            self.state = llm.init_state(self._state_cfg, batch=self.n_slots,
+                                        dtype=self._state_dtype,
+                                        kv_quant=self._kv_quant, device=self.device)
+            if self.spec:
+                self.aux = llm.init_serving_aux(self.cfg, self.n_slots, device=self.device)
+            self._cnt_p.zero_()
+            self._cnt_o.zero_()
+            self._bias.zero_()
+            self._cinit_np[:] = -1
+            self._cinit_dev = llm.upload(self._cinit_np, self.device)
+            self._cinit_dirty = False
+            self._cstate.fill_(-1)
+            self._tok_dev = torch.zeros_like(self._tok_dev)
+            self._first_tok = torch.zeros_like(self._first_tok)
+            self._first_lp = torch.zeros_like(self._first_lp)
 
     def _fail_all(self) -> None:
         """Scheduler death: complete every request with ``failed=True`` and

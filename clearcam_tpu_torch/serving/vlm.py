@@ -47,7 +47,7 @@ class VLMServingEngine:
     engine from its own Qwen3VL; rank 0 serves and the others run
     ``mesh.follow()``. The vision tower is replicated: each rank runs it on
     the image rank 0 sends with the image prefill, which writes the rank's
-    KV-head slice of the cache."""
+    KV-head slice of the cache. ``CLEARCAM_SPEC_LOOKUP`` serves there too."""
 
     def __init__(self, qwen, n_slots: int = 2, mesh=None, **engine_kw):
         self.qwen = qwen
@@ -55,7 +55,6 @@ class VLMServingEngine:
         if mesh is not None:
             from ..parallel import mesh as pmesh
             params = pmesh.shard_llm_params(mesh, params, qwen.lang.cfg)
-            engine_kw.setdefault("spec_lookup", 0)
         impl = qwen._image_prefill_impl
         slotted = llm.make_slot_transform(
             lambda st_b, p, vp, img, sp: impl(p, vp, st_b, img, sp))

@@ -5,7 +5,8 @@ with its flags and JSON keys.
 The model has Qwen/Qwen3-1.7B's published widths (``models.llm.qwen3_2b_cfg``),
 or with ``--ssm`` the JAX tool's Qwen3-Next-class GatedDeltaNet hybrid
 (``models.llm.qwen3_next_cfg``), and random bf16 weights from seed 0
-(throughput depends on the shapes, not the values). One JSON line per
+(throughput depends on the shapes, not the values; on a card they are drawn
+there by a torch.Generator, on the CPU by numpy as the JAX tool's). One JSON line per
 measurement:
 
   * ``--modes`` (``bench_mode``): chunked-prefill tokens/s up to ctx-64 and
@@ -288,7 +289,10 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = (llm.qwen3_next_cfg(args.blocks, args.ctx) if args.ssm
            else llm.qwen3_2b_cfg(args.blocks, args.ctx))
-    params = llm.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    # on a card the values are drawn there (a torch.Generator seeded 0):
+    # numpy's draws of 28 blocks take about a minute on the host
+    gen = torch.Generator(device=dev).manual_seed(0) if dev.type == "cuda" else None
+    params = llm.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev, generator=gen)
     n_params = sum(v.numel() for v in params.values())
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"# {args.blocks} blocks, {n_params / 1e9:.2f}B params, ctx {args.ctx}, "

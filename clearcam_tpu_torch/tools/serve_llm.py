@@ -10,9 +10,10 @@ the continuous-batching engine, with no NVR attached. The counterpart of
     curl -N -X POST localhost:8081/generate \\
         -d '{"prompt": "hello", "max_new": 64, "stream": true}'
 
-``--synthetic`` serves random weights (seed 0) at Qwen/Qwen3-1.7B's
-published widths (``models.llm.qwen3_2b_cfg``) with a byte-level stand-in
-tokenizer; ``--gguf`` loads a checkpoint with the shared GGUF reader and
+``--synthetic`` serves random weights (seed 0; on a card drawn there by a
+torch.Generator, on the CPU numpy's draws as the JAX tool's) at
+Qwen/Qwen3-1.7B's published widths (``models.llm.qwen3_2b_cfg``) with a
+byte-level stand-in tokenizer; ``--gguf`` loads a checkpoint with the shared GGUF reader and
 tokenizer. ``--int8`` quantizes the weights (the quant-matmul kernel),
 ``--pallas`` runs the decode step's attention through the batched
 decode-attention kernel (its int8 form with ``--kv-quant``), ``--spec G``
@@ -82,7 +83,11 @@ def build_engine(args, mesh=None):
     dev = mesh.device if mesh is not None else resolve_device(args.device)
     if args.synthetic:
         cfg = llm.qwen3_2b_cfg(args.blocks, args.ctx)
-        params = llm.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+        # on a card the values are drawn there from a torch.Generator seeded
+        # 0: numpy's draws of 28 blocks take about a minute on the host
+        gen = torch.Generator(device=dev).manual_seed(0) if dev.type == "cuda" else None
+        params = llm.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev,
+                                 generator=gen)
         tok = _AsciiTok(cfg.vocab_size)
     else:
         from ..utils.llm_tokenizer import LLMTokenizer
@@ -182,9 +187,6 @@ def parse_args(argv=None):
     if args.spec and args.pallas:
         ap.error("--spec excludes --pallas: a verify window has G+1 queries, the "
                  "decode kernels take one")
-    if args.spec and args.mesh > 1:
-        ap.error("--spec is not served over --mesh (its drafts live in per-rank "
-                 "bookkeeping)")
     return args
 
 

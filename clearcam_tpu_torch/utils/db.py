@@ -8,7 +8,8 @@ value). The HTTP threads and the NVR loop communicate through this store.
 
 Re-design: per-thread connections (the reference shares one connection across
 threads with check_same_thread=False; WAL tolerates it but per-thread
-connections remove the lock contention its busy_timeout papers over).
+connections remove the lock contention its busy_timeout papers over). Each
+put is one write transaction, so concurrent puts on one key serialize.
 """
 from __future__ import annotations
 
@@ -52,22 +53,31 @@ class KVStore:
 
     def run_put(self, table: str, key: str, val: Any = None,
                 id: str | int | None = None, replace: bool = True):
+        """One transaction (``BEGIN IMMEDIATE``: the write lock first), so
+        two threads putting one key never interleave a DELETE or a next-id
+        read with the other's INSERT."""
         t = self._table(table)
         conn = self._conn()
         key = str(key)
-        if replace:
-            if id is None:
-                conn.execute(f"DELETE FROM '{t}' WHERE key=?", (key,))
-                id = "1"
-            else:
-                conn.execute(f"DELETE FROM '{t}' WHERE id=? AND key=?", (str(id), key))
-        elif id is None:
-            row = conn.execute(
-                f"SELECT COALESCE(MAX(CAST(id AS INTEGER)), 0) + 1 FROM '{t}' WHERE key=?",
-                (key,)).fetchone()
-            id = str(row[0]) if row and row[0] else "1"
-        conn.execute(f"INSERT INTO '{t}' (id, key, val) VALUES (?,?,?)",
-                     (str(id), key, pickle.dumps(val)))
+        conn.execute("BEGIN IMMEDIATE")
+        try:
+            if replace:
+                if id is None:
+                    conn.execute(f"DELETE FROM '{t}' WHERE key=?", (key,))
+                    id = "1"
+                else:
+                    conn.execute(f"DELETE FROM '{t}' WHERE id=? AND key=?", (str(id), key))
+            elif id is None:
+                row = conn.execute(
+                    f"SELECT COALESCE(MAX(CAST(id AS INTEGER)), 0) + 1 FROM '{t}' WHERE key=?",
+                    (key,)).fetchone()
+                id = str(row[0]) if row and row[0] else "1"
+            conn.execute(f"INSERT INTO '{t}' (id, key, val) VALUES (?,?,?)",
+                         (str(id), key, pickle.dumps(val)))
+        except BaseException:
+            conn.execute("ROLLBACK")
+            raise
+        conn.execute("COMMIT")
         return val, str(id)
 
     def run_get(self, table: str, key: str | None = None,

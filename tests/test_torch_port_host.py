@@ -1,8 +1,8 @@
 """The port's copies of the JAX package's jax-free host code: each copy is
 byte-equal to its source, except the files the port deliberately changed
 (``runtime/nvr.py``, ``server/http.py``, ``models/objects.py``,
-``models/faces.py``), each of which has a test of what changed here; and the
-metrics registry is one, the port's.
+``models/faces.py``, ``utils/db.py``), each of which has a test of what
+changed here; and the metrics registry is one, the port's.
 """
 import json
 import socket
@@ -31,14 +31,15 @@ COPIED = {f: None for f in (
     "runtime/storage.py", "runtime/zones.py",
     "server/__init__.py", "server/web/cameraview.html", "server/web/mainview.html",
     "track/__init__.py", "track/kalman.py", "track/multicam.py",
-    "utils/__init__.py", "utils/annotate.py", "utils/db.py", "utils/labels.py",
+    "utils/__init__.py", "utils/annotate.py", "utils/labels.py",
     "utils/llm_tokenizer.py", "utils/tokenizer.py",
     "serving/text.py", "serving/constrain.py")}
 COPIED["track/ocsort.py"] = {4: b"ocsort_tracker/ocsort.py"}
 COPIED["jsengine/__init__.py"] = {3: b"have no browser, node, or any JS",
                                   23: b"clearcam.py:960-988) and never tests it"}
 COPIED["jsengine/dom.py"] = {1283: b"API ----"}
-CHANGED = ("runtime/nvr.py", "server/http.py", "models/objects.py", "models/faces.py")
+CHANGED = ("runtime/nvr.py", "server/http.py", "models/objects.py", "models/faces.py",
+           "utils/db.py")
 
 
 @pytest.mark.parametrize("rel", sorted(COPIED))
@@ -178,3 +179,41 @@ def test_one_metrics_registry():
         text = Path(mod.__file__).read_text()
         assert "clearcam_tpu.runtime" not in text
         assert "from ..runtime import metrics" in text or "from . import metrics" in text
+
+
+@pytest.mark.parametrize("replace", [True, False])
+def test_kvstore_puts_on_one_key_from_threads(tmp_path, replace):
+    """utils/db.py's change: 4 threads x 500 puts on one key (the NVR thread
+    and the HTTP handlers write ``counters``, ``alerts`` and ``settings``
+    so) raise nothing; a replaced key keeps one row, an appended one gets
+    contiguous unique ids. The copy as it was lost rows to ``UNIQUE
+    constraint failed`` between one thread's DELETE (or next-id read) and
+    another's INSERT."""
+    import threading
+    from clearcam_tpu_torch.utils.db import KVStore
+    db = KVStore(tmp_path / "kv.db")
+    n_threads, n_puts = 4, 500
+    errors, ids = [], []
+    start = threading.Barrier(n_threads)
+
+    def put(t):
+        start.wait()
+        try:
+            for i in range(n_puts):
+                ids.append(db.run_put("counters", "gate", (t, i), replace=replace)[1])
+        except Exception as e:  # noqa: BLE001
+            errors.append(repr(e))
+    threads = [threading.Thread(target=put, args=(t,)) for t in range(n_threads)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert errors == []
+    rows = db._conn().execute("SELECT id FROM 'counters_1' WHERE key='gate'").fetchall()
+    if replace:
+        assert [r[0] for r in rows] == ["1"]
+        assert db.run_get("counters", "gate")[1] == n_puts - 1
+    else:
+        want = [str(i) for i in range(1, n_threads * n_puts + 1)]
+        assert sorted(r[0] for r in rows) == sorted(want)
+        assert sorted(ids) == sorted(want)

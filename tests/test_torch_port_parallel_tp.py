@@ -9,7 +9,13 @@ cache at 1/m, the ep-sharded prefill's first token against JAX
 ``sharded_llm_prefill``, ``VLMServingEngine(mesh=)`` and the NVR's
 tensor-parallel summary engine against solo ``Qwen3VL.generate``, and the
 YOLOv9 training step under ``shard_params_tp`` against the one-device
-step."""
+step. Speculative windows under the mesh (``spec_lookup``): rank 0's tokens
+against JAX ``serving_engine_tp(spec_lookup=3)``, solo generation and the
+port's one-device spec engine, every rank's ``aux`` against rank 0's beside
+a stochastic row, and ``VLMServingEngine(mesh=)`` under
+``CLEARCAM_SPEC_LOOKUP``; crash recovery on 2 ranks (faults before a
+mirrored call's command and after it returned recover; one inside it fails
+the waiters). Tokens are compared exactly."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -135,6 +141,127 @@ def test_tp_engine_matches_one_device_engine(engines, name):
             assert sh["state"]["k_s"] == (2, 1, 128)
 
 
+SPEC = 3
+STOCH = [([1, 2, 3, 4, 5], 8, {}),
+         ([9, 8, 7], 8, {"temperature": 0.7, "repetition_penalty": 1.3,
+                         "presence_penalty": 1.0, "logit_bias": {5: 3.0}}),
+         ([4, 4, 4, 4], 8, {})]
+RECOVERY_REQS, RECOVERY_FRESH = [([1, 2, 3, 4, 5], 6), ([9, 8, 7], 5)], ([5, 5], 4)
+# (spec_lookup, fault): at decode call 2, before the command / after the
+# mirrored call returned; "inside": raised inside rank 0's mirrored call
+RECOVERY_RUNS = [(0, (2, False)), (0, (2, True)), (SPEC, (2, False)), (SPEC, (2, True)),
+                 (0, "inside")]
+
+
+def _spec_cases():
+    """(name, JAX cfg, port params, engine kwargs): spec_lookup=3 on the
+    f32 model, MoE and MLA stacks, int8 weights with a bf16 cache and int4
+    weights with an int8 cache (plain attention: a window has G+1
+    queries)."""
+    out = []
+    for name, cfg, p, kw in _cases():
+        if name == "ssm_hybrid":
+            continue                     # spec refuses GatedDeltaNet stacks
+        kw = {k: v for k, v in kw.items() if k != "use_pallas_decode"}
+        out.append((name, cfg, p, dict(kw, spec_lookup=SPEC)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def spec_engines(tmp_path_factory):
+    """One spawn of 2 ranks: the staggered script on every spec case, the
+    stochastic row's aux log and the recovery runs."""
+    cases = _spec_cases()
+    cfg = tiny_cfg(max_context=96)
+    jp = jllm.init_params(cfg, seed=4)
+    tp = tllm.params_from_jax(jp)
+    stoch = (port_cfg(cfg), tp, dict(n_slots=3, spec_lookup=SPEC), STOCH)
+    runs = [(dict(n_slots=2, max_restarts=3, sync_lag=4, spec_lookup=g), fault)
+            for g, fault in RECOVERY_RUNS]
+    r0, r1 = run_ranks(W.engine_tp_spec, 2, tmp_path_factory.mktemp("tp_spec"),
+                       [(port_cfg(c), p, kw) for _, c, p, kw in cases], SCRIPT, stoch,
+                       (port_cfg(cfg), tp, runs, RECOVERY_REQS, RECOVERY_FRESH))
+    return {"cases": {name: (c, p, kw, r0["cases"][i])
+                      for i, (name, c, p, kw) in enumerate(cases)},
+            "model": (cfg, jp), "r0": r0, "r1": r1}
+
+
+def _jax_solo(jp, cfg, prompt, n):
+    return list(jllm.Transformer(jp, cfg, seed=0).generate(list(prompt), temperature=0.0,
+                                                           max_new=n))
+
+
+def test_tp_spec_engine_f32_matches_jax_tp_and_solo(spec_engines):
+    """serving_engine_tp(spec_lookup=3) on 2 ranks, staggered requests:
+    rank 0's tokens equal JAX serving_engine_tp(spec_lookup=3)'s on a
+    (1, 2) mesh and JAX's solo greedy generation, exactly."""
+    cfg, jp = spec_engines["model"]
+    row = spec_engines["cases"]["f32"][3]
+    eng = jmesh.serving_engine_tp(jp, cfg, jmesh.make_mesh(2, data=1), n_slots=2,
+                                  spec_lookup=SPEC)
+    j1 = eng.submit([1, 2, 3, 4, 5], max_new=6)
+    for _ in range(2):
+        eng.step()
+    j2 = eng.submit([9, 8, 7], max_new=5)
+    eng.run_until_idle()
+    assert row["spec"] == SPEC
+    assert row["tokens"] == [j1.wait(1), j2.wait(1)]
+    assert row["tokens"] == [_jax_solo(jp, cfg, [1, 2, 3, 4, 5], 6),
+                             _jax_solo(jp, cfg, [9, 8, 7], 5)]
+    assert row["spec_emitted"] == eng.stats["spec_emitted"] > 0
+    assert row["steps"] == eng.stats["decode_steps"] > 0
+
+
+@pytest.mark.parametrize("name", ["qwen_moe", "mla", "int8_bf16kv", "int4_int8kv"])
+def test_tp_spec_engine_matches_one_device_engine(spec_engines, name):
+    """The same staggered spec requests through the port's one-device spec
+    engine give the same tokens, exactly."""
+    cfg, params, kw, row = spec_engines["cases"][name]
+    assert row["spec"] == SPEC
+    assert row["tokens"] == W.solo_engine(port_cfg(cfg), params, kw, SCRIPT)
+
+
+def test_tp_spec_aux_is_rank0s_beside_a_stochastic_row(spec_engines):
+    """A temperature-0.7 row with penalties and a logit bias (which the
+    followers sample with inert counts and bias) beside two greedy rows: after
+    every prefill and decode graph, each rank's aux (ids, pos, last) and
+    first tokens equal rank 0's; the greedy rows' tokens are JAX solo's."""
+    cfg, jp = spec_engines["model"]
+    r0, r1 = spec_engines["r0"], spec_engines["r1"]
+    log0, log1 = r0["aux_log"], r1["aux_log"]
+    assert len(log0) == len(log1) > 8
+    for i, (a, b) in enumerate(zip(log0, log1)):
+        for k in ("ids", "pos", "last", "first"):
+            np.testing.assert_array_equal(b[k], a[k], err_msg=f"graph call {i}: {k}")
+    toks = r0["stoch_tokens"]
+    assert toks[0] == _jax_solo(jp, cfg, [1, 2, 3, 4, 5], 8)
+    assert toks[2] == _jax_solo(jp, cfg, [4, 4, 4, 4], 8)
+    assert len(toks[1]) == 8
+
+
+@pytest.mark.parametrize("i", range(4), ids=[f"spec{g}-{'after' if f[1] else 'before'}"
+                                             for g, f in RECOVERY_RUNS[:4]])
+def test_tp_engine_recovers_on_two_ranks(spec_engines, i):
+    """max_restarts under a mesh: a fault at rank 0's second decode call,
+    before its command or after the mirrored call returned, resets every
+    rank (the reset command); both in-flight requests requeue and give
+    their solo tokens, and so does a fresh request after the reset."""
+    cfg, jp = spec_engines["model"]
+    row = spec_engines["r0"]["recoveries"][i]
+    want = [_jax_solo(jp, cfg, p, n) for p, n in RECOVERY_REQS + [RECOVERY_FRESH]]
+    assert row["tokens"] == want
+    assert row["failed"] == [False] * 3
+    assert row["restarts"] == 1
+
+
+def test_tp_engine_fault_inside_a_mirrored_call_fails_waiters(spec_engines):
+    """A fault raised on rank 0 inside a mirrored call (after its command
+    went out) marks the mesh broken: no reset is tried, the waiter
+    completes failed and a further submit raises."""
+    row = spec_engines["r0"]["recoveries"][4]
+    assert row == {"failed": True, "refused": True, "broken": True, "restarts": 0}
+
+
 def test_moe_ep_prefill_matches_jax(tmp_path):
     """Expert parallelism: each rank holds 4 of 8 experts; the sharded
     prefill's first token equals JAX sharded_llm_prefill's and its
@@ -182,6 +309,24 @@ def test_vlm_engine_and_nvr_summaries_tp_match_solo(tmp_path):
     assert outs[0]["kshape"] == outs[1]["kshape"] == (2, 1, 1024, 128)
     assert outs[0]["nvr_kshape"] == (2, 1, 1024, 128)
     assert outs[0]["nvr_dtype"] == "torch.bfloat16"
+
+
+def test_vlm_engine_tp_spec_matches_solo(tmp_path):
+    """VLMServingEngine(mesh=) under CLEARCAM_SPEC_LOOKUP=2 on 2 ranks:
+    speculative windows over the image prefill's cache give JAX's solo
+    Qwen3VL.generate text exactly."""
+    jc, tc = _cfgs(max_context=1024)
+    jp, tp = _params(jc, seed=0)
+    vkv, vp = tvl.VisionTower.init_random(n_blocks=2, lang_dim=32, deepstack=(0,))
+    j = jvl.Qwen3VL(res=(64, 96), lang=_jax_lm(jp, jc, "f32", False), tok=_tok(JTok),
+                    vision=jvl.VisionTower(vkv, vp))
+    frame = np.random.default_rng(3).integers(0, 255, (48, 80, 3), np.uint8)
+    solo = j.generate(prompt="what is this", image=frame, reset=True, temperature=0.0,
+                      max_new=8)
+    outs = run_ranks(W.vlm_spec_ranks, 2, tmp_path, tc, tp, vkv, vp, frame, 2, 8)
+    assert outs[0]["text"] == solo
+    assert outs[0]["spec"] == outs[1]["spec"] == 2
+    assert outs[0]["decode_steps"] > 0
 
 
 def _rel(a, b):

@@ -179,13 +179,11 @@ def test_kv_quant_decode_route_matches_jax_plain_route(monkeypatch):
 
 @pytest.mark.parametrize("argv,raises,match", [
     (["--spec", "4", "--pallas"], SystemExit, None),
-    (["--mesh", "4", "--spec", "4"], SystemExit, "--spec is not served over --mesh"),
 ])
 def test_serve_llm_refuses_what_is_not_ported(argv, raises, match, capsys):
     """--spec with --pallas is refused at parsing (argparse's error, exit
     2), as the reference excludes the pair; --mesh parses (tensor-parallel
-    serving, tests/test_torch_port_parallel_tp.py) but not with --spec,
-    whose drafts live in per-rank bookkeeping."""
+    serving, tests/test_torch_port_parallel_tp.py)."""
     from clearcam_tpu_torch.tools import serve_llm
     assert serve_llm.parse_args(["--synthetic", "--mesh", "4"]).mesh == 4
     with pytest.raises(raises):
@@ -194,12 +192,15 @@ def test_serve_llm_refuses_what_is_not_ported(argv, raises, match, capsys):
 
 
 @pytest.mark.parametrize("argv", [["--kv-quant", "--pallas"], ["--spec", "4"],
-                                  ["--int8", "--kv-quant", "--spec", "2"]])
+                                  ["--int8", "--kv-quant", "--spec", "2"],
+                                  ["--mesh", "4", "--spec", "4"]])
 def test_serve_llm_parses_what_it_serves(argv):
     from clearcam_tpu_torch.tools import serve_llm
     args = serve_llm.parse_args(["--synthetic", *argv])
     assert args.kv_quant == ("--kv-quant" in argv) and args.pallas == ("--pallas" in argv)
     assert args.spec == (int(argv[argv.index("--spec") + 1]) if "--spec" in argv else 0)
+    if "--mesh" in argv:
+        assert args.mesh == 4
 
 
 @pytest.mark.parametrize("argv,spec,pallas,q8", [

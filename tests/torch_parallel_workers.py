@@ -59,6 +59,164 @@ def engine_tp(rank, cases, script):
     return out
 
 
+def _aux_row(aux, first_tok):
+    return {"ids": aux["ids"].numpy().copy(), "pos": aux["pos"].numpy().copy(),
+            "last": aux["last"].numpy().copy(), "first": first_tok.numpy().copy()}
+
+
+def _record_aux(eng, mesh, log):
+    """Append every rank's ``aux`` and first tokens to ``log`` after each
+    prefill and decode graph it runs (rank 0: the engine's wrapped calls;
+    a follower: the commands it runs)."""
+    if mesh.is_leader:
+        for name in ("prefill_slot", "decode_all", "prefill_many"):
+            fn = getattr(eng, name)
+
+            def lead(*a, _fn=fn, **k):
+                out = _fn(*a, **k)
+                log.append(_aux_row(eng.aux, eng._first_tok if len(out) == 4 else out[0]))
+                return out
+            setattr(eng, name, lead)
+        return
+    ranks = eng.ranks
+    for name in ("prefill_slot", "decode_all", "prefill_many"):
+        fn = getattr(ranks, name)
+
+        def follow(*a, _fn=fn):
+            _fn(*a)
+            log.append(_aux_row(eng.aux, ranks._tok))
+        setattr(ranks, name, follow)
+
+
+def _fault(eng, at, after):
+    """Raise on rank 0's ``at``-th decode call: before it (no command sent)
+    or after the mirrored call returned."""
+    orig, calls = eng.decode_all, {"n": 0}
+
+    def wrapper(*a, **k):
+        calls["n"] += 1
+        if calls["n"] == at and not after:
+            raise RuntimeError("injected decode failure")
+        out = orig(*a, **k)
+        if calls["n"] == at:
+            raise RuntimeError("injected decode failure")
+        return out
+    eng.decode_all = wrapper
+
+
+def _serve(eng, reqs, fresh):
+    """Rank 0, the scheduler on its thread: ``reqs`` [(prompt, max_new)]
+    at once, then ``fresh`` after them -> tokens, failed flags, restarts."""
+    eng.start()
+    rs = [eng.submit(list(p), max_new=n) for p, n in reqs]
+    toks = [r.wait(60) for r in rs]
+    r = eng.submit(list(fresh[0]), max_new=fresh[1])
+    toks.append(r.wait(60))
+    out = {"tokens": toks, "failed": [x.failed for x in rs + [r]],
+           "restarts": eng.stats["scheduler_restarts"]}
+    eng.close()
+    return out
+
+
+def engine_tp_spec(rank, cases, script, stoch, recoveries):
+    """2 ranks, every speculative and recovery case in one spawn:
+    - ``cases`` [(cfg, params, engine_kw)]: rank 0 runs ``script`` as in
+      ``engine_tp``;
+    - ``stoch`` (cfg, params, engine_kw, [(prompt, max_new, sampling kw)]):
+      every rank's aux and first tokens after each graph call;
+    - ``recoveries`` (cfg, params, [(engine_kw, fault), ...], reqs, fresh):
+      fault (at, after) injected on rank 0 (``_fault``), the scheduler on
+      its thread; fault "inside": rank 0 raises inside its mirrored decode
+      after the graph returned (the mesh marked broken)."""
+    from clearcam_tpu_torch.parallel import mesh as pmesh
+    mesh = pmesh.make_mesh(data=1)
+    out = {"cases": [], "recoveries": []}
+    for cfg, params, engine_kw in cases:
+        eng = pmesh.serving_engine_tp(params, cfg, mesh, **engine_kw)
+        row = {"spec": eng.spec}
+        if mesh.is_leader:
+            row["tokens"] = _drive(eng, script)
+            row["steps"] = eng.ranks.steps
+            row["spec_emitted"] = eng.stats["spec_emitted"]
+            eng.close()
+            mesh.stop_followers()
+        else:
+            mesh.follow()
+        out["cases"].append(row)
+    cfg, params, engine_kw, reqs = stoch
+    eng = pmesh.serving_engine_tp(params, cfg, mesh, **engine_kw)
+    log = []
+    _record_aux(eng, mesh, log)
+    if mesh.is_leader:
+        rs = [eng.submit(list(p), max_new=n, **kw) for p, n, kw in reqs]
+        eng.run_until_idle()
+        out["stoch_tokens"] = [r.wait(5) for r in rs]
+        eng.close()
+        mesh.stop_followers()
+    else:
+        mesh.follow()
+    out["aux_log"] = log
+    cfg, params, runs, reqs, fresh = recoveries
+    for engine_kw, fault in runs:
+        eng = pmesh.serving_engine_tp(params, cfg, mesh, **engine_kw)
+        row = {}
+        if mesh.is_leader:
+            if fault == "inside":
+                raw, calls = eng.ranks._decode, {"n": 0}
+
+                def inside(*a, _raw=raw, _calls=calls):
+                    r = _raw(*a)
+                    _calls["n"] += 1
+                    if _calls["n"] == 2:
+                        raise RuntimeError("injected fault inside a mirrored call")
+                    return r
+                eng.ranks._decode = inside
+                eng.start()
+                r = eng.submit([1, 2, 3, 4, 5], max_new=6)
+                r.wait(60)
+                row["failed"] = r.failed
+                try:
+                    eng.submit([1], max_new=1)
+                    row["refused"] = False
+                except RuntimeError:
+                    row["refused"] = True
+                row["broken"] = eng.ranks.broken
+                row["restarts"] = eng.stats["scheduler_restarts"]
+                eng.close()
+            else:
+                _fault(eng, *fault)
+                row.update(_serve(eng, reqs, fresh))
+            mesh.stop_followers()
+        else:
+            mesh.follow()
+        out["recoveries"].append(row)
+    return out
+
+
+def vlm_spec_ranks(rank, tc, tp, vkv, vp, frame, spec, max_new):
+    """2 ranks: VLMServingEngine(mesh=) under CLEARCAM_SPEC_LOOKUP=spec on
+    rank 0's request -> its text and decode steps, the engine's spec
+    width."""
+    import os
+    from clearcam_tpu_torch.parallel import mesh as pmesh
+    from clearcam_tpu_torch.serving.vlm import VLMServingEngine
+    os.environ["CLEARCAM_SPEC_LOOKUP"] = str(spec)
+    mesh = pmesh.make_mesh(2, data=1)
+    qwen = port_vlm(tc, tp, vkv, vp)
+    eng = VLMServingEngine(qwen, n_slots=2, mesh=mesh)
+    out = {"spec": eng.engine.spec}
+    if mesh.is_leader:
+        r = eng.submit([frame], "what is this", max_new=max_new, temperature=0.0)
+        eng.run_until_idle()
+        out["text"] = eng.text(r)
+        out["decode_steps"] = eng.engine.stats["decode_steps"]
+        eng.close()
+        mesh.stop_followers()
+    else:
+        mesh.follow()
+    return out
+
+
 def solo_engine(cfg, params, engine_kw, script):
     """The same script on the port's one-device engine."""
     from clearcam_tpu_torch.serving.engine import ServingEngine
