@@ -3372,6 +3372,10 @@ P18_FT_TOL = 1e-4            # finetune --mesh loss vs one rank, relative
 P18_SPEC = 4                 # (b)'s speculative tp engine and VLM: G
 P18_STOCH_ROW = 7            # its request at temperature 0.7 with a penalty
 P18_FAULT_AT = 3             # the decode call rank 0 fails before
+P18_INSIDE = (3, 29)         # (decode call, block reduction) rank 0 fails at inside:
+                             # block 14's attention reduction, of 56
+P18_SETTLE_S = 0.3           # rank 0 waits this long before it raises inside a step,
+                             # so the other rank waits in the collective named
 
 
 def _p18_entry(rank, world, rdv, backend, part, args, q):
@@ -3440,12 +3444,16 @@ def _p18_sdpa(torch, q, k, v):
         .transpose(1, 2)
 
 
-def _p18_detect(torch, mesh, frames, dtype):
+def _p18_detect(torch, mesh, frames, dtype, fault=False):
     """BatchDetector(mesh=) on rank 0's frames, the others following: ->
-    (rows on rank 0 or None, host ms, this rank's stem launches)."""
+    (rows on rank 0 or None, host ms, this rank's stem launches, the
+    fault's). ``fault``: before the timed step, rank 0 raises inside one
+    step, between the frames' scatter and the rows' gather -> {"raised",
+    "t"} on rank 0, the other ranks' releases."""
     from clearcam_tpu_torch.ops.stem import stem
     from clearcam_tpu_torch.runtime.nvr import BatchDetector
     det = BatchDetector("t", res=640, dtype=dtype, mesh=mesh)
+    info = {}
 
     def lead(fn):
         if not mesh.is_leader:
@@ -3453,10 +3461,29 @@ def _p18_detect(torch, mesh, frames, dtype):
         r = fn()
         mesh.stop_followers()
         return r
+
+    def failed_step():
+        step = det._step
+
+        def fail(*a):
+            time.sleep(P18_SETTLE_S)
+            info["t"] = time.monotonic()
+            raise RuntimeError("injected fault between scatter and gather (phase 18)")
+        det._step = fail
+        try:
+            det.detect_many(list(frames[:2]))
+        except RuntimeError as e:
+            info["raised"] = str(e)
+        det._step = step
+    n_rel = len(mesh.channel.releases)
     lead(lambda: det.detect_many(list(frames[:1])))          # warm
+    if fault:
+        lead(failed_step)
+        if not mesh.is_leader:
+            info["releases"] = mesh.channel.releases[n_rel:]
     s0, t0 = stem.launches, time.perf_counter()
     rows = lead(lambda: np.stack(det.detect_many(list(frames))))
-    return rows, (time.perf_counter() - t0) * 1e3, stem.launches - s0
+    return rows, (time.perf_counter() - t0) * 1e3, stem.launches - s0, info
 
 
 def _p18_submit(eng, requests):
@@ -3465,44 +3492,84 @@ def _p18_submit(eng, requests):
             for r in requests]
 
 
-def _p18_engine(torch, mesh, cfg, params, requests, fault_at=None, **kw):
+def _p18_launches(dec, quant_linear) -> dict:
+    return {"quant_linear": quant_linear.launches,
+            "decode_attention_batch": dec.decode_attention_batch.launches,
+            "decode_attention_batch_q8": dec.decode_attention_batch_q8.launches}
+
+
+def _p18_engine(torch, mesh, cfg, params, requests, fault_at=None, inside=None, **kw):
     """A tp engine on every rank; rank 0 serves ``requests`` (``_p18_submit``)
     all at once. ``fault_at``: rank 0 raises before its decode call of that
-    number (no command sent) and its scheduler, on its own thread, recovers
-    (``max_restarts``). -> per rank: tokens (rank 0), decode steps, the
-    decode phase's seconds, the step's collectives (command channel and
-    token broadcasts; the block reductions, calls and host seconds), this
-    rank's quant_linear / decode-attention launches, and under
-    ``spec_lookup`` the tokens emitted, the restarts and this rank's
-    ``aux`` at the end."""
+    number (no command sent); ``inside`` (call, k): rank 0 raises inside
+    its decode call ``call``, at the graph's k-th block reduction (the
+    other rank then waits inside that reduction); with either, the
+    scheduler, on its own thread, recovers (``max_restarts``). -> per rank:
+    tokens (rank 0), decode steps, the decode phase's seconds, the step's
+    collectives (command channel and token broadcasts; the block
+    reductions, calls and host seconds), this rank's quant_linear /
+    decode-attention launches (under ``inside`` also those after its
+    reset, and the fault's time on rank 0, the release's on the other),
+    and under ``spec_lookup`` the tokens emitted, the restarts and this
+    rank's ``aux`` at the end."""
     from clearcam_tpu_torch.ops import decode_attention as dec
     from clearcam_tpu_torch.ops.quant_matmul import quant_linear
     from clearcam_tpu_torch.parallel import mesh as pmesh
     eng = pmesh.serving_engine_tp(params, cfg, mesh, **kw)
-    l0 = (quant_linear.launches, dec.decode_attention_batch.launches,
-          dec.decode_attention_batch_q8.launches)
+    l0 = _p18_launches(dec, quant_linear)
     out = {"kv_heads": int(eng.state[0]["k"].shape[1])}
+    at_reset = {}
+    if inside is not None:
+        # each rank's launch counts when its reset runs: rank 0's
+        # reset_all, the other rank's reset command
+        name = "reset_all" if mesh.is_leader else "reset"
+        reset = getattr(eng.ranks, name)
+
+        def counted(*a):
+            at_reset.update(_p18_launches(dec, quant_linear))
+            return reset(*a)
+        setattr(eng.ranks, name, counted)
+    n_rel = len(mesh.channel.releases)
     t0 = time.perf_counter()
     if mesh.is_leader:
         # the time and dispatch count at the first decode call (after the
         # fault's restart, where there is one): the span from there on has
         # no prefill before its windows and no recovery
         orig, calls, mark = eng.decode_all, [0], {}
+        first = fault_at or (inside[0] if inside else 0)
 
         def timed(*a):
             calls[0] += 1
+            mark["k"] = 0
             if calls[0] == fault_at:
                 raise RuntimeError("injected decode failure (phase 18)")
-            if calls[0] == (fault_at or 0) + 1:
+            if calls[0] == first + 1:
                 mark.update(t=time.perf_counter(), steps=eng.ranks.steps)
             return orig(*a)
         eng.decode_all = timed
-        if fault_at is not None:
-            eng.start()
+        if inside is not None:
+            tp = eng.params.tp
+
+            def reduce(t):
+                if calls[0] == inside[0]:
+                    mark["k"] += 1
+                    if mark["k"] == inside[1]:
+                        time.sleep(P18_SETTLE_S)
+                        mark["fault"] = time.monotonic()
+                        raise RuntimeError("injected fault between two block reductions "
+                                           "(phase 18)")
+                return type(tp).reduce(tp, t)
+            object.__setattr__(tp, "reduce", reduce)
         reqs = _p18_submit(eng, requests)
-        if fault_at is None:
+        if fault_at is None and inside is None:
             eng.run_until_idle()
+        else:
+            eng.start()
         out["tokens"] = [r.wait(600) for r in reqs]
+        if inside is not None:
+            out["fault_t"] = mark["fault"]
+            firsts = [r.t_first for r in reqs if r.t_first is not None]
+            out["first_token_s"] = min(firsts) - mark["fault"] if firsts else None
         torch.cuda.synchronize()
         out["decode_ms_a_dispatch"] = 1e3 * (time.perf_counter() - mark["t"]) \
             / max(eng.ranks.steps - mark["steps"], 1)
@@ -3519,10 +3586,11 @@ def _p18_engine(torch, mesh, cfg, params, requests, fault_at=None, **kw):
     out["decode_steps"] = eng.ranks.steps if mesh.is_leader else None
     out["channel_s"] = eng.ranks.comm_s
     out["reduce"] = dict(eng.params.tp.stats)
-    out["launches"] = {"quant_linear": quant_linear.launches - l0[0],
-                       "decode_attention_batch": dec.decode_attention_batch.launches - l0[1],
-                       "decode_attention_batch_q8":
-                           dec.decode_attention_batch_q8.launches - l0[2]}
+    now = _p18_launches(dec, quant_linear)
+    out["launches"] = {k: now[k] - l0[k] for k in now}
+    if inside is not None:
+        out["launches_after_reset"] = {k: now[k] - at_reset[k] for k in now}
+        out["releases"] = mesh.channel.releases[n_rel:]
     if eng.spec:
         out["aux"] = {k: v.cpu().numpy() for k, v in eng.aux.items()}
         out["qm_shards"] = _p18_qm_shards(torch, mesh, params, eng.params,
@@ -3677,7 +3745,7 @@ def _p18a(rank, world, backend, frames, prompts, ds):
     # BatchDetector(mesh=), YOLOv9-t 640 bf16, 8 random 1080p frames
     t0 = time.perf_counter()
     mesh = pmesh.make_mesh(world, data=world)
-    rows, ms, stem_n = _p18_detect(torch, mesh, frames, torch.bfloat16)
+    rows, ms, stem_n, _ = _p18_detect(torch, mesh, frames, torch.bfloat16)
     out["detect"] = {"ms": ms, "stem_launches": stem_n}
     if rank == 0:
         solo = np.stack(BatchDetector("t", res=640, dtype=torch.bfloat16,
@@ -3737,17 +3805,31 @@ def _p18b(rank, world, backend, frames, prompts, ds):
                              generator=torch.Generator(device=dev).manual_seed(0))
     out["init_s"] = time.perf_counter() - t0
     reqs = [(p_, 24) for p_ in prompts]
+    solos = {}
     for name, kw in (("bf16 KV", {}), ("int8 KV", {"kv_quant": True})):
         t0 = time.perf_counter()
         kw = dict(n_slots=8, state_dtype=torch.bfloat16, use_pallas_decode=True, **kw)
         row = _p18_engine(torch, mesh, cfg, params, reqs, **kw)
         if rank == 0:
             solo, solo_s, solo_steps = _p18_solo_tokens(torch, cfg, params, reqs, **kw)
+            solos[name] = solo
             row["tokens_equal"] = row["tokens"] == solo
             row["one_rank_s"], row["one_rank_steps"] = solo_s, solo_steps
             row["new_tokens"] = sum(len(t) for t in row.pop("tokens"))
         out[name] = row
         out["t"][name] = time.perf_counter() - t0
+    # the bf16 KV engine again, through a fault rank 0 raises between two
+    # block reductions of its third decode call (the other rank waits in
+    # the next one), released and recovered (max_restarts 1; sync_lag 8: no
+    # token is read before it, so all requeue)
+    t0 = time.perf_counter()
+    kw = dict(n_slots=8, state_dtype=torch.bfloat16, use_pallas_decode=True, sync_lag=8,
+              max_restarts=1)
+    row = _p18_engine(torch, mesh, cfg, params, reqs, inside=P18_INSIDE, **kw)
+    if rank == 0:
+        row["tokens_equal"] = row.pop("tokens") == solos["bf16 KV"]
+    out["inside"] = row
+    out["t"]["inside"] = time.perf_counter() - t0
     # the same engine serving speculative windows (plain attention: a window
     # has G+1 queries), a stochastic penalised row beside 7 greedy ones, and
     # a fault injected before rank 0's third decode call that the scheduler
@@ -3825,12 +3907,25 @@ def _p18b(rank, world, backend, frames, prompts, ds):
     del eng, qwen, lang, vparams, tower
     torch.cuda.empty_cache()
     out["t"]["vlm"] = time.perf_counter() - t0
-    # 2 data ranks of YOLOv9-t detect: the stem kernel on each
+    # 2 data ranks of YOLOv9-t detect: the stem kernel on each, the timed
+    # step after one that rank 0 failed inside, held against one device
     t0 = time.perf_counter()
-    rows, ms, stem_n = _p18_detect(torch, pmesh.make_mesh(2, data=2), frames,
-                                   torch.bfloat16)
-    out["detect"] = {"ms": ms, "stem_launches": stem_n,
+    rows, ms, stem_n, info = _p18_detect(torch, pmesh.make_mesh(2, data=2), frames,
+                                         torch.bfloat16, fault=True)
+    out["detect"] = {"ms": ms, "stem_launches": stem_n, "fault": info,
                      "rows": None if rows is None else list(rows.shape)}
+    if rank == 0:
+        # one device on each data rank's rows, at its batch (bf16 cuDNN may
+        # choose another algorithm at another batch)
+        from clearcam_tpu_torch.runtime.nvr import BatchDetector
+        from clearcam_tpu_torch.testing import detection_mismatches
+        one = BatchDetector("t", res=640, dtype=torch.bfloat16, device=dev)
+        half = len(frames) // 2
+        solo = np.stack(one.detect_many(list(frames[:half]))
+                        + one.detect_many(list(frames[half:])))
+        bad = detection_mismatches(solo, rows)
+        out["detect"]["mismatches"] = len(bad)
+        out["detect"]["first_mismatches"] = bad[:3]
     out["t"]["detect"] = time.perf_counter() - t0
     # finetune --mesh's ranks: res 640, batch 8, 3 steps on a (1, 2) mesh,
     # and the one-device run that (a) and (b) are held against
@@ -3930,6 +4025,27 @@ def phase18(torch):
                 x[name]["launches"][kern] for x in b) < 1:
             raise AssertionError(f"phase 18 (b) {name}: tokens differ or a kernel did "
                                  "not launch at the shard's shapes")
+    ins = b[0]["inside"]
+    ins["after_reset_by_rank"] = [x["inside"]["launches_after_reset"] for x in b]
+    rel = [r for x in b[1:] for r in x["inside"]["releases"]]
+    ins["release_s"] = [r["t"] - ins["fault_t"] for r in rel]
+    ins["follower_reductions"] = [r["ops"].count("all_reduce") for r in rel if r["waiting"]]
+    log(f"(b) {backend} x2, Qwen3-1.7B 28 blocks int8, bf16 KV through the decode kernel, "
+        f"the 8 requests + 24 new, a fault rank 0 raised between two block reductions of "
+        f"decode call {P18_INSIDE[0]} (at reduction {P18_INSIDE[1]}; max_restarts 1): "
+        f"restarts {ins['restarts']}, failed {sum(ins['failed'])}, greedy tokens equal one "
+        f"rank {ins['tokens_equal']}; the other rank waited in reduction "
+        f"{ins['follower_reductions']} and was released {ins['release_s']} s after the "
+        f"fault; first token after the restart {ins['first_token_s']:.3f} s after it; "
+        f"launches after the reset by rank {ins['after_reset_by_rank']}")
+    if ins["restarts"] != 1 or any(ins["failed"]) or not ins["tokens_equal"] \
+            or ins["follower_reductions"] != [P18_INSIDE[1]] \
+            or not all(0 <= t < 10 for t in ins["release_s"]) \
+            or min(x["quant_linear"] for x in ins["after_reset_by_rank"]) < 1 \
+            or min(x["decode_attention_batch"] for x in ins["after_reset_by_rank"]) < 1:
+        raise AssertionError("phase 18 (b) fault inside a step: not recovered, tokens "
+                             "differ, the other rank was not released in 10 s or a kernel "
+                             "did not launch after the reset")
     sp, plain = b[0]["spec"], b[0]["bf16 KV"]
     sp["launches_by_rank"] = [x["spec"]["launches"] for x in b]
     aux = [x["spec"].pop("aux") for x in b]
@@ -3973,6 +4089,9 @@ def phase18(torch):
     v["spec_vit_by_rank"] = [x["vlm"]["spec_vit_attention_launches"] for x in b]
     d = b[0]["detect"]
     d["stem_by_rank"] = [x["detect"]["stem_launches"] for x in b]
+    drel = [r for x in b[1:] for r in x["detect"]["fault"]["releases"]]
+    d["release_s"] = [r["t"] - d["fault"]["t"] for r in drel]
+    d["follower_ops"] = [r["ops"] for r in drel if r["waiting"]]
     f = b[0]["finetune"]
     f["rel"] = max(abs(x - y) / abs(y) for x, y in zip(f["losses"], f["one_rank"]))
     log(f"(b) {backend} x2, host-staged ops {b[0]['host_staged']}: {_p18_seq_line(b[0])}; "
@@ -3981,10 +4100,18 @@ def phase18(torch):
         f"rank {v['vit_by_rank']}; with CLEARCAM_SPEC_LOOKUP={v['spec']}: text equal solo "
         f"{v['spec_text_equal']} ({v['spec_decode_steps']} decode dispatches), "
         f"vit_attention launches by rank {v['spec_vit_by_rank']}; detect x2 data ranks: "
-        f"stem launches by rank "
+        f"a fault between scatter and gather ({d['fault'].get('raised')!r} on rank 0, the "
+        f"other rank in {d['follower_ops']} released {d['release_s']} s after it), then "
+        f"rows vs one device at a data rank's batch {d['mismatches']} mismatches "
+        f"{d['first_mismatches']}, stem launches by rank "
         f"{d['stem_by_rank']}; finetune (1, 2) mesh losses {f['losses']} vs one rank "
         f"{f['one_rank']} (rel {f['rel']:.1e}); seconds {b[0]['t']}")
     _p18_seq_check("b", b[0])
+    if d["mismatches"] or d["follower_ops"] != [["scatter", "all_gather"]] \
+            or not all(0 <= t < 10 for t in d["release_s"]) or "raised" not in d["fault"]:
+        raise AssertionError("phase 18 (b) detect: the fault between scatter and gather "
+                             "was not released in 10 s, or the next step's rows differ "
+                             "from one device's")
     if not v["text_equal"] or min(v["vit_by_rank"]) < 1 or min(d["stem_by_rank"]) < 1 \
             or not v["spec_text_equal"] or v["spec"] != P18_SPEC \
             or min(v["spec_vit_by_rank"]) < 1 or not f["rel"] <= P18_FT_TOL:

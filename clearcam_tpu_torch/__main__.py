@@ -84,14 +84,32 @@ def build_meshes(n: int, device: str = "cuda"):
 
 def build_detector(settings, weights_dir: Path, device: str, mesh=None):
     """YOLOv9 with published weights when present, random otherwise. Under
-    ``mesh`` rank 0 first tells the other ranks to build theirs."""
+    ``mesh`` rank 0 first tells the other ranks to build theirs, and holds
+    the channel's lock until its own is built (the detector makes its own
+    group, a collective every rank makes in the same order)."""
+    import contextlib
+
+    from .models import yolov9
+    lead = mesh is not None and mesh.is_leader
+    with mesh.channel.lock if lead else contextlib.nullcontext():
+        if lead:
+            mesh.channel.send("main", "build_detector", settings, str(weights_dir))
+        det = _detector(settings, weights_dir, device, mesh)
+    if mesh is not None and not mesh.is_leader:
+        return det
+    stem_on = yolov9.uses_stem_kernel(settings.model_size)
+    route = f"CUDA, {det.kernel_library}" if det.kernel_library else "plain"
+    print(f"detector: YOLOv9-{settings.model_size} res {det.res} {det.dtype} on "
+          f"{det.device}; stem kernel {'on' if stem_on else 'off'} ({route})",
+          flush=True)
+    return det
+
+
+def _detector(settings, weights_dir: Path, device: str, mesh):
     import torch
 
     from .models import yolov9
     from .runtime.nvr import BatchDetector
-    if mesh is not None and mesh.is_leader:
-        with mesh.channel.lock:
-            mesh.channel.send("main", "build_detector", settings, str(weights_dir))
     path = weights_dir / f"yolov9-{settings.model_size}.safetensors"
     params = None
     if path.exists():
@@ -103,16 +121,8 @@ def build_detector(settings, weights_dir: Path, device: str, mesh=None):
               "will be meaningless; drop the published safetensors there)")
     dtype = torch.float32 if os.environ.get("CLEARCAM_DTYPE") == "f32" \
         else torch.bfloat16
-    det = BatchDetector(settings.model_size, int(settings.model_res),
-                        params=params, dtype=dtype, device=device, mesh=mesh)
-    if mesh is not None and not mesh.is_leader:
-        return det
-    stem_on = yolov9.uses_stem_kernel(settings.model_size)
-    route = f"CUDA, {det.kernel_library}" if det.kernel_library else "plain"
-    print(f"detector: YOLOv9-{settings.model_size} res {det.res} {dtype} on "
-          f"{det.device}; stem kernel {'on' if stem_on else 'off'} ({route})",
-          flush=True)
-    return det
+    return BatchDetector(settings.model_size, int(settings.model_res),
+                         params=params, dtype=dtype, device=device, mesh=mesh)
 
 
 def apply_finder_settings(finder, settings) -> None:

@@ -17,9 +17,20 @@ while ``send``/``recv`` raised and ``batch_isend_irecv`` aborted the
 process. Point-to-point on a CUDA tensor under gloo is therefore staged
 through pinned host memory: copied down, sent or received on the CPU
 copy, and copied back.
+
+Mirrored calls. A step that rank 0 starts with a command and every rank
+runs (``mesh.Channel.call``) records its collectives on each rank, in
+order (``Call``). When rank 0 raised inside the step, a follower may wait
+in one of them (gloo blocks the host; NCCL may, while it connects a new
+algorithm's peers) or have enqueued ones rank 0 never posts (NCCL). Its
+channel thread, free of the step, sends rank 0 the sequence; rank 0 posts
+the ones it never reached with inert operands (zeros: ``post_inert``);
+every op completes, none is left pending, and the follower leaves the
+step by ``Released`` once it has posted as many as rank 0 matched.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import sys
@@ -41,6 +52,94 @@ DEVICE: torch.device | None = None
 TIMEOUT_S = 600.0
 
 
+class Released(Exception):
+    """Ends a follower's mirrored call once it has posted every collective
+    rank 0, which raised inside the call, matches (``mesh.Channel``)."""
+
+
+class Call:
+    """The collectives of one mirrored call on this rank, in order: ``ops``
+    holds (op, shape, dtype, group key, device type) for each, ``done`` how
+    many have returned. On a follower, the channel's thread sets
+    ``stop_at`` when rank 0 asks for a release: the call ends (``Released``)
+    once it has posted that many. ``lock`` guards the three."""
+
+    def __init__(self):
+        self.ops: list = []
+        self.done = 0
+        self.stop_at: int | None = None
+        self.failed = False
+        self.lock = threading.Lock()
+
+    def stopped(self) -> bool:
+        return self.stop_at is not None and len(self.ops) >= self.stop_at
+
+
+_local = threading.local()
+
+# the groups made by ``new_group``, in the order every rank made them: a
+# collective's group key is its index here (-1: the default group); none is
+# destroyed, so ``_KEYS``' ids stay theirs
+_GROUPS: list = []
+_KEYS: dict = {}
+
+
+def new_group(ranks=None):
+    """A process group of its own over ``ranks`` (every rank by default), on
+    the default group's backend; a collective call every rank makes in the
+    same order."""
+    g = dist.new_group(ranks, backend=backend_of(),
+                       timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    _KEYS[id(g)] = len(_GROUPS)
+    _GROUPS.append(g)
+    return g
+
+
+def _key(group) -> int:
+    if group is None or group is dist.group.WORLD:
+        return -1
+    if id(group) not in _KEYS:
+        raise ValueError("a mirrored call's collective on a group not made by "
+                         "comm.new_group")
+    return _KEYS[id(group)]
+
+
+def group_of(key: int):
+    return None if key < 0 else _GROUPS[key]
+
+
+@contextlib.contextmanager
+def mirrored(call: Call):
+    """Records this thread's collectives in ``call``."""
+    prev, _local.call = getattr(_local, "call", None), call
+    try:
+        yield call
+    finally:
+        _local.call = prev
+
+
+def _collective(op: str, t: torch.Tensor, group, post) -> None:
+    """Run ``post()``, one collective on ``t``; inside a mirrored call,
+    record it, and end the call (``Released``) where rank 0 asked."""
+    call = getattr(_local, "call", None)
+    if call is None:
+        post()
+        return
+    with call.lock:
+        if call.stopped():
+            raise Released
+        call.ops.append((op, tuple(t.shape), t.dtype, _key(group), t.device.type))
+    try:
+        post()
+    except BaseException:
+        call.failed = True
+        raise
+    with call.lock:
+        call.done += 1
+        if call.stopped():
+            raise Released
+
+
 def backend_of(group=None) -> str:
     return str(dist.get_backend(group))
 
@@ -59,23 +158,19 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 
 def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place; returns it."""
-    if staged("all_reduce", t, group):
-        h = _host(t)
-        dist.all_reduce(h, group=group)
-        t.copy_(h)
-    else:
-        dist.all_reduce(t, group=group)
+    buf = _host(t) if staged("all_reduce", t, group) else t
+    _collective("all_reduce", t, group, lambda: dist.all_reduce(buf, group=group))
+    if buf is not t:
+        t.copy_(buf)
     return t
 
 
 def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """``t`` from the global rank ``src`` to every rank of ``group``, in place."""
-    if staged("broadcast", t, group):
-        h = _host(t)
-        dist.broadcast(h, src, group=group)
-        t.copy_(h)
-    else:
-        dist.broadcast(t, src, group=group)
+    buf = _host(t) if staged("broadcast", t, group) else t
+    _collective("broadcast", t, group, lambda: dist.broadcast(buf, src, group=group))
+    if buf is not t:
+        t.copy_(buf)
     return t
 
 
@@ -87,7 +182,7 @@ def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
         return t
     src = _host(t) if staged("all_gather", t, group) else t.contiguous()
     parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=group)
+    _collective("all_gather", t, group, lambda: dist.all_gather(parts, src, group=group))
     out = torch.cat(parts, dim)
     return out.to(t.device) if out.device != t.device else out
 
@@ -96,14 +191,34 @@ def scatter(out: torch.Tensor, chunks: list | None, group=None) -> torch.Tensor:
     """Group rank 0's ``chunks`` (one a rank, shaped like ``out``) into each
     rank's ``out``, in place."""
     src = dist.get_global_rank(group, 0) if group is not None else 0
+    buf = out
     if staged("scatter", out, group):
-        h = torch.empty(out.shape, dtype=out.dtype)
-        dist.scatter(h, [c.cpu() for c in chunks] if chunks is not None else None,
-                     src, group=group)
-        out.copy_(h)
-    else:
-        dist.scatter(out, chunks, src, group=group)
+        buf = torch.empty(out.shape, dtype=out.dtype)
+        chunks = [c.cpu() for c in chunks] if chunks is not None else None
+    _collective("scatter", out, group, lambda: dist.scatter(buf, chunks, src, group=group))
+    if buf is not out:
+        out.copy_(buf)
     return out
+
+
+def post_inert(op: str, shape: tuple, dtype, key: int, device: str) -> None:
+    """Rank 0: the match of a follower's pending collective, with operands
+    that change nothing it keeps (zeros to a sum or a gather, zeros from
+    rank 0 to a broadcast or a scatter: the follower's call is ended and
+    its state reset after it)."""
+    group = group_of(key)
+    dev = DEVICE if device == "cuda" and DEVICE is not None else torch.device(device)
+    z = torch.zeros(shape, dtype=dtype, device=dev)
+    if op == "all_reduce":
+        all_reduce(z, group)
+    elif op == "broadcast":
+        broadcast(z, 0, group)
+    elif op == "all_gather":
+        all_gather(z, group)
+    elif op == "scatter":
+        scatter(z, [torch.zeros_like(z) for _ in range(dist.get_world_size(group))], group)
+    else:
+        raise ValueError(f"no inert match for {op}")
 
 
 def exchange(sends: list, recvs: list, group=None) -> None:

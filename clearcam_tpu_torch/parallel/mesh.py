@@ -21,22 +21,31 @@ runs next, with its host arguments); the other ranks sit in
 collective calls in the same order. Anything a rank could compute
 differently comes from rank 0: the frames, the admission order and the
 sampled token ids. A rank that drifted would hang the job, not fail it.
+Where the JAX program is one program, and a fault costs one step, a raise
+on rank 0 inside a step leaves the followers inside it: ``Channel.call``
+releases them (``Channel.repair``) so the step's caller can recover as on
+one device.
 
 The collectives, each in one place (``parallel.comm`` holds their gloo
-staging):
-  * ``Channel.send`` / ``follow``: ``broadcast_object_list`` of one command
-    a step on the gloo group of every rank;
+staging and the record of a mirrored step's):
+  * ``Channel.send`` / ``follow``: a header and a pickled payload
+    ``broadcast`` a command on the gloo group of every rank; after a fault
+    inside a step, ``Channel.repair``'s ``gather_object`` of each
+    follower's collectives and its inert matches of them;
   * ``sharded_detect_fn``: ``all_gather`` of each data rank's [rows, 300, 6]
     detections; ``BatchDetector(mesh=)`` first ``scatter``s rank 0's
-    frames, one slice of rows a data rank;
-  * tensor-parallel LLM (``models.llm``): one ``all_reduce`` over ``model``
-    after each row-split product (``attn_output``, ``ffn_down``) and after
-    the experts of an expert-parallel MoE block;
+    frames, one slice of rows a data rank; both on the detector's own
+    group of every rank;
+  * tensor-parallel LLM (``models.llm``): one ``all_reduce`` over the
+    ``model`` axis's own group (``Mesh.new_group``, never the default
+    group) after each row-split product (``attn_output``, ``ffn_down``) and
+    after the experts of an expert-parallel MoE block;
   * the serving engine under a mesh: one ``broadcast`` of the [2, B] token
     rows a decode step (the previous step's samples and the prefills'
-    first tokens) on the device group, after the command; under
-    speculative serving instead one after each graph, of rank 0's first
-    tokens (prefill) or its window positions and last tokens (decode);
+    first tokens) on the engine's own group of every rank, after the
+    command; under speculative serving instead one after each graph, of
+    rank 0's first tokens (prefill) or its window positions and last
+    tokens (decode);
   * YOLOv9 training (``shard_params_tp``): the channel gather of each split
     conv's output (``nn.functional``), the ``all_reduce`` of the gradients
     over ``data`` and of the split gradients' squared norm over ``model``.
@@ -59,6 +68,10 @@ from __future__ import annotations
 
 import datetime
 import math
+import os
+import pickle
+import queue
+import sys
 import threading
 import time
 from dataclasses import dataclass, field, replace
@@ -94,6 +107,22 @@ class Mesh:
 
     def group(self, axis: str):
         return self.device_mesh.get_group(axis)
+
+    def new_group(self, axis: str | None = None):
+        """A group of its own (``comm.new_group``) over this rank's line of
+        the mesh along ``axis``, or over every rank: one path's collectives
+        then never pair with another's. A collective call: every rank makes
+        every line's group, in the same order."""
+        ranks = self.device_mesh.mesh
+        if axis is None:
+            return comm.new_group(ranks.flatten().tolist())
+        dim = list(self.shape).index(axis)
+        mine = None
+        for line in ranks.movedim(dim, -1).reshape(-1, ranks.shape[dim]).tolist():
+            g = comm.new_group(line)
+            if dist.get_rank() in line:
+                mine = g
+        return mine
 
     def coord(self, axis: str) -> int:
         return self.device_mesh.get_local_rank(axis)
@@ -182,6 +211,9 @@ def replicate(mesh: Mesh, tree):
 # leader and followers
 # ---------------------------------------------------------------------------
 
+_CMD, _STOP, _REPAIR = 0, 1, 2
+
+
 class Channel:
     """Rank 0's commands to the other ranks, on a gloo group of every rank
     whose wait for the next command has no practical deadline (an idle
@@ -189,9 +221,25 @@ class Channel:
 
     A command is (target, method, args): the object registered on each rank
     as ``target`` (in the same construction order everywhere) runs
-    ``method(*args)``. Rank 0 holds ``lock`` from the command through the
-    step's last collective, so steps started from several threads (the NVR
-    tick, HTTP offload) never interleave."""
+    ``method(*args)``. It goes out as a header ([kind, bytes] int64) and a
+    pickled payload. A follower takes them on a thread of its own and runs
+    the commands in order on the thread that called ``follow``, so a
+    release reaches it inside a step. Rank 0 holds
+    ``lock`` from the command through the step's last collective, so steps
+    started from several threads (the NVR tick, HTTP offload) never
+    interleave.
+
+    ``call`` runs a mirrored step. When it raises on rank 0 after its
+    command went out, the followers may sit in one of the step's
+    collectives, or (NCCL) have enqueued ones rank 0 never posts;
+    ``repair`` releases them before the raise goes on: a ``_REPAIR`` header,
+    each follower's sequence of the call gathered, and rank 0's inert
+    matches (``comm.post_inert``) of the ones past its own. Every group is
+    then as before the call, with no collective pending, and the next
+    command (a ``reset``) runs on every rank. A repair that fails (rank 0's
+    own collective raised, the ranks' sequences differ, an op outside rank
+    0's groups) sets ``broken``: every later command raises, and a follower
+    told so leaves its process."""
 
     def __init__(self):
         self.group = dist.new_group(backend="gloo",
@@ -200,6 +248,10 @@ class Channel:
         self.objects: dict = {}
         self._counts: dict = {}
         self.lock = threading.RLock()
+        self.broken: str | None = None
+        # a follower: {"t" (monotonic), "ops", "waiting": in the last op} of
+        # each release
+        self.releases: list = []
 
     def register(self, prefix: str, obj) -> str:
         k = self._counts.get(prefix, 0)
@@ -212,23 +264,148 @@ class Channel:
         self.objects[name] = obj
         return name
 
+    # -- rank 0 ------------------------------------------------------------
+
+    def _put(self, kind: int, data: bytes = b"") -> None:
+        dist.broadcast(torch.tensor([kind, len(data)], dtype=torch.int64), 0,
+                       group=self.group)
+        if data:
+            dist.broadcast(torch.frombuffer(bytearray(data), dtype=torch.uint8), 0,
+                           group=self.group)
+
     def send(self, target, method: str, *args) -> None:
         """Rank 0: the command (hold ``lock`` across it and its step)."""
-        dist.broadcast_object_list([(target, method, args)], src=0, group=self.group)
+        if self.broken is not None:
+            raise RuntimeError(f"the mesh is broken: {self.broken}")
+        try:
+            self._put(_CMD, pickle.dumps((target, method, args)))
+        except BaseException as e:
+            self.broken = f"a command failed to go out: {e!r}"
+            raise
 
-    def follow(self) -> None:
-        """Run rank 0's commands until it sends ``stop``."""
-        while True:
-            box = [None]
-            dist.broadcast_object_list(box, src=0, group=self.group)
-            target, method, args = box[0]
-            if target is None:
-                return
-            getattr(self.objects[target], method)(*args)
+    def call(self, target, method: str, args: tuple, run):
+        """Rank 0: ``method``'s command, then ``run()`` (this rank's share of
+        the step), under ``lock``; a raise from ``run`` is repaired, then
+        goes on."""
+        with self.lock:
+            self.send(target, method, *args)
+            call = comm.Call()
+            try:
+                with comm.mirrored(call):
+                    return run()
+            except BaseException:
+                self.repair(call)
+                raise
+
+    def repair(self, call: comm.Call) -> None:
+        """Rank 0, under ``lock``, after its share of a step raised: release
+        every follower from the step (see the class docstring)."""
+        try:
+            self._put(_REPAIR)
+            seqs = [None] * dist.get_world_size()
+            dist.gather_object(None, seqs, dst=0, group=self.group)
+            why, todo = _unmatched(call, seqs[1:])
+            dist.broadcast_object_list([None if why else len(call.ops) + len(todo)],
+                                       src=0, group=self.group)
+            if why:
+                raise RuntimeError(why)
+            for op, shape, dtype, key, dev in todo:
+                comm.post_inert(op, shape, dtype, key, dev)
+        except BaseException as e:
+            self.broken = f"the release of the other ranks from a failed step failed: {e!r}"
+            raise
 
     def stop(self) -> None:
         with self.lock:
-            self.send(None, "stop")
+            self._put(_STOP)
+
+    # -- followers ---------------------------------------------------------
+
+    def _take(self):
+        """The next header and its payload: (kind, command or None)."""
+        hdr = torch.zeros(2, dtype=torch.int64)
+        dist.broadcast(hdr, 0, group=self.group)
+        kind, n = hdr.tolist()
+        if not n:
+            return kind, None
+        buf = torch.empty(n, dtype=torch.uint8)
+        dist.broadcast(buf, 0, group=self.group)
+        return kind, pickle.loads(buf.numpy().tobytes())
+
+    def _report(self, call: comm.Call) -> None:
+        """A ``_REPAIR`` header came: send rank 0 this rank's collectives of
+        ``call``, the last command's, and take where the call ends. Where
+        rank 0 cannot release this rank, the step may never end here: the
+        process says so and exits (a dead rank ends the job, ``comm.Ranks``)."""
+        with call.lock:
+            dist.gather_object(call.ops, None, dst=0, group=self.group)
+            box = [None]
+            dist.broadcast_object_list(box, src=0, group=self.group)
+            if box[0] is None:
+                print(f"rank {dist.get_rank()}: rank 0 could not release this rank from "
+                      f"a failed step (its collectives {call.ops}): leaving",
+                      file=sys.stderr, flush=True)
+                os._exit(1)
+            call.stop_at = box[0]
+            self.releases.append({"t": time.monotonic(), "ops": [o[0] for o in call.ops],
+                                  "waiting": call.done < len(call.ops)})
+
+    def _listen(self, todo: queue.SimpleQueue) -> None:
+        """The channel's thread: every command in order onto ``todo`` with
+        its ``Call``, ``None`` at ``stop``; a repair answered at once,
+        whatever the step's thread is doing."""
+        last = comm.Call()
+        try:
+            while True:
+                kind, cmd = self._take()
+                if kind == _STOP:
+                    todo.put(None)
+                    return
+                if kind == _REPAIR:
+                    self._report(last)
+                    continue
+                last = comm.Call()
+                todo.put((last, cmd))
+        except BaseException as e:  # noqa: BLE001 (raised again by follow)
+            todo.put(e)
+
+    def follow(self) -> None:
+        """Run rank 0's commands until it sends ``stop``."""
+        todo = queue.SimpleQueue()
+        listener = threading.Thread(target=self._listen, args=(todo,), daemon=True,
+                                    name="channel")
+        listener.start()
+        while (item := todo.get()) is not None:
+            if isinstance(item, BaseException):
+                raise item
+            call, (target, method, args) = item
+            try:
+                with comm.mirrored(call):
+                    getattr(self.objects[target], method)(*args)
+            except comm.Released:
+                pass
+        listener.join()
+
+
+def _unmatched(call: comm.Call, seqs: list) -> tuple:
+    """-> (why rank 0 cannot release the followers or None, the followers'
+    collectives it never posted), from rank 0's ``call`` and each
+    follower's sequence of it: every one must agree with rank 0's as far as
+    both went, and with the longest, and wait in a group of rank 0's."""
+    if not seqs:
+        return None, []
+    if call.failed:
+        return "a collective of the step raised on rank 0", []
+    n0, longest = len(call.ops), max(seqs, key=len)
+    for seq in seqs:
+        if seq[:n0] != call.ops[:len(seq)] or seq != longest[:len(seq)]:
+            return f"the ranks' collectives differ: rank 0 {call.ops}, a follower {seq}", []
+    todo = longest[n0:]
+    for op in todo:
+        g = comm.group_of(op[3])
+        if g is not None and 0 not in dist.get_process_group_ranks(g):
+            return f"a follower waits in {op} on a group without rank 0", []
+    return None, todo
 
 
 _CHANNEL: Channel | None = None
@@ -249,26 +426,28 @@ def channel() -> Channel:
 # detection (data parallel)
 # ---------------------------------------------------------------------------
 
-def gather_rows(mesh: Mesh, out: torch.Tensor) -> torch.Tensor:
+def gather_rows(mesh: Mesh, out: torch.Tensor, group) -> torch.Tensor:
     """Each data rank's rows -> the whole batch on every rank, in data
-    order: one ``all_gather`` over the ranks, keeping model coordinate 0
-    of each data row."""
-    full = comm.all_gather(out.contiguous(), None, 0)
+    order: one ``all_gather`` over ``group`` (every rank, in rank order),
+    keeping model coordinate 0 of each data row."""
+    full = comm.all_gather(out.contiguous(), group, 0)
     d, m = mesh.shape["data"], mesh.shape["model"]
     return full.reshape(d, m, *out.shape)[:, 0].reshape(d * out.shape[0], *out.shape[1:])
 
 
-def sharded_detect_fn(mesh: Mesh, size: str = "t", res: int = 640, **kw):
+def sharded_detect_fn(mesh: Mesh, size: str = "t", res: int = 640, group=None, **kw):
     """-> (step, in_spec). ``in_spec(frames)`` is this data rank's rows of a
     batch (``shard_batch``); ``step(params, rows)`` detects them (params in
     the port's layout, ``yolov9.params_from_jax``) and returns the whole
-    [B, 300, 6] on every rank, as the JAX step's output sharding does."""
+    [B, 300, 6] on every rank, as the JAX step's output sharding does. The
+    gather runs on ``group`` (every rank), else on a group made here."""
     from ..models import yolov9
+    group = group if group is not None else mesh.new_group()
 
     def step(params, frames):
         with torch.inference_mode():
             out = yolov9.detect(params, frames, size=size, res=res, **kw)
-            return gather_rows(mesh, out)
+            return gather_rows(mesh, out, group)
 
     return step, (lambda x: shard_batch(mesh, x))
 
@@ -281,7 +460,8 @@ def sharded_detect_fn(mesh: Mesh, size: str = "t", res: int = 640, **kw):
 class TP:
     """A tensor-parallel rank's context, read by ``models.llm``'s blocks:
     ``split`` names the row-split weights (their product is a partial sum
-    that ``reduce`` completes) and the expert stacks (``ffn_down_exps``:
+    that ``reduce`` completes on ``group``, the model axis's own group:
+    ``Mesh.new_group``) and the expert stacks (``ffn_down_exps``:
     this rank holds experts [rank * E/size, (rank + 1) * E/size)).
     ``stats`` counts the reductions and their host seconds (the time to
     return: the whole collective under gloo, which completes before it
@@ -376,7 +556,7 @@ def shard_llm_params(mesh: Mesh, params: dict, cfg) -> ShardedParams:
                     out[f"{pre}.{nm}.weight"] = _slice_experts(
                         params[f"{pre}.{nm}.weight"], r, m)
                 split.add(f"{pre}.ffn_down_exps.weight")
-    return ShardedParams(out, TP(mesh.group("model"), m, r, frozenset(split)))
+    return ShardedParams(out, TP(mesh.new_group("model"), m, r, frozenset(split)))
 
 
 def state_cfg(cfg, mesh: Mesh | None):
@@ -457,9 +637,12 @@ class EngineRanks:
       only rank 0 decides what a window accepted: no rank compares its own
       all-reduced logits.
 
-    ``broken``: rank 0 raised inside a wrapper, after its command went out,
-    where the other ranks may be waiting in one of the graph's reductions;
-    the engine then fails its waiters and never resets (``_recover``)."""
+    Each call goes through ``Channel.call``: a raise inside it, after its
+    command went out (a follower may wait in one of the graph's reductions
+    or broadcasts), is repaired before it reaches the engine, whose
+    ``_recover`` then resets every rank. The broadcasts run on a group of
+    their own, the reductions on ``params.tp``'s. ``broken``: a repair
+    failed; the engine then fails its waiters and never resets."""
 
     def __init__(self, eng, mesh: Mesh):
         self.eng, self.mesh = eng, mesh
@@ -467,9 +650,9 @@ class EngineRanks:
         self._slot, self._decode = eng.prefill_slot, eng.decode_all
         self._many, self._custom = eng.prefill_many, eng.custom_prefill
         self.name = mesh.channel.register("engine", self)
+        self.group = mesh.new_group()
         self.steps = 0
         self.comm_s = 0.0
-        self.broken = False
         dev, b, v = eng.device, eng.n_slots, eng.cfg.vocab_size
         if mesh.is_leader:
             eng.prefill_slot, eng.decode_all = self._lead_prefill_slot, self._lead_decode_all
@@ -493,15 +676,14 @@ class EngineRanks:
             self._decode_tail = (self._cnt_o, self._cnt, self._bias) + (
                 () if eng.spec else (self._ctab, self._cinit))
 
-    def _send(self, method, *args):
-        t0 = time.perf_counter()
-        self.mesh.channel.send(self.name, method, *args)
-        self.comm_s += time.perf_counter() - t0
+    @property
+    def broken(self) -> bool:
+        return self.mesh.channel.broken is not None
 
     def _bcast(self, t: torch.Tensor) -> torch.Tensor:
         """Rank 0's ``t`` on every rank, in place."""
         t0 = time.perf_counter()
-        comm.broadcast(t, 0)
+        comm.broadcast(t, 0, self.group)
         self.comm_s += time.perf_counter() - t0
         return t
 
@@ -513,15 +695,13 @@ class EngineRanks:
     # -- rank 0 ------------------------------------------------------------
 
     def _mirrored(self, method, args, run):
-        """Rank 0: ``method``'s command, then ``run()``, under the channel's
-        lock; a raise from the command on marks the mesh ``broken``."""
-        with self.mesh.channel.lock:
-            try:
-                self._send(method, *args)
-                return run()
-            except BaseException:
-                self.broken = True
-                raise
+        """Rank 0: ``method``'s command, then ``run()`` (``Channel.call``)."""
+        t0 = time.perf_counter()
+
+        def timed():
+            self.comm_s += time.perf_counter() - t0
+            return run()
+        return self.mesh.channel.call(self.name, method, args, timed)
 
     @staticmethod
     def _slot_args(tokens, slot, start_pos, n_real, samp, seed, base_seed):
@@ -572,8 +752,8 @@ class EngineRanks:
                               lambda: self._custom(state, slot, start_pos, payload))
 
     def reset_all(self) -> None:
-        """Rank 0, recovering from a fault outside a mirrored call: every
-        rank's cache, ``aux`` and sampling tensors afresh."""
+        """Rank 0, recovering from a fault: every rank's cache, ``aux`` and
+        sampling tensors afresh."""
         self._mirrored("reset", (), self.eng.reset_device)
 
     # -- followers ---------------------------------------------------------

@@ -18,6 +18,7 @@ restart, VOD analysis progress (clearcam.py:165-628,1162-1176).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -106,9 +107,12 @@ class BatchDetector:
     ``detect_many`` leads: for each shape group it sends the step to the
     other ranks (which run ``mesh.follow()``), scatters the uint8 frames, a
     contiguous slice of rows a ``data`` rank, and gathers every rank's
-    detections (``parallel.mesh.sharded_detect_fn``). Buckets are
-    ``data`` times a power of two, so every rank gets equal rows. Weights
-    are replicated (detect is activation-dominated)."""
+    detections (``parallel.mesh.sharded_detect_fn``), both on the
+    detector's own group. Buckets are ``data`` times a power of two, so
+    every rank gets equal rows. Weights are replicated (detect is
+    activation-dominated). A raise on rank 0 inside a step releases the
+    other ranks from it (``Channel.call``) and fails this call only, as a
+    failed step does on one device."""
 
     def __init__(self, size: str = "t", res: int = 960, params=None,
                  dtype=torch.bfloat16, device="cuda", mesh=None):
@@ -125,7 +129,8 @@ class BatchDetector:
         if mesh is not None:
             from ..parallel import mesh as pmesh
             self._dp = mesh.shape["data"]
-            self._step, _ = pmesh.sharded_detect_fn(mesh, size, res=res,
+            self.group = mesh.new_group()
+            self._step, _ = pmesh.sharded_detect_fn(mesh, size, res=res, group=self.group,
                                                     compute_dtype=dtype)
             self.name = mesh.channel.register("detect", self)
 
@@ -159,10 +164,10 @@ class BatchDetector:
                 preds = yolov9.detect(self.params, batch, size=self.size,
                                       res=self.res, compute_dtype=self.dtype)
             else:
-                with self.mesh.channel.lock:
-                    self.mesh.channel.send(self.name, "sharded_rows", tuple(shape),
-                                           batch.shape[0])
-                    preds = self.sharded_rows(tuple(shape), batch.shape[0], batch)
+                key = (tuple(shape), batch.shape[0])
+                preds = self.mesh.channel.call(
+                    self.name, "sharded_rows", key,
+                    lambda: self.sharded_rows(*key, batch))
             preds = preds.cpu().numpy()
             for j, i in enumerate(idxs):
                 out[i] = preds[j]
@@ -181,7 +186,7 @@ class BatchDetector:
             m = self.mesh.shape["model"]
             chunks = [batch[(r // m) * rows:(r // m + 1) * rows].contiguous()
                       for r in range(self.mesh.size)]
-        comm.scatter(local, chunks)
+        comm.scatter(local, chunks, self.group)
         return self._step(self.params, local)
 
 
@@ -882,24 +887,29 @@ class NVR:
         assert self.summary_slots > 0 and self.qwen is not None
         if self._summary_engine is None:
             from ..serving.vlm import VLMServingEngine
+            lock = contextlib.nullcontext()
             if self.llm_mesh is not None:
                 # the followers' object registered as "nvr" builds the same
                 # engine on their ranks (__main__'s follower), before this
-                # rank builds its own
-                with self.llm_mesh.channel.lock:
+                # rank builds its own under the channel's lock (the engine
+                # makes its groups, collectives every rank makes in order)
+                lock = self.llm_mesh.channel.lock
+            with lock:
+                if self.llm_mesh is not None:
                     self.llm_mesh.channel.send("nvr", "summary_engine",
                                                self.summary_slots)
-            # bf16 KV: the slots' cache is additional to the solo
-            # qwen state — half the bytes, serving-grade numerics
-            # max_restarts: a transient engine crash (one poisoned
-            # request, a device hiccup) resets slot state and requeues
-            # unstarted summaries instead of killing summaries for the
-            # rest of the NVR's life (serving.engine._recover)
-            self._summary_engine = VLMServingEngine(
-                self.qwen, n_slots=self.summary_slots,
-                state_dtype=torch.bfloat16, mesh=self.llm_mesh,
-                max_restarts=int(os.environ.get(
-                    "CLEARCAM_SERVING_RESTARTS", "3")))
+                # bf16 KV: the slots' cache is additional to the solo
+                # qwen state — half the bytes, serving-grade numerics
+                # max_restarts: a transient engine crash (one poisoned
+                # request, a device hiccup) resets slot state and requeues
+                # unstarted summaries instead of killing summaries for the
+                # rest of the NVR's life (serving.engine._recover), a fault
+                # inside a step under llm_mesh too
+                self._summary_engine = VLMServingEngine(
+                    self.qwen, n_slots=self.summary_slots,
+                    state_dtype=torch.bfloat16, mesh=self.llm_mesh,
+                    max_restarts=int(os.environ.get(
+                        "CLEARCAM_SERVING_RESTARTS", "3")))
         return self._summary_engine
 
     def _notify_and_upload(self, cam: CamState, thumbnail: Path, ts: float):

@@ -50,11 +50,11 @@ and the others mirror each graph call (``parallel.mesh.EngineRanks``),
 speculative windows included: rank 0's first tokens and window positions
 and last tokens are broadcast after each graph, so every rank's ``aux``
 stays rank 0's. Crash recovery there resets every rank's cache, ``aux``
-and sampling tensors (a ``reset`` command), but only after a fault raised
-outside a mirrored call: before its command went out or after it returned.
-A fault inside one (after the command, where the other ranks may wait in
-a block reduction for rank 0) makes the engine unrecoverable: its waiters
-fail and no reset is tried, since one would queue behind that reduction.
+and sampling tensors (a ``reset`` command), as the JAX engine's does,
+wherever the fault was raised: a fault inside a mirrored call (after its
+command, where the other ranks may wait in a block reduction for rank 0)
+first releases them (``parallel.mesh.Channel.repair``). Only a release
+that itself failed leaves the engine unrecoverable: its waiters fail.
 """
 from __future__ import annotations
 
@@ -548,7 +548,8 @@ class ServingEngine:
         scratch (seeded ones redraw identically); one that already streamed
         tokens completes with ``failed=True``. Returns False when more than
         ``max_restarts`` recoveries landed within ``restart_window_s``, or
-        when a fault inside a mirrored call left the mesh unrecoverable."""
+        when the release of the other ranks from a fault inside a mirrored
+        call failed (``ranks.broken``)."""
         now = time.monotonic()
         with self._work:
             if self.ranks is not None and self.ranks.broken:

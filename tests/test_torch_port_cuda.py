@@ -1122,6 +1122,117 @@ def test_tp_decode_on_the_card_two_gloo_ranks(cuda, tmp_path):
     solo.close()
 
 
+def test_tp_decode_on_the_card_recovers_from_a_fault_inside_a_step(cuda, tmp_path):
+    """Two gloo ranks share the card, the int8-weight tp engine on the
+    batched decode kernel (max_restarts 1): rank 0 raises between two
+    block reductions of decode call 2. The follower, waiting in the next
+    reduction, is released within 10 s; after the reset both ranks launch
+    the quant-matmul and decode-attention kernels again; the requeued and
+    a fresh request decode the one-device engine's tokens, with one
+    restart."""
+    import torch_parallel_workers as W
+    from torch_ranks import run_ranks
+    cfg = tllm.TransformerConfig(
+        num_blocks=2, dim=256, hidden_dim=512, n_heads=4, n_kv_heads=2, norm_eps=1e-5,
+        vocab_size=512, head_dim=128, rope_theta=1e4, rope_dim=128, v_head_dim=128,
+        max_context=128, qk_norm=128)
+    params = tllm.init_params(cfg, seed=3)
+    reqs, fresh = [([1, 2, 3, 4, 5], 6), ([9, 8, 7], 5)], ([5, 5], 4)
+    outs = run_ranks(W.tp_fault_on_card, 2, tmp_path, str(tmp_path / "rdv"), cfg, params,
+                     reqs, fresh, ("decode_all", {2}, 3), init=False)
+    r0, r1 = outs
+    assert r0["failed"] == [False] * 3 and r0["restarts"] == 1
+    (release,) = r1["releases"]
+    assert release["waiting"] and release["ops"].count("all_reduce") == 3
+    assert 0 <= release["t"] - r0["faults"][0] < 10
+    for o in outs:
+        assert o["quant_linear"] > 0 and o["decode_attention_batch"] > 0
+    from clearcam_tpu_torch.serving.engine import ServingEngine
+    solo = ServingEngine(tllm.quantize_params_int8({k: v.to(cuda) for k, v in params.items()}),
+                         cfg, n_slots=2, state_dtype=torch.bfloat16, use_pallas_decode=True)
+    want = [solo.submit(list(p), max_new=n) for p, n in reqs]
+    solo.run_until_idle()
+    want.append(solo.submit(list(fresh[0]), max_new=fresh[1]))
+    solo.run_until_idle()
+    assert r0["tokens"] == [r.wait(5) for r in want]
+    solo.close()
+
+
+# where rank 0 raises: between two block reductions of decode call 2, or
+# at the first block reduction the group ever runs (NCCL connects the
+# peers of an op at its first use, on the host: a follower waits there)
+NCCL_FAULTS = {"decode": ("decode_all", {2}, 3), "first_reduction": ("prefill_many", {1}, 1)}
+
+
+@pytest.mark.parametrize("fault", list(NCCL_FAULTS))
+@pytest.mark.parametrize("world", [2, 4])
+def test_tp_decode_over_nccl_recovers_from_a_fault_inside_a_step(cuda, tmp_path, world,
+                                                                 fault):
+    """One NCCL rank a card (skips with fewer cards): the int8-weight tp
+    engine on the batched decode kernel, rank 0 raising inside a mirrored
+    call (``NCCL_FAULTS``). The other ranks' hosts have enqueued the step,
+    or wait where NCCL connects; after the release every rank's stream
+    drains, each resets and launches the kernels again, and the requeued
+    and a fresh request decode the one-device engine's tokens, with one
+    restart."""
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} cards, one an NCCL rank")
+    import torch_parallel_workers as W
+    from torch_ranks import run_ranks
+    cfg = tllm.TransformerConfig(
+        num_blocks=2, dim=256, hidden_dim=512, n_heads=4, n_kv_heads=world, norm_eps=1e-5,
+        vocab_size=512, head_dim=128, rope_theta=1e4, rope_dim=128, v_head_dim=128,
+        max_context=128, qk_norm=128)
+    params = tllm.init_params(cfg, seed=3)
+    reqs, fresh = [([1, 2, 3, 4, 5], 6), ([9, 8, 7], 5)], ([5, 5], 4)
+    outs = run_ranks(W.tp_fault_on_card, world, tmp_path, str(tmp_path / "rdv"), cfg,
+                     params, reqs, fresh, NCCL_FAULTS[fault], world, "nccl", init=False)
+    r0 = outs[0]
+    assert r0["failed"] == [False] * 3 and r0["restarts"] == 1
+    for o in outs[1:]:
+        (release,) = o["releases"]
+        assert release["ops"].count("all_reduce") >= NCCL_FAULTS[fault][2]
+        assert 0 <= release["t"] - r0["faults"][0] < 10
+    for o in outs:
+        assert o["quant_linear"] > 0 and o["decode_attention_batch"] > 0
+    from clearcam_tpu_torch.serving.engine import ServingEngine
+    solo = ServingEngine(tllm.quantize_params_int8({k: v.to(cuda) for k, v in params.items()}),
+                         cfg, n_slots=2, state_dtype=torch.bfloat16, use_pallas_decode=True)
+    want = [solo.submit(list(p), max_new=n) for p, n in reqs]
+    solo.run_until_idle()
+    want.append(solo.submit(list(fresh[0]), max_new=fresh[1]))
+    solo.run_until_idle()
+    assert r0["tokens"] == [r.wait(5) for r in want]
+    solo.close()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_batch_detector_over_nccl_recovers_from_a_fault_inside_a_step(cuda, tmp_path, world):
+    """One NCCL data rank a card (skips with fewer cards): rank 0 raises
+    inside a BatchDetector(mesh=) step between the frames' scatter and the
+    rows' gather; the others are released within 10 s, and the next step's
+    rows equal one device's (each data rank's rows at its batch), with the
+    stem kernel launched on every rank."""
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} cards, one an NCCL rank")
+    import torch_parallel_workers as W
+    from clearcam_tpu_torch.testing import detection_mismatches
+    from torch_ranks import run_ranks
+    params = yolov9.init_params("t", seed=0)
+    frames = np.stack([np.random.default_rng(20 + i).integers(0, 255, (96, 128, 3), np.uint8)
+                       for i in range(8)])
+    outs = run_ranks(W.detect_fault_ranks, world, tmp_path, params, frames,
+                     str(tmp_path / "rdv"), world, "nccl", init=False)
+    r0 = outs[0]
+    assert r0["raised"] == "injected fault between scatter and gather"
+    for o in outs[1:]:
+        (release,) = o["releases"]
+        assert release["ops"] == ["scatter", "all_gather"]
+        assert 0 <= release["t"] - r0["fault"] < 10
+    assert detection_mismatches(r0["solo"], r0["rows"]) == []
+    assert all(o["stem"] > 0 for o in outs)
+
+
 def test_ring_attention_shard_on_cuda_nccl_world_one(cuda, tmp_path):
     """ring_attention_shard on CUDA tensors in a one-rank NCCL group equals
     plain causal attention."""

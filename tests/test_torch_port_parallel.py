@@ -3,7 +3,8 @@ federation) against the JAX package's, on the CPU: gloo ranks spawned by
 ``torch_ranks.run_ranks`` (file:// rendezvous in tmp_path, one torch
 thread a rank, a 120 s deadline a spawn), the JAX side on conftest's 8
 virtual devices. Covers the mesh axes, sharded detect and the leading
-``BatchDetector(mesh=)`` (5 frames padded to a dp-4 bucket), multi-process
+``BatchDetector(mesh=)`` (5 frames padded to a dp-4 bucket) and its next
+step after a fault inside one, multi-process
 federation over tcp://, every public function of the JAX parallel
 modules, and ``python -m clearcam_tpu_torch --mesh 2 --device cpu``
 booting and detecting."""
@@ -55,6 +56,31 @@ def test_sharded_detect_and_batch_detector_match_jax(tmp_path):
         np.testing.assert_allclose(o["sharded"], ref, rtol=2e-3, atol=2e-3,
                                    err_msg=f"rank {r}")
     np.testing.assert_allclose(outs[0]["batch"], ref[:5], rtol=2e-3, atol=2e-3)
+
+
+def test_batch_detector_recovers_from_a_fault_inside_a_step(tmp_path):
+    """BatchDetector(mesh=) on 2 data ranks, res 64, f32: rank 0 raises
+    inside a step, between the frames' scatter and the rows' gather. The
+    call raises on rank 0 only; the follower, waiting in the gather, is
+    released within 10 s; the next step's rows equal the one-device port's
+    and the JAX BatchDetector's under clearcam_tpu_torch.testing's rule,
+    and both ranks exit 0."""
+    import torch
+    from clearcam_tpu_torch.runtime.nvr import BatchDetector
+    from clearcam_tpu_torch.testing import detection_mismatches
+    params = jyolo.init_params("t", seed=0)
+    frames = _frames(4, 20)
+    r0, r1 = run_ranks(W.detect_fault_ranks, 2, tmp_path, params, frames)
+    assert r0["raised"] == "injected fault between scatter and gather"
+    (rel,) = r1["releases"]
+    assert rel["waiting"] and rel["ops"] == ["scatter", "all_gather"]
+    assert 0 <= rel["t"] - r0["fault"] < 10
+    solo = np.stack(BatchDetector("t", res=64, params=params, dtype=torch.float32,
+                                  device="cpu").detect_many(list(frames)))
+    ref = np.stack(JaxBatchDetector("t", res=64, params=params).detect_many(list(frames)))
+    assert (r0["rows"][..., 4] > 0).any()
+    assert detection_mismatches(solo, r0["rows"]) == []
+    assert detection_mismatches(ref, r0["rows"]) == []
 
 
 def _free_port():

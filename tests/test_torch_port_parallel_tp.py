@@ -13,9 +13,11 @@ step. Speculative windows under the mesh (``spec_lookup``): rank 0's tokens
 against JAX ``serving_engine_tp(spec_lookup=3)``, solo generation and the
 port's one-device spec engine, every rank's ``aux`` against rank 0's beside
 a stochastic row, and ``VLMServingEngine(mesh=)`` under
-``CLEARCAM_SPEC_LOOKUP``; crash recovery on 2 ranks (faults before a
-mirrored call's command and after it returned recover; one inside it fails
-the waiters). Tokens are compared exactly."""
+``CLEARCAM_SPEC_LOOKUP``; crash recovery on 2 ranks: faults before a
+mirrored call's command, after it returned, and inside it (between two
+block reductions of a decode, a spec window or a batched prefill, with the
+follower waiting in the next one, or after the graph) recover, the last
+within a restart budget. Tokens are compared exactly."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -147,10 +149,25 @@ STOCH = [([1, 2, 3, 4, 5], 8, {}),
                          "presence_penalty": 1.0, "logit_bias": {5: 3.0}}),
          ([4, 4, 4, 4], 8, {})]
 RECOVERY_REQS, RECOVERY_FRESH = [([1, 2, 3, 4, 5], 6), ([9, 8, 7], 5)], ([5, 5], 4)
-# (spec_lookup, fault): at decode call 2, before the command / after the
-# mirrored call returned; "inside": raised inside rank 0's mirrored call
-RECOVERY_RUNS = [(0, (2, False)), (0, (2, True)), (SPEC, (2, False)), (SPEC, (2, True)),
-                 (0, "inside")]
+# the block reduction rank 0 fails at inside a decode call: the first of
+# block 1's (2 a block: attn_output, ffn_down)
+K = 3
+# (spec_lookup, fault, max_restarts), fault on rank 0 (torch_parallel_workers
+# .engine_tp_spec): at decode call 2, before the command / after the
+# mirrored call returned; inside a mirrored call: at its k-th block
+# reduction (a follower waits inside it), or after its graph returned; two
+# inside faults on a budget of one restart
+RECOVERY_RUNS = [(0, ("before", 2), 3), (0, ("after", 2), 3), (SPEC, ("before", 2), 3),
+                 (SPEC, ("after", 2), 3),
+                 (0, ("reduce", "decode_all", {2}, K), 3),
+                 (SPEC, ("reduce", "decode_all", {2}, K), 3),
+                 (0, ("reduce", "prefill_many", {1}, 2), 3),
+                 (0, ("graph_end", 2), 3),
+                 (0, ("reduce", "decode_all", {2, 4}, K), 1)]
+# the cases inside a mirrored call: index in RECOVERY_RUNS, the reduction
+# the follower waits in (None: its graph had ended)
+INSIDE = {"decode": (4, K), "spec_window": (5, K), "prefill_many": (6, 2),
+          "after_the_graph": (7, None)}
 
 
 def _spec_cases():
@@ -176,8 +193,8 @@ def spec_engines(tmp_path_factory):
     jp = jllm.init_params(cfg, seed=4)
     tp = tllm.params_from_jax(jp)
     stoch = (port_cfg(cfg), tp, dict(n_slots=3, spec_lookup=SPEC), STOCH)
-    runs = [(dict(n_slots=2, max_restarts=3, sync_lag=4, spec_lookup=g), fault)
-            for g, fault in RECOVERY_RUNS]
+    runs = [(dict(n_slots=2, max_restarts=n, sync_lag=4, spec_lookup=g), fault)
+            for g, fault, n in RECOVERY_RUNS]
     r0, r1 = run_ranks(W.engine_tp_spec, 2, tmp_path_factory.mktemp("tp_spec"),
                        [(port_cfg(c), p, kw) for _, c, p, kw in cases], SCRIPT, stoch,
                        (port_cfg(cfg), tp, runs, RECOVERY_REQS, RECOVERY_FRESH))
@@ -239,8 +256,8 @@ def test_tp_spec_aux_is_rank0s_beside_a_stochastic_row(spec_engines):
     assert len(toks[1]) == 8
 
 
-@pytest.mark.parametrize("i", range(4), ids=[f"spec{g}-{'after' if f[1] else 'before'}"
-                                             for g, f in RECOVERY_RUNS[:4]])
+@pytest.mark.parametrize("i", range(4), ids=[f"spec{g}-{f[0]}"
+                                             for g, f, _ in RECOVERY_RUNS[:4]])
 def test_tp_engine_recovers_on_two_ranks(spec_engines, i):
     """max_restarts under a mesh: a fault at rank 0's second decode call,
     before its command or after the mirrored call returned, resets every
@@ -254,12 +271,65 @@ def test_tp_engine_recovers_on_two_ranks(spec_engines, i):
     assert row["restarts"] == 1
 
 
-def test_tp_engine_fault_inside_a_mirrored_call_fails_waiters(spec_engines):
-    """A fault raised on rank 0 inside a mirrored call (after its command
-    went out) marks the mesh broken: no reset is tried, the waiter
-    completes failed and a further submit raises."""
-    row = spec_engines["r0"]["recoveries"][4]
-    assert row == {"failed": True, "refused": True, "broken": True, "restarts": 0}
+@pytest.mark.parametrize("case", list(INSIDE))
+def test_tp_engine_recovers_from_a_fault_inside_a_mirrored_call(spec_engines, case):
+    """A fault raised on rank 0 inside a mirrored call, after its command
+    went out: between two block reductions of decode call 2 (plain, and a
+    spec_lookup=3 window), of the first prefill_many, or after decode call
+    2's graph returned. The follower, waiting inside reduction k (or idle),
+    is released within 10 s (Channel.repair), every rank resets, both
+    requeued requests and a fresh one give JAX's solo tokens, one restart,
+    and both rank processes exit 0 (run_ranks)."""
+    cfg, jp = spec_engines["model"]
+    i, k = INSIDE[case]
+    row, rel = spec_engines["r0"]["recoveries"][i], spec_engines["r1"]["recoveries"][i]
+    want = [_jax_solo(jp, cfg, p, n) for p, n in RECOVERY_REQS + [RECOVERY_FRESH]]
+    assert row["tokens"] == want
+    assert row["failed"] == [False] * 3
+    assert row["restarts"] == 1 and not row["broken"]
+    (release,) = rel["releases"]
+    assert 0 <= release["t"] - row["faults"][0] < 10
+    if k is None:
+        assert not release["waiting"]
+    else:
+        assert release["waiting"]
+        assert release["ops"][-1] == "all_reduce"
+        assert release["ops"].count("all_reduce") == k
+
+
+def test_tp_engine_fault_inside_a_mirrored_call_past_its_budget(spec_engines):
+    """max_restarts=1 and two faults inside decode calls (2 and 4, between
+    two block reductions): the first recovers, the second fails both
+    waiters, a further submit raises; the follower was released both times
+    and nothing hangs (both ranks stop and exit 0)."""
+    row = spec_engines["r0"]["recoveries"][8]
+    rel = spec_engines["r1"]["recoveries"][8]["releases"]
+    assert row["failed"] == [True, True] and row["refused"]
+    assert row["restarts"] == 1 and not row["broken"]
+    assert len(row["faults"]) == 2
+    assert [r["waiting"] for r in rel] == [True, True]
+    assert all(r["ops"].count("all_reduce") == K for r in rel)
+
+
+def test_tp_engine_fails_loudly_when_the_release_fails(tmp_path):
+    """Rank 0's own block reduction fails in the backend inside decode call
+    2 (nothing posted), so it cannot release the follower: the mesh is
+    broken, every waiter fails and a further submit raises, with restarts
+    left in the budget; the follower, told so, says why and leaves its
+    process (which ends a real job: comm.Ranks) instead of waiting."""
+    import json
+    import re
+    cfg = tiny_cfg(max_context=96)
+    with pytest.raises(AssertionError) as err:
+        run_ranks(W.broken_repair_ranks, 2, tmp_path, port_cfg(cfg),
+                  tllm.params_from_jax(jllm.init_params(cfg, seed=4)),
+                  RECOVERY_REQS, RECOVERY_FRESH)
+    text = str(err.value)
+    assert text.startswith("a rank died")
+    assert "rank 0 could not release this rank from a failed step" in text
+    row = json.loads(re.search(r"rank 0 row (\{.*\})", text).group(1))
+    assert row["broken"] and row["refused"] and row["restarts"] == 0
+    assert row["failed"] == [True, True]
 
 
 def test_moe_ep_prefill_matches_jax(tmp_path):
@@ -289,12 +359,10 @@ def test_moe_ep_prefill_matches_jax(tmp_path):
         assert "blk.0.ffn_down_exps.weight" in o["split"]
 
 
-def test_vlm_engine_and_nvr_summaries_tp_match_solo(tmp_path):
-    """VLMServingEngine(mesh=) on 2 ranks, and the NVR's summary engine
-    built with llm_mesh (rank 1 building its own on rank 0's command):
-    the same text as JAX's solo Qwen3VL.generate; each rank's cache holds
-    one of the two KV heads (bf16 in the NVR's); the replicated vision
-    tower ran on rank 0's image."""
+@pytest.fixture(scope="module")
+def vlm_nvr(tmp_path_factory):
+    """One spawn of 2 ranks (``torch_parallel_workers.vlm_ranks``) and
+    JAX's solo text."""
     jc, tc = _cfgs(max_context=1024)
     jp, tp = _params(jc, seed=0)
     vkv, vp = tvl.VisionTower.init_random(n_blocks=2, lang_dim=32, deepstack=(0,))
@@ -303,7 +371,17 @@ def test_vlm_engine_and_nvr_summaries_tp_match_solo(tmp_path):
     frame = np.random.default_rng(3).integers(0, 255, (48, 80, 3), np.uint8)
     solo = j.generate(prompt="what is this", image=frame, reset=True, temperature=0.0,
                       max_new=4)
-    outs = run_ranks(W.vlm_ranks, 2, tmp_path, tc, tp, vkv, vp, frame, str(tmp_path))
+    tmp = tmp_path_factory.mktemp("vlm_nvr")
+    return solo, run_ranks(W.vlm_ranks, 2, tmp, tc, tp, vkv, vp, frame, str(tmp))
+
+
+def test_vlm_engine_and_nvr_summaries_tp_match_solo(vlm_nvr):
+    """VLMServingEngine(mesh=) on 2 ranks, and the NVR's summary engine
+    built with llm_mesh (rank 1 building its own on rank 0's command):
+    the same text as JAX's solo Qwen3VL.generate; each rank's cache holds
+    one of the two KV heads (bf16 in the NVR's); the replicated vision
+    tower ran on rank 0's image."""
+    solo, outs = vlm_nvr
     assert outs[0]["text"] == solo
     assert outs[0]["nvr_text"] == solo
     assert outs[0]["kshape"] == outs[1]["kshape"] == (2, 1, 1024, 128)
@@ -311,10 +389,27 @@ def test_vlm_engine_and_nvr_summaries_tp_match_solo(tmp_path):
     assert outs[0]["nvr_dtype"] == "torch.bfloat16"
 
 
-def test_vlm_engine_tp_spec_matches_solo(tmp_path):
-    """VLMServingEngine(mesh=) under CLEARCAM_SPEC_LOOKUP=2 on 2 ranks:
-    speculative windows over the image prefill's cache give JAX's solo
-    Qwen3VL.generate text exactly."""
+def test_nvr_summary_engine_tp_carries_on_after_a_fault_inside_a_step(vlm_nvr):
+    """The NVR's tensor-parallel summary engine, driven by the NVR's own
+    summary ticks: rank 0 raises at the first block reduction inside a
+    request's mirrored image prefill. The NVR logs the failed tick and
+    carries on, as on one device; the follower, waiting in that
+    reduction, is released within 10 s; the next ticks re-run the prefill
+    and the summary's text equals JAX's solo generation."""
+    solo, outs = vlm_nvr
+    got = outs[0]["nvr_fault"]
+    assert got["text"] == solo and len(got["faults"]) == 1
+    (release,) = outs[1]["releases"]
+    assert release["waiting"] and release["ops"] == ["all_reduce"]
+    assert 0 <= release["t"] - got["faults"][0] < 10
+
+
+@pytest.fixture(scope="module")
+def vlm_spec(tmp_path_factory):
+    """One spawn of 2 ranks: VLMServingEngine(mesh=) under
+    CLEARCAM_SPEC_LOOKUP=2, then without it through a fault inside its
+    image prefill (the first language block's second reduction); and
+    JAX's solo text."""
     jc, tc = _cfgs(max_context=1024)
     jp, tp = _params(jc, seed=0)
     vkv, vp = tvl.VisionTower.init_random(n_blocks=2, lang_dim=32, deepstack=(0,))
@@ -323,10 +418,34 @@ def test_vlm_engine_tp_spec_matches_solo(tmp_path):
     frame = np.random.default_rng(3).integers(0, 255, (48, 80, 3), np.uint8)
     solo = j.generate(prompt="what is this", image=frame, reset=True, temperature=0.0,
                       max_new=8)
-    outs = run_ranks(W.vlm_spec_ranks, 2, tmp_path, tc, tp, vkv, vp, frame, 2, 8)
+    outs = run_ranks(W.vlm_spec_ranks, 2, tmp_path_factory.mktemp("vlm_spec"), tc, tp,
+                     vkv, vp, frame, 2, 8, 2)
+    return solo, outs
+
+
+def test_vlm_engine_tp_spec_matches_solo(vlm_spec):
+    """VLMServingEngine(mesh=) under CLEARCAM_SPEC_LOOKUP=2 on 2 ranks:
+    speculative windows over the image prefill's cache give JAX's solo
+    Qwen3VL.generate text exactly."""
+    solo, outs = vlm_spec
     assert outs[0]["text"] == solo
     assert outs[0]["spec"] == outs[1]["spec"] == 2
     assert outs[0]["decode_steps"] > 0
+
+
+def test_vlm_engine_tp_recovers_from_a_fault_inside_custom_prefill(vlm_spec):
+    """VLMServingEngine(mesh=, max_restarts=1) on 2 ranks: rank 0 raises at
+    its second block reduction inside the mirrored image prefill; the
+    follower, waiting in that reduction, is released within 10 s, the
+    request requeues and its retried summary's text equals JAX's solo
+    Qwen3VL.generate, with one restart."""
+    solo, outs = vlm_spec
+    got, rel = outs[0]["fault"], outs[1]["releases"]
+    assert got["text"] == solo and not got["failed"]
+    assert got["restarts"] == 1
+    (release,) = rel
+    assert release["waiting"] and release["ops"] == ["all_reduce"] * 2
+    assert 0 <= release["t"] - got["faults"][0] < 10
 
 
 def _rel(a, b):

@@ -3,6 +3,8 @@ by ``torch_ranks.run_ranks``. Each returns numpy or plain Python; nothing
 here imports jax or clearcam_tpu."""
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -104,15 +106,68 @@ def _fault(eng, at, after):
     eng.decode_all = wrapper
 
 
+def _graph_end_fault(eng, at, times):
+    """Raise inside rank 0's ``at``-th mirrored decode call, after its graph
+    returned: the followers' graphs have ended too."""
+    raw, calls = eng.ranks._decode, {"n": 0}
+
+    def inside(*a):
+        r = raw(*a)
+        calls["n"] += 1
+        if calls["n"] == at:
+            times.append(time.monotonic())
+            raise RuntimeError("injected fault inside a mirrored call")
+        return r
+    eng.ranks._decode = inside
+
+
+# how long rank 0 waits before it raises inside a step, so that the
+# followers, a block's work behind it, are waiting in the collective the
+# test names (s)
+SETTLE_S = 0.3
+
+
+def reduce_fault(eng, method, calls, k, times):
+    """Raise on rank 0 at its ``k``-th block reduction inside each of its
+    ``method`` calls numbered in ``calls`` (the engine's mirrored wrapper:
+    its command went out), before the reduction is posted: the followers
+    then wait inside reduction ``k``. Appends the fault's time to
+    ``times``."""
+    tp, orig = eng.params.tp, getattr(eng, method)
+    at = {"n": 0, "k": 0}
+
+    def call(*a, **kw):
+        at["n"] += 1
+        at["k"] = 0
+        return orig(*a, **kw)
+
+    def reduce(t):
+        if at["n"] in calls:
+            at["k"] += 1
+            if at["k"] == k:
+                time.sleep(SETTLE_S)
+                times.append(time.monotonic())
+                raise RuntimeError("injected fault between two block reductions")
+        return type(tp).reduce(tp, t)
+    setattr(eng, method, call)
+    object.__setattr__(tp, "reduce", reduce)
+
+
 def _serve(eng, reqs, fresh):
-    """Rank 0, the scheduler on its thread: ``reqs`` [(prompt, max_new)]
-    at once, then ``fresh`` after them -> tokens, failed flags, restarts."""
-    eng.start()
+    """Rank 0: ``reqs`` [(prompt, max_new)] submitted, then the scheduler on
+    its thread, then ``fresh`` after them -> tokens, failed flags, restarts
+    (a further submit refused: ``refused``)."""
     rs = [eng.submit(list(p), max_new=n) for p, n in reqs]
+    eng.start()
     toks = [r.wait(60) for r in rs]
-    r = eng.submit(list(fresh[0]), max_new=fresh[1])
-    toks.append(r.wait(60))
-    out = {"tokens": toks, "failed": [x.failed for x in rs + [r]],
+    try:
+        r = eng.submit(list(fresh[0]), max_new=fresh[1])
+        toks.append(r.wait(60))
+        rs.append(r)
+        refused = False
+    except RuntimeError:
+        refused = True
+    out = {"tokens": toks, "failed": [x.failed for x in rs], "refused": refused,
            "restarts": eng.stats["scheduler_restarts"]}
     eng.close()
     return out
@@ -124,10 +179,13 @@ def engine_tp_spec(rank, cases, script, stoch, recoveries):
       ``engine_tp``;
     - ``stoch`` (cfg, params, engine_kw, [(prompt, max_new, sampling kw)]):
       every rank's aux and first tokens after each graph call;
-    - ``recoveries`` (cfg, params, [(engine_kw, fault), ...], reqs, fresh):
-      fault (at, after) injected on rank 0 (``_fault``), the scheduler on
-      its thread; fault "inside": rank 0 raises inside its mirrored decode
-      after the graph returned (the mesh marked broken)."""
+    - ``recoveries`` (cfg, params, [(engine_kw, fault), ...], reqs, fresh),
+      the scheduler on its thread, fault on rank 0: ("before"|"after", at)
+      around its decode call ``at`` (``_fault``); ("graph_end", at) inside
+      that mirrored call, after its graph returned; ("reduce", method,
+      calls, k) inside the graph, at its k-th block reduction
+      (``reduce_fault``). -> rank 0: tokens, failed, restarts, the faults'
+      times; a follower: its releases (``Channel.releases``)."""
     from clearcam_tpu_torch.parallel import mesh as pmesh
     mesh = pmesh.make_mesh(data=1)
     out = {"cases": [], "recoveries": []}
@@ -159,44 +217,67 @@ def engine_tp_spec(rank, cases, script, stoch, recoveries):
     cfg, params, runs, reqs, fresh = recoveries
     for engine_kw, fault in runs:
         eng = pmesh.serving_engine_tp(params, cfg, mesh, **engine_kw)
-        row = {}
+        row, n_rel = {}, len(mesh.channel.releases)
         if mesh.is_leader:
-            if fault == "inside":
-                raw, calls = eng.ranks._decode, {"n": 0}
-
-                def inside(*a, _raw=raw, _calls=calls):
-                    r = _raw(*a)
-                    _calls["n"] += 1
-                    if _calls["n"] == 2:
-                        raise RuntimeError("injected fault inside a mirrored call")
-                    return r
-                eng.ranks._decode = inside
-                eng.start()
-                r = eng.submit([1, 2, 3, 4, 5], max_new=6)
-                r.wait(60)
-                row["failed"] = r.failed
-                try:
-                    eng.submit([1], max_new=1)
-                    row["refused"] = False
-                except RuntimeError:
-                    row["refused"] = True
-                row["broken"] = eng.ranks.broken
-                row["restarts"] = eng.stats["scheduler_restarts"]
-                eng.close()
+            times = []
+            if fault[0] in ("before", "after"):
+                _fault(eng, fault[1], fault[0] == "after")
+            elif fault[0] == "graph_end":
+                _graph_end_fault(eng, fault[1], times)
             else:
-                _fault(eng, *fault)
-                row.update(_serve(eng, reqs, fresh))
+                reduce_fault(eng, *fault[1:], times)
+            row.update(_serve(eng, reqs, fresh))
+            row["faults"] = times
+            row["broken"] = eng.ranks.broken
             mesh.stop_followers()
         else:
             mesh.follow()
+            row["releases"] = mesh.channel.releases[n_rel:]
         out["recoveries"].append(row)
     return out
 
 
-def vlm_spec_ranks(rank, tc, tp, vkv, vp, frame, spec, max_new):
+def broken_repair_ranks(rank, cfg, params, reqs, fresh):
+    """2 ranks: rank 0's own block reduction fails in the backend (nothing
+    posted) inside decode call 2, so it cannot release the follower. Rank 0
+    prints ``_serve``'s row and ``broken`` to stderr (the follower leaves
+    its process, so no result comes back through the queue)."""
+    import json
+    import sys
+    import torch.distributed as dist
+    from clearcam_tpu_torch.parallel import mesh as pmesh
+    mesh = pmesh.make_mesh(data=1)
+    eng = pmesh.serving_engine_tp(params, cfg, mesh, n_slots=2, max_restarts=3,
+                                  sync_lag=4)
+    if not mesh.is_leader:
+        mesh.follow()
+        return {}
+    orig_decode, orig_reduce, at = eng.decode_all, dist.all_reduce, {"n": 0}
+
+    def decode(*a):
+        at["n"] += 1
+        return orig_decode(*a)
+
+    def all_reduce(*a, **k):
+        if at["n"] == 2:
+            raise RuntimeError("injected backend failure of a block reduction")
+        return orig_reduce(*a, **k)
+    eng.decode_all, dist.all_reduce = decode, all_reduce
+    row = _serve(eng, reqs, fresh)
+    row["broken"] = eng.ranks.broken
+    print("rank 0 row " + json.dumps(row), file=sys.stderr, flush=True)
+    time.sleep(60)        # the follower's exit ends the spawn
+    return row
+
+
+def vlm_spec_ranks(rank, tc, tp, vkv, vp, frame, spec, max_new, k):
     """2 ranks: VLMServingEngine(mesh=) under CLEARCAM_SPEC_LOOKUP=spec on
     rank 0's request -> its text and decode steps, the engine's spec
-    width."""
+    width; then one without spec (max_restarts 1, its scheduler on a
+    thread) where rank 0 raises at its k-th block reduction inside the
+    mirrored image prefill (``custom_prefill``) -> the retried request's
+    text, failed flag and restarts, the fault's time; the follower's
+    releases."""
     import os
     from clearcam_tpu_torch.parallel import mesh as pmesh
     from clearcam_tpu_torch.serving.vlm import VLMServingEngine
@@ -214,6 +295,21 @@ def vlm_spec_ranks(rank, tc, tp, vkv, vp, frame, spec, max_new):
         mesh.stop_followers()
     else:
         mesh.follow()
+    os.environ["CLEARCAM_SPEC_LOOKUP"] = "0"
+    eng = VLMServingEngine(qwen, n_slots=2, mesh=mesh, max_restarts=1)
+    if mesh.is_leader:
+        times = []
+        reduce_fault(eng.engine, "custom_prefill", {1}, k, times)
+        r = eng.submit([frame], "what is this", max_new=max_new, temperature=0.0)
+        eng.start()
+        r.wait(60)
+        out["fault"] = {"text": eng.text(r), "failed": r.failed, "faults": times,
+                        "restarts": eng.engine.stats["scheduler_restarts"]}
+        eng.close()
+        mesh.stop_followers()
+    else:
+        mesh.follow()
+        out["releases"] = mesh.channel.releases
     return out
 
 
@@ -252,6 +348,54 @@ def detect_ranks(rank, params_np, frames8, frames5):
         mesh.stop_followers()
     else:
         mesh.follow()
+    return out
+
+
+def detect_fault_ranks(rank, params_np, frames, path=None, world=2, backend="gloo"):
+    """``world`` data ranks (on the CPU; with ``path``, one NCCL rank a card,
+    joining the group here): BatchDetector(mesh=) where rank 0, after a
+    first step, raises inside one, between the frames' scatter and the
+    rows' gather, then runs the next step. -> rank 0: the raise, its time and the next step's
+    rows (on a card also one device's, each data rank's rows at its batch);
+    the other ranks: their releases; every rank: its stem launches."""
+    from clearcam_tpu_torch.ops.stem import stem
+    from clearcam_tpu_torch.parallel import comm
+    from clearcam_tpu_torch.parallel import mesh as pmesh
+    from clearcam_tpu_torch.runtime.nvr import BatchDetector
+    dev = "cpu" if path is None else comm.init_group(rank, world, f"file://{path}", "cuda",
+                                                     backend)
+    mesh = pmesh.make_mesh(world, data=world)
+    bd = BatchDetector("t", res=64, params=params_np, dtype=torch.float32, device=dev,
+                       mesh=mesh)
+    out = {}
+    s0 = stem.launches
+    if not mesh.is_leader:
+        mesh.follow()
+        out["releases"] = mesh.channel.releases
+        out["stem"] = stem.launches - s0
+        return out
+    bd.detect_many(list(frames))
+    step = bd._step
+
+    def fail(*a):
+        time.sleep(SETTLE_S)
+        out["fault"] = time.monotonic()
+        raise RuntimeError("injected fault between scatter and gather")
+    bd._step = fail
+    try:
+        bd.detect_many(list(frames))
+        out["raised"] = None
+    except RuntimeError as e:
+        out["raised"] = str(e)
+    bd._step = step
+    out["rows"] = np.stack(bd.detect_many(list(frames)))
+    mesh.stop_followers()
+    out["stem"] = stem.launches - s0
+    if path is not None:
+        one, n = BatchDetector("t", res=64, params=params_np, dtype=torch.float32,
+                               device=dev), len(frames) // world
+        out["solo"] = np.stack([r for i in range(world)
+                                for r in one.detect_many(list(frames[i * n:(i + 1) * n]))])
     return out
 
 
@@ -403,7 +547,10 @@ def port_vlm(tc, tp, vkv, vp):
 def vlm_ranks(rank, tc, tp, vkv, vp, frame, tmp):
     """2 ranks: VLMServingEngine(mesh=) on rank 0's request, then the NVR's
     tensor-parallel summary engine (NVR(llm_mesh=)), the followers building
-    theirs on rank 0's command."""
+    theirs on rank 0's command; then a request whose image prefill rank 0
+    fails inside (its first block reduction), driven by the NVR's own
+    summary ticks until done -> its text and the fault's time; the
+    follower's releases."""
     from clearcam_tpu_torch.parallel import mesh as pmesh
     from clearcam_tpu_torch.serving.vlm import VLMServingEngine
     from clearcam_tpu_torch.ops.vit_attention import mha_flash
@@ -420,6 +567,7 @@ def vlm_ranks(rank, tc, tp, vkv, vp, frame, tmp):
                                  mesh=mesh)
         mesh.channel.register_as("nvr", Follower())
         mesh.follow()
+        out["releases"] = mesh.channel.releases
         return out
     r = eng.submit([frame], "what is this", max_new=4, temperature=0.0)
     eng.run_until_idle()
@@ -435,6 +583,14 @@ def vlm_ranks(rank, tc, tp, vkv, vp, frame, tmp):
         out["nvr_text"] = se.text(r2)
         out["nvr_kshape"] = tuple(se.engine.state[0]["k"].shape)
         out["nvr_dtype"] = str(se.engine.state[0]["k"].dtype)
+        times = []
+        reduce_fault(se.engine, "custom_prefill", {1}, 1, times)
+        r3 = se.submit([frame], "what is this", max_new=4, temperature=0.0)
+        for _ in range(100):
+            if r3.done:
+                break
+            nvr._advance_summary_engine()
+        out["nvr_fault"] = {"text": se.text(r3), "faults": times}
     finally:
         nvr.stop()
     out["vit"] = mha_flash.launches
@@ -524,6 +680,49 @@ def tp_decode_on_card(rank, path, cfg, params, script):
         mesh.follow()
     out["quant_linear"] = quant_linear.launches - q0
     out["decode_attention_batch"] = decode_attention_batch.launches - d0
+    return out
+
+
+def tp_fault_on_card(rank, path, cfg, params, reqs, fresh, fault, world=2, backend="gloo",
+                     device="cuda"):
+    """``world`` ranks (gloo ranks share card 0; NCCL ranks a card each),
+    the int8-weight tp engine through the batched decode kernel on a bf16
+    cache (max_restarts 1): rank 0 raises inside a mirrored call, ``fault``
+    = (method, calls, k) as ``reduce_fault`` takes them, and recovers. ->
+    rank 0: tokens, failed, restarts, the fault's time; every rank: its
+    kernel launches after its reset, its releases."""
+    from clearcam_tpu_torch.ops.decode_attention import decode_attention_batch
+    from clearcam_tpu_torch.ops.quant_matmul import quant_linear
+    from clearcam_tpu_torch.parallel import comm
+    from clearcam_tpu_torch.parallel import mesh as pmesh
+    from clearcam_tpu_torch.models import llm
+    dev = comm.init_group(rank, world, f"file://{path}", device, backend)
+    mesh = pmesh.make_mesh(data=1)
+    p = llm.quantize_params_int8({k_: (v.to(dev) if hasattr(v, "to") else v)
+                                  for k_, v in params.items()})
+    eng = pmesh.serving_engine_tp(p, cfg, mesh, n_slots=2, state_dtype=torch.bfloat16,
+                                  use_pallas_decode=True, max_restarts=1, sync_lag=4)
+    at_reset = {}
+
+    def counted(fn):
+        def run(*a):
+            at_reset.update(q=quant_linear.launches, d=decode_attention_batch.launches)
+            return fn(*a)
+        return run
+    out = {}
+    if mesh.is_leader:
+        times = []
+        eng.ranks.reset_all = counted(eng.ranks.reset_all)
+        reduce_fault(eng, *fault, times)
+        out.update(_serve(eng, reqs, fresh))
+        out["faults"] = times
+        mesh.stop_followers()
+    else:
+        eng.ranks.reset = counted(eng.ranks.reset)
+        mesh.follow()
+        out["releases"] = mesh.channel.releases
+    out["quant_linear"] = quant_linear.launches - at_reset["q"]
+    out["decode_attention_batch"] = decode_attention_batch.launches - at_reset["d"]
     return out
 
 

@@ -6,7 +6,7 @@ ranks import only torch and clearcam_tpu_torch).
 ``tmp_path`` and one torch thread, runs ``fn(rank, *args)`` and sends its
 return value (numpy and plain Python) back through a queue. Each spawn has
 a deadline: past it every rank is killed and the test fails with their
-stderr."""
+stderr; so does a rank that exits with another code than 0."""
 from __future__ import annotations
 
 import os
@@ -64,6 +64,7 @@ def run_ranks(fn, world: int, tmp_path, *args, timeout: float = 120.0,
             except Exception:  # noqa: BLE001
                 if any(p.exitcode not in (None, 0) for p in procs):
                     failure = "a rank died"
+                    time.sleep(3.0)      # the others' last words reach their logs
                 continue
             if status != "ok":
                 failure = f"rank {r} failed:\n{out}"
@@ -71,6 +72,9 @@ def run_ranks(fn, world: int, tmp_path, *args, timeout: float = 120.0,
         if failure is None:
             for p in procs:
                 p.join(max(1.0, deadline - time.monotonic()))
+            codes = [p.exitcode for p in procs]
+            if any(c != 0 for c in codes):
+                failure = f"rank exit codes {codes} (None: still running)"
     finally:
         for p in procs:
             if p.is_alive():
