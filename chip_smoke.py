@@ -69,7 +69,12 @@ so the script exits non-zero:
      larger than L2 (decode attention: enough distinct caches that the
      live K/V cycled passes 120 MB, at least 2), and per decode-attention
      form its split plan, launches per call, GB/s of live K/V, share of the
-     bytes bound and ratio to scaled_dot_product_attention
+     bytes bound and ratio to scaled_dot_product_attention; then, checked
+     and timed the same way (f32 and bf16 q, the float caches also in f32),
+     the batched forms at the other LLM stacks' head shapes: Llama-3.2-1B's
+     (32 heads on 8 of 64) at S=8192, bf16 and int8, Qwen2.5-0.5B's (14 on
+     2 of 64: rep 7) at S=8192, Qwen3-Next's attention (16 on 2 of 256)
+     and Qwen3-235B-A22B's (64 on 4 of 128: rep 16) at S=2048
   8  a 2-block Qwen3-1.7B-width model (vocab 151936), f32 weights, int8
      and int4, through prefill_slot, prefill_many and teacher-forced
      decode_all with the decode kernel: card vs CPU logprob rows and
@@ -97,7 +102,9 @@ so the script exits non-zero:
      scales), bf16 q < 2e-2; times at the summary path's shapes as CUDA-graph
      replays over enough distinct caches that the live K/V cycled passes
      120 MB (27, 52 and 28 caches), printed as in phase 7, and each
-     wrapper's host time per eager call (the enqueue time of 200 calls)
+     wrapper's host time per eager call (the enqueue time of 200 calls);
+     then the single-stream forms at Llama-3.2-1B's heads (bf16 and int8)
+     and Qwen3-Next's (bf16), S=2048, checked and timed as in phase 7
  11  a 2-block Qwen3-VL-2B-width model (2 language + 2 vision blocks, the
      deepstack at vision block 1), f32, card vs CPU: vision embeds and the
      deepstack feature (cosine > 1 - 1e-5 per row), then an image prefill
@@ -236,9 +243,21 @@ so the script exits non-zero:
      the cuDNN stem pair whole and by conv with the card's bounds, the
      stem kernel against the pair (max|d| <= 0.05, launched), and the host
      costs of chained calls, uploads and lagged readbacks
+ 20  a GGUF at meta-llama/Llama-3.2-1B-Instruct's widths (hidden 2048, 32
+     heads on 8 KV heads of 64, FFN 8192, vocab 128256, RoPE theta 5e5,
+     tied embeddings; 4 of its 16 blocks), random F16 weights drawn on the
+     card from seed 0 and written with the port's GGUF writer, with a
+     stand-in byte-level vocabulary and the Llama-3 specials: `python -m
+     clearcam_tpu_torch.tools.serve_llm --gguf FILE --int8 --pallas`, then
+     `--int8 --kv-quant --pallas`, both booted at once and driven as phase
+     9's first server (the JSON reply may start with whitespace), each
+     reporting decode-kernel launches > 0; meanwhile Transformer.generate
+     on the file's bf16 weights with a bf16 and an int8 cache, the decode
+     kernels' route against the plain one (equal greedy tokens) with
+     decode_attention / decode_attention_q8 launched
 The line before the last is the card's name and power limit; before it, a
-JSON line with each kernel's launches on a served path (phases 4, 9, 12
-and 13; int4 from phase 8's engine run; the stem's adds phase 17's training
+JSON line with each kernel's launches on a served path (phases 4, 9, 12,
+13 and 20; int4 from phase 8's engine run; the stem's adds phase 17's training
 runs and replay and phase 19's probe), its error against the plain version,
 its time, the plain version's, the bound (the larger of its bytes over
 3.35 TB/s and its operations over the data sheet's peak for their type)
@@ -296,7 +315,7 @@ ATTN_TIMED = [(1, 257, "float32"), (16, 257, "float32"), (64, 257, "float32"),
               (16, 257, "bfloat16"), (1, 2040, "float32")]
 TOWER_COS = 1 - 1e-5                # towers, GPU vs CPU, cosine per row
 # BPE merges for the server's tokenizer: the real vocab is not in the repo
-ALL_PHASES = tuple(range(20))
+ALL_PHASES = tuple(range(21))
 MERGES = [("h", "e"), ("l", "l"), ("he", "ll"), ("hell", "o</w>"),
           ("w", "o"), ("r", "l"), ("wo", "rl"), ("worl", "d</w>")]
 
@@ -1154,6 +1173,7 @@ def phase7(torch):
         f"{QM_TOL['float32']}); bounds: bytes over {HBM / 1e12} TB/s against operations "
         "over 989 TFLOP/s bf16 (f32 x: / 3, its three bf16 terms)")
     _phase7_decode(torch, gen, out)
+    out["head_shapes"] = _dec_head_shapes(torch, gen, 7)
     return out
 
 
@@ -1591,12 +1611,111 @@ def _smoke_tok():
                     preset="qwen2", bos_id=None, eos_id=151645)
 
 
-def _q8_operands(torch, gen, b, kvh, s):
-    kq, vq = (torch.randint(-127, 128, (b, kvh, s, 128), generator=gen, device="cuda",
+def _q8_operands(torch, gen, b, kvh, s, d=128):
+    kq, vq = (torch.randint(-127, 128, (b, kvh, s, d), generator=gen, device="cuda",
                             dtype=torch.int8) for _ in range(2))
     ks, vs = (torch.rand((b, kvh, s), generator=gen, device="cuda") * 0.02 + 0.002
               for _ in range(2))
     return kq, ks, vq, vs
+
+
+# the head shapes the JAX package's LLM stacks take beyond Qwen3's (PERF.md
+# §6 rows 4b-7b): (model, form, B, H, KvH, S, D, cache). Phase 7 takes the
+# batched forms, phase 10 the single-stream ones
+DEC_HEAD_SHAPES = {
+    7: [("Llama-3.2-1B", "batch", 8, 32, 8, 8192, 64, "bfloat16"),
+        ("Llama-3.2-1B", "batch_q8", 8, 32, 8, 8192, 64, "int8"),
+        ("Qwen2.5-0.5B", "batch", 8, 14, 2, 8192, 64, "bfloat16"),
+        ("Qwen3-Next-80B-A3B", "batch", 8, 16, 2, 2048, 256, "bfloat16"),
+        ("Qwen3-235B-A22B", "batch", 8, 64, 4, 2048, 128, "bfloat16")],
+    10: [("Llama-3.2-1B", "single", 1, 32, 8, 2048, 64, "bfloat16"),
+         ("Llama-3.2-1B", "single_q8", 1, 32, 8, 2048, 64, "int8"),
+         ("Qwen3-Next-80B-A3B", "single", 1, 16, 2, 2048, 256, "bfloat16")]}
+
+
+def _dec_head_shape(torch, gen, model, form, b, h, kvh, s, d, cache) -> dict:
+    """One decode-attention form at one head shape: the kernel against its
+    plain version (f32 q and bf16 q; on a float cache the f32 values too)
+    at spread positions, left pads and a row with no live column (batch)
+    or four positions (single), then timed as rows 4-7 are: plain, kernel,
+    kernel, plain over enough distinct caches that the live K/V cycled
+    passes L2_FLUSH, with one scaled_dot_product_attention call on a
+    float cache and the bytes bound."""
+    from clearcam_tpu_torch.ops import decode_attention as dec
+    q8, single = form.endswith("q8"), form.startswith("single")
+    name = "decode_attention" + ("" if single else "_batch") + ("_q8" if q8 else "")
+    fn, ref_fn = getattr(dec, name), getattr(dec, name + "_reference")
+    cdt = getattr(torch, cache)
+
+    def make():
+        if q8:
+            return _q8_operands(torch, gen, b, kvh, s, d)
+        return tuple(torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(cdt)
+                     for _ in range(2))
+
+    def call(f, qq, c, pos, pads):
+        if single:
+            return f(qq[0], *(t[0] for t in c), pos)
+        return f(qq, *c, pos, pads)
+
+    def rows(xs):
+        return torch.tensor(xs, dtype=torch.int32, device="cuda")
+    spread = [min(p, s - 1) for p in DEC_POS]
+    if single:
+        cases = [(p, None) for p in (0, 255, 1100, s - 1)]
+    else:
+        cases = [(rows(spread), rows([0] * b)),
+                 (rows(spread), rows([0, 5, 200, 0, 999, 1, s // 2, s - 1]))]
+    q = torch.randn((b, h, d), generator=gen, device="cuda")
+    pool = [make()]
+    c = pool[0]
+    err = {}
+    variants = [("float32", q, c), ("bfloat16", q.bfloat16(), c)]
+    if not q8:
+        variants.append(("float32 cache", q, tuple(t.float() for t in c)))
+    for qn, qq, cc in variants:
+        tol = DEC_TOL["bfloat16"] if qn == "bfloat16" else DEC_Q8_TOL if q8 \
+            else DEC_TOL["float32"]
+        for pos, pads in cases:
+            got = call(fn, qq, cc, pos, pads)
+            ref = call(ref_fn, qq, cc, pos, pads)
+            torch.cuda.synchronize()
+            e = (got.float() - ref.float()).abs().max().item()
+            if not (got.dtype == qq.dtype and torch.isfinite(got).all() and e < tol):
+                raise AssertionError(f"{name} {model} B={b} H={h} KvH={kvh} S={s} D={d} "
+                                     f"{cache} cache, q {qn}: max|d| {e} (bound {tol})")
+            err[qn] = max(err.get(qn, 0.0), e)
+    # timed at the summary depth (one stream) or the spread positions (8 rows)
+    pos, pads = (1100, None) if single else (rows(spread), rows([0] * b))
+    npos = 1101 if single else sum(spread) + b
+    live = npos * kvh * (d * 2 * c[0].element_size() + (8 if q8 else 0))
+    caches = _distinct(pool, make, live)
+    kt, pt, _ = _pair_ms([lambda c=c: call(ref_fn, q, c, pos, pads) for c in caches],
+                         [lambda c=c: call(fn, q, c, pos, pads) for c in caches])
+    lib = None
+    if not q8:
+        lib = _sdpa_decode_ms(torch, q, caches,
+                              rows([1100]) if single else pos, rows([0] * b))
+    bms, by = bound(live + 2 * q.numel() * 4, 4 * npos * h * d, PEAK["float32"])
+    log(f"{name} at {model}'s heads (B={b} H={h} KvH={kvh} rep {h // kvh} S={s} D={d}, "
+        f"{cache} cache): max|d| f32 q {err['float32']:.2e}, bf16 q {err['bfloat16']:.2e}"
+        + (f", f32 cache {err['float32 cache']:.2e}" if not q8 else "") + "; "
+        + _dec_line(dec, kt, pt, lib, bms, live, len(caches), b, kvh, s))
+    del pool, caches
+    torch.cuda.empty_cache()
+    return {"name": name, "model": model, "shape": [b, h, kvh, s, d], "cache": cache,
+            "max_abs_err": err["float32"], "ms": kt, "plain_ms": pt, "library_ms": lib,
+            "bound_ms": bms, "bound_by": by}
+
+
+def _dec_head_shapes(torch, gen, phase: int) -> list:
+    """Phase ``phase``'s head shapes; a package from before them
+    (``--package``) takes head dim 128 and rep <= 8 only: none are run."""
+    from clearcam_tpu_torch.ops import decode_attention as dec
+    if not hasattr(dec, "HEAD_DIMS"):
+        log("decode attention at other head shapes: not in this package")
+        return []
+    return [_dec_head_shape(torch, gen, *shape) for shape in DEC_HEAD_SHAPES[phase]]
 
 
 def phase10(torch):
@@ -1659,6 +1778,7 @@ def phase10(torch):
     torch.cuda.empty_cache()
 
     _phase10_times(torch, gen, out)
+    out["head_shapes"] = _dec_head_shapes(torch, gen, 10)
     return out
 
 
@@ -2704,10 +2824,10 @@ def _post_json(url, body, timeout=300.0):
     return json.loads(_post(url, json.dumps(body).encode(), timeout))
 
 
-def _serve_llm_boot(flags: list, blocks: int) -> dict:
-    """Start ``python -m clearcam_tpu_torch.tools.serve_llm --synthetic``
-    with ``flags`` (``blocks`` blocks, ctx 8192, 8 slots); ``_serve_llm``
-    drives and stops it."""
+def _serve_llm_boot(flags: list) -> dict:
+    """Start ``python -m clearcam_tpu_torch.tools.serve_llm`` with
+    ``flags`` (the model: ``--synthetic --blocks N`` or ``--gguf FILE``) at
+    ctx 8192 and 8 slots; ``_serve_llm`` drives and stops it."""
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_llm_"))
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=str(PKG_ROOT), PYTHONUNBUFFERED="1")
@@ -2715,8 +2835,8 @@ def _serve_llm_boot(flags: list, blocks: int) -> dict:
     t0 = time.time()
     with open(out_path, "w") as out:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "clearcam_tpu_torch.tools.serve_llm", "--synthetic",
-             *flags, "--blocks", str(blocks), "--ctx", "8192", "--slots", "8",
+            [sys.executable, "-m", "clearcam_tpu_torch.tools.serve_llm",
+             *flags, "--ctx", "8192", "--slots", "8",
              "--port", str(port), "--data", str(tmp / "data")],
             env=env, cwd=str(tmp), stdout=out, stderr=subprocess.STDOUT)
     return {"proc": proc, "tmp": tmp, "out_path": out_path, "t0": t0, "flags": flags,
@@ -2762,61 +2882,69 @@ def _serve_llm(server: dict, drive, names: tuple) -> tuple:
     return launches, result
 
 
+def _drive_text(base, brace_first: bool = True) -> dict:
+    """What a user of serve_llm's text surface sends: /v1/models, /generate
+    (whole and streamed), 8 concurrent /v1/chat/completions (one with
+    response_format json_object: its reply must be a JSON prefix, starting
+    with "{" where the vocabulary has no whitespace token, as the synthetic
+    one) and /v1/completions with logprobs."""
+    result = {}
+    models = json.loads(_get(f"{base}/v1/models"))
+    log(f"/v1/models: {[m['id'] for m in models['data']]}")
+    g = _post_json(f"{base}/generate", {"prompt": "hello world", "max_new": 16})
+    if g["tokens"] != 16 or not g["text"]:
+        raise AssertionError(f"/generate: {g}")
+    log(f"/generate: {g['tokens']} tokens, text {g['text']!r}")
+    t1 = time.time()
+    streamed = _post(f"{base}/generate", json.dumps(
+        {"prompt": "stream me", "max_new": 24, "stream": True}).encode(), 300).decode()
+    log(f"/generate stream: {len(streamed)} chars in {time.time() - t1:.2f} s")
+    if not streamed:
+        raise AssertionError("/generate stream gave no text")
+    import concurrent.futures as cf
+
+    def chat(i):
+        body = {"messages": [{"role": "user", "content": f"request {i}"}],
+                "max_tokens": 32}
+        if i == 0:
+            body["response_format"] = {"type": "json_object"}
+        return _post_json(f"{base}/v1/chat/completions", body)
+    t1 = time.time()
+    with cf.ThreadPoolExecutor(8) as ex:
+        chats = list(ex.map(chat, range(8)))
+    dt = time.time() - t1
+    toks = sum(c["usage"]["completion_tokens"] for c in chats)
+    log(f"8 concurrent /v1/chat/completions: {toks} tokens in {dt:.2f} s "
+        f"({toks / dt:.1f} tokens/s through HTTP)")
+    text = chats[0]["choices"][0]["message"]["content"]
+    if not text.strip() or (brace_first and not text.startswith("{")) \
+            or not _json_prefix(text):
+        raise AssertionError(f"json_object reply is not a JSON prefix: {text!r}")
+    log(f"json_object reply: {text!r} (a JSON prefix)")
+    comp = _post_json(f"{base}/v1/completions", {"prompt": "score this", "max_tokens": 6,
+                                                 "logprobs": 3})
+    lp = comp["choices"][0]["logprobs"]
+    if len(lp["token_logprobs"]) != len(lp["tokens"]) or not lp["tokens"] \
+            or not all(np.isfinite(x) and x <= 0 for x in lp["token_logprobs"]):
+        raise AssertionError(f"/v1/completions logprobs: {lp}")
+    log(f"/v1/completions logprobs: {len(lp['tokens'])} tokens, token_logprobs "
+        f"{[round(x, 3) for x in lp['token_logprobs']]}")
+    result.update(http_tokens_per_s=toks / dt, json_reply=text)
+    return result
+
+
 def phase9():
     log("== phase 9: python -m clearcam_tpu_torch.tools.serve_llm --synthetic --int8 --pallas, "
         "then --int8 --kv-quant --pallas")
 
-    def drive(base):
-        result = {}
-        models = json.loads(_get(f"{base}/v1/models"))
-        log(f"/v1/models: {[m['id'] for m in models['data']]}")
-        g = _post_json(f"{base}/generate", {"prompt": "hello world", "max_new": 16})
-        if g["tokens"] != 16 or not g["text"]:
-            raise AssertionError(f"/generate: {g}")
-        log(f"/generate: {g['tokens']} tokens, text {g['text']!r}")
-        t1 = time.time()
-        streamed = _post(f"{base}/generate", json.dumps(
-            {"prompt": "stream me", "max_new": 24, "stream": True}).encode(), 300).decode()
-        log(f"/generate stream: {len(streamed)} chars in {time.time() - t1:.2f} s")
-        if not streamed:
-            raise AssertionError("/generate stream gave no text")
-        import concurrent.futures as cf
-
-        def chat(i):
-            body = {"messages": [{"role": "user", "content": f"request {i}"}],
-                    "max_tokens": 32}
-            if i == 0:
-                body["response_format"] = {"type": "json_object"}
-            return _post_json(f"{base}/v1/chat/completions", body)
-        t1 = time.time()
-        with cf.ThreadPoolExecutor(8) as ex:
-            chats = list(ex.map(chat, range(8)))
-        dt = time.time() - t1
-        toks = sum(c["usage"]["completion_tokens"] for c in chats)
-        log(f"8 concurrent /v1/chat/completions: {toks} tokens in {dt:.2f} s "
-            f"({toks / dt:.1f} tokens/s through HTTP)")
-        text = chats[0]["choices"][0]["message"]["content"]
-        if not text.startswith("{") or not _json_prefix(text):
-            raise AssertionError(f"json_object reply is not a JSON prefix: {text!r}")
-        log(f"json_object reply: {text!r} (a JSON prefix)")
-        comp = _post_json(f"{base}/v1/completions", {"prompt": "score this", "max_tokens": 6,
-                                                     "logprobs": 3})
-        lp = comp["choices"][0]["logprobs"]
-        if len(lp["token_logprobs"]) != len(lp["tokens"]) or not lp["tokens"] \
-                or not all(np.isfinite(x) and x <= 0 for x in lp["token_logprobs"]):
-            raise AssertionError(f"/v1/completions logprobs: {lp}")
-        log(f"/v1/completions logprobs: {len(lp['tokens'])} tokens, token_logprobs "
-            f"{[round(x, 3) for x in lp['token_logprobs']]}")
-        result.update(http_tokens_per_s=toks / dt, json_reply=text)
-        return result
-
     # both servers boot at once (each draws its weights on the card); the
     # second waits, idle, while the first is driven. 8 and 4 blocks: the
     # served routes are the same at any depth
-    servers = [_serve_llm_boot(["--int8", "--pallas"], 8),
-               _serve_llm_boot(["--int8", "--kv-quant", "--pallas"], 4)]
+    servers = [_serve_llm_boot(["--synthetic", "--int8", "--pallas", "--blocks", "8"]),
+               _serve_llm_boot(["--synthetic", "--int8", "--kv-quant", "--pallas",
+                                "--blocks", "4"])]
     try:
-        launches, result = _serve_llm(servers[0], drive,
+        launches, result = _serve_llm(servers[0], _drive_text,
                                       ("quant_matmul", "decode_attention"))
     except BaseException:
         _serve_llm_stop(servers[1])
@@ -4154,6 +4282,211 @@ def phase19(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: a head-64 Llama GGUF through serve_llm --gguf ... --pallas
+
+# of Llama-3.2-1B's 16 blocks (the smoke's time limit); widths are the
+# published ones
+GGUF_BLOCKS = 4
+# the decode kernels against their plain versions inside the 4-block model
+# with f32 weights, max|d| of every decode step's logits over max|logit|:
+# f32 sums in another order, and the bf16 cache rounding a K/V value that
+# differs by that the other way
+GGUF_KERNEL_REL = 1e-3
+# Llama-3's special tokens at their ids (the rest of 128000-128255 reserved)
+LLAMA3_SPECIALS = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>",
+                   128006: "<|start_header_id|>", 128007: "<|end_header_id|>",
+                   128009: "<|eot_id|>"}
+
+
+def llama32_1b_cfg(llm, blocks: int = 16, ctx: int = 8192):
+    """meta-llama/Llama-3.2-1B-Instruct's config.json: hidden 2048, 16
+    layers, 32 heads and 8 KV heads of 64, intermediate 8192, vocab 128256,
+    RoPE theta 500000, RMS eps 1e-5, tied embeddings. Its rope_scaling
+    (llama3, factor 32) is applied by neither package, here or in a GGUF's
+    rope_freqs."""
+    return llm.TransformerConfig(
+        num_blocks=blocks, dim=2048, hidden_dim=8192, n_heads=32, n_kv_heads=8,
+        norm_eps=1e-5, vocab_size=128256, head_dim=64, rope_theta=500000.0, rope_dim=64,
+        v_head_dim=64, max_context=ctx)
+
+
+def _llama_gguf_kv(cfg) -> dict:
+    """The metadata a llama.cpp conversion of Llama-3.2-1B-Instruct carries
+    (context_length 8192 here), with a stand-in vocabulary of the same
+    size: the 256 byte tokens, filler merges up to id 128000, then the
+    Llama-3 specials and reserved tokens (token type 3)."""
+    from clearcam_tpu_torch.utils.tokenizer import byte_encoder
+    be = byte_encoder()
+    n_normal = 128000
+    tokens = [be[i] for i in range(256)] + [be[97] + be[98] + str(i)
+                                            for i in range(n_normal - 256)]
+    tokens += [LLAMA3_SPECIALS.get(i, f"<|reserved_special_token_{i - 128000}|>")
+               for i in range(n_normal, cfg.vocab_size)]
+    a = "llama"
+    return {"general.architecture": a, "general.name": "Llama-3.2-1B-Instruct (random)",
+            f"{a}.block_count": cfg.num_blocks, f"{a}.context_length": 8192,
+            f"{a}.embedding_length": cfg.dim, f"{a}.feed_forward_length": cfg.hidden_dim,
+            f"{a}.attention.head_count": cfg.n_heads,
+            f"{a}.attention.head_count_kv": cfg.n_kv_heads,
+            f"{a}.attention.key_length": cfg.head_dim,
+            f"{a}.attention.value_length": cfg.head_dim,
+            f"{a}.attention.layer_norm_rms_epsilon": cfg.norm_eps,
+            f"{a}.rope.freq_base": cfg.rope_theta, f"{a}.rope.dimension_count": cfg.rope_dim,
+            f"{a}.vocab_size": cfg.vocab_size,
+            "tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "llama-bpe",
+            "tokenizer.ggml.tokens": tokens,
+            "tokenizer.ggml.token_type": [1] * n_normal + [3] * (cfg.vocab_size - n_normal),
+            "tokenizer.ggml.bos_token_id": 128000, "tokenizer.ggml.eos_token_id": 128009}
+
+
+def _write_llama_gguf(torch, llm, path: Path, cfg) -> None:
+    """Random weights (a torch.Generator on the card, seed 0) at ``cfg``'s
+    widths, written as F16 with the port's GGUF writer; no output.weight,
+    so the loader ties the LM head to the embeddings."""
+    from clearcam_tpu_torch.io import gguf
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = llm.init_params(cfg, seed=0, dtype=torch.float16, device="cuda", generator=gen)
+    del params["output.weight"]
+    tensors = {k: v.cpu().numpy() for k, v in params.items()}
+    del params
+    gguf.save(path, _llama_gguf_kv(cfg), tensors)
+
+
+def _teacher_forced(torch, llm, model, prompt: list, feed: list):
+    """The decode step's logits rows of ``model`` (a fresh Transformer):
+    the prompt prefilled in CHUNKs through its step functions, then one
+    decode step per token of ``feed``, whatever it samples."""
+    rows, plain = [], llm.logits_at
+
+    def recording(p_, cfg_, hidden, index):
+        lg = plain(p_, cfg_, hidden, index)
+        rows.append(lg.float()[0])
+        return lg
+    llm.logits_at = recording
+    try:
+        samp = llm.pack_samp(0.0).to(model.device)
+        pos = 0
+        while pos < len(prompt):
+            n = min(model.chunk, len(prompt) - pos)
+            chunk = prompt[pos:pos + n] + [0] * (model.chunk - n)
+            _, model.state = model.prefill_fn(model.params, model.state,
+                                              torch.tensor([chunk], device=model.device), pos, n,
+                                              samp, model._gen)
+            pos += n
+        for t in feed:
+            _, model.state = model.decode_fn(model.params, model.state,
+                                             torch.tensor([[t]], device=model.device), pos, samp,
+                                             model._gen)
+            pos += 1
+    finally:
+        llm.logits_at = plain
+    return torch.stack(rows)
+
+
+def _gguf_generate(torch, llm, path: Path) -> dict:
+    """``Transformer.generate`` with ``use_pallas_decode=True`` on the GGUF's
+    weights (bf16, as loaded and served) with a bf16 and an int8 cache: 24
+    greedy tokens through the single-stream kernels (decode_attention,
+    decode_attention_q8), counted. Then, on the same file's weights in
+    f32 (so that no product rounds its input to bf16 and a sum's order
+    cannot flip a rounding), three routes teacher-forced on those tokens:
+    the kernels; the kernels' plain versions in their place, every decode
+    step's logits within GGUF_KERNEL_REL of max|logit| of the kernels';
+    and the plain attention, within LLM_BF16_REL: it rounds q and the
+    probabilities to bf16, and an int8 cache's values, where the kernels
+    keep f32 (at a 128,256-token vocabulary random weights leave top-2
+    gaps below that rounding, so greedy tokens are no reference)."""
+    from clearcam_tpu_torch.ops import decode_attention as dec
+    cfg, params, _ = llm.load_gguf(path, max_context=8192, device="cuda")
+    want = llama32_1b_cfg(llm, GGUF_BLOCKS)
+    keys = ("num_blocks", "dim", "hidden_dim", "n_heads", "n_kv_heads", "head_dim",
+            "rope_dim", "vocab_size", "max_context", "rope_theta", "qk_norm", "num_experts")
+    if any(getattr(cfg, k) != getattr(want, k) for k in keys) \
+            or not torch.equal(params["output.weight"], params["token_embd.weight"]):
+        raise AssertionError(f"the GGUF loads as {cfg}, not {want} with tied embeddings")
+    prompt = [128000] + np.random.default_rng(20).integers(256, 128000, 60).tolist()
+    p32 = llm.load_gguf(path, max_context=8192, dtype=torch.float32, device="cuda")[1]
+    out = {}
+    for kvq, name in ((False, "decode_attention"), (True, "decode_attention_q8")):
+        cache, form = ("int8" if kvq else "bf16"), getattr(dec, name)
+
+        def model(pallas, weights=p32):
+            return llm.Transformer(weights, cfg, state_dtype=torch.bfloat16, kv_quant=kvq,
+                                   use_pallas_decode=pallas)
+        m = model(True, params)
+        form.launches = 0
+        t = time.time()
+        toks = list(m.generate(prompt, temperature=0.0, max_new=24))
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        n = form.launches
+        del m
+        rows = {"kernel": _teacher_forced(torch, llm, model(True), prompt, toks[:-1]),
+                "plain attention": _teacher_forced(torch, llm, model(False), prompt,
+                                                   toks[:-1])}
+        setattr(dec, name, getattr(dec, name + "_reference"))
+        try:
+            rows["kernel's plain version"] = _teacher_forced(torch, llm, model(True), prompt,
+                                                             toks[:-1])
+        finally:
+            setattr(dec, name, form)
+        scale = rows["kernel"].abs().max().item()
+        gaps = {r: (rows[r] - rows["kernel"]).abs().max().item() / scale
+                for r in ("kernel's plain version", "plain attention")}
+        own = gaps["kernel's plain version"]
+        if len(toks) != 24 or not torch.isfinite(rows["kernel"]).all() \
+                or not own <= GGUF_KERNEL_REL \
+                or not gaps["plain attention"] <= LLM_BF16_REL or n < 23 * GGUF_BLOCKS:
+            raise AssertionError(
+                f"Transformer.generate, {cache} cache: tokens {toks}, teacher-forced logits "
+                f"max|d| / max|logit| {gaps}, {name} launched {n} times")
+        log(f"Transformer.generate, {cache} cache, a 61-token prompt + 24 greedy tokens in "
+            f"{dt:.2f} s, {name} launched {n} times; f32 weights teacher-forced over the 23 "
+            f"decode steps, logits max|d| / max|logit| ({scale:.2f}) from the kernels': their "
+            f"plain "
+            f"versions {own:.2e} (bound "
+            f"{GGUF_KERNEL_REL}), the plain attention {gaps['plain attention']:.2e} (bound "
+            f"{LLM_BF16_REL})")
+        out[name] = n
+        out[f"{cache} cache logits max|d|/max|logit|"] = gaps
+    del params, p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase20(torch):
+    log(f"== phase 20: a Llama-3.2-1B-width GGUF (head dim 64, 32 heads on 8; {GGUF_BLOCKS} "
+        "of 16 blocks) through serve_llm --gguf --int8 --pallas and --int8 --kv-quant "
+        "--pallas; Transformer.generate on the single-stream decode kernels")
+    from clearcam_tpu_torch.models import llm
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gguf_"))
+    try:
+        path = tmp / "Llama-3.2-1B-Instruct-random-f16.gguf"
+        t = time.time()
+        _write_llama_gguf(torch, llm, path, llama32_1b_cfg(llm, GGUF_BLOCKS))
+        log(f"wrote {path.name} ({path.stat().st_size / 1e9:.2f} GB) in {time.time() - t:.1f} s")
+        # both servers boot at once; the single stream runs while they load
+        servers = [_serve_llm_boot(["--gguf", str(path), "--int8", "--pallas"]),
+                   _serve_llm_boot(["--gguf", str(path), "--int8", "--kv-quant", "--pallas"])]
+        try:
+            out = {"generate": _gguf_generate(torch, llm, path), "served": {}}
+            for server, name in zip(servers, ("decode_attention", "decode_attention_batch_q8")):
+                n, res = _serve_llm(server, lambda base: _drive_text(base, brace_first=False),
+                                    ("quant_matmul", name))
+                out["served"][name] = n[name]
+                out["served"]["quant_matmul"] = out["served"].get("quant_matmul", 0) \
+                    + n["quant_matmul"]
+        finally:
+            for server in servers:
+                if server["proc"].poll() is None:
+                    _serve_llm_stop(server)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"phase20": out}), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
@@ -4183,7 +4516,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     build_s = max_err = times = fps = launches = attn_err = attn_times = clip_fps = None
     kern = llm_errs = llm_tps = int4_launches = served = k10 = vl_errs = vlm = None
-    probe = spec = fam = tools = ft = multi = probes = None
+    probe = spec = fam = tools = ft = multi = probes = gg = None
     phase_s = {}
 
     def run(n, fn, *a):
@@ -4232,6 +4565,8 @@ def main(argv=None) -> int:
         multi = run(18, phase18, torch)
     if 19 in phases:
         probes = run(19, phase19, torch)
+    if 20 in phases:
+        gg = run(20, phase20, torch)
     log(f"== done in {time.time() - t0:.1f} s (phases {phase_s}); build {build_s} s; detect "
         f"fps {fps}; image tower img/s (kernel, plain) {clip_fps}; {INT4_BLOCKS}-block int4 "
         f"engine "
@@ -4254,6 +4589,9 @@ def main(argv=None) -> int:
         print(json.dumps({"rfdetr_and_tools": tools}, default=str))
     if ft is not None:
         print(json.dumps({"finetune_export_parity": ft}))
+    heads = (kern or {}).get("head_shapes", []) + (k10 or {}).get("head_shapes", [])
+    if heads:
+        print(json.dumps({"decode_attention_head_shapes": heads}))
     if phases != set(ALL_PHASES):
         return 0
     # the attention row: f32, the CLIP tower's dtype; times at one CROP_BATCH.
@@ -4264,7 +4602,9 @@ def main(argv=None) -> int:
     # batch form's from phase 9's --kv-quant --pallas server; the probe's
     # f32 tile, launches from phase 13's run of the tool. The stem's launches
     # add phase 17's training and replay and phase 19's stem_kernel_probe, its
-    # error the larger of phase 2's and the probe's
+    # error the larger of phase 2's and the probe's. Phase 20's head-64
+    # GGUF adds its servers' launches (quant, the two batched decode forms)
+    # and Transformer.generate's (the two single-stream forms)
     def row(name, source, replaces, n, err, t):
         ms, plain, lib, bms, by = t
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4281,21 +4621,24 @@ def main(argv=None) -> int:
             (st[0], st[1], None, st[2], st[3])),
         row("vit_attention", ATTN_SOURCE, ATTN_REPLACES, launches["vit_attention"],
             attn_err["float32"], (at[0], at[1], at[2], at[3], at[4])),
-        row("quant_matmul_int8", QM_SOURCE, QM_REPLACES[8], served["quant_matmul"],
+        row("quant_matmul_int8", QM_SOURCE, QM_REPLACES[8],
+            served["quant_matmul"] + gg["served"]["quant_matmul"],
             kern["qm_err"][8], kern["qm_ms"][(8,) + QM_JSON_SHAPE]),
         row("quant_matmul_int4", QM_SOURCE, QM_REPLACES[4], int4_launches["int4"],
             kern["qm_err"][4], kern["qm_ms"][(4,) + QM_JSON_SHAPE]),
         row("decode_attention_batch", DEC_SOURCE, DEC_REPLACES,
-            served["decode_attention"], kern["dec_err"],
+            served["decode_attention"] + gg["served"]["decode_attention"], kern["dec_err"],
             kern["dec_ms"][("spread", "bfloat16")]),
         row("decode_attention", DEC_SOURCE, DEC1_REPLACES,
-            vl["bf16 KV"]["decode_attention"], k10["err"]["decode_attention"],
+            vl["bf16 KV"]["decode_attention"] + gg["generate"]["decode_attention"],
+            k10["err"]["decode_attention"],
             k10["ms"]["decode_attention"]),
         row("decode_attention_q8", DEC_SOURCE, DEC1Q8_REPLACES,
-            vl["int8 KV"]["decode_attention_q8"], k10["err"]["decode_attention_q8"],
+            vl["int8 KV"]["decode_attention_q8"] + gg["generate"]["decode_attention_q8"],
+            k10["err"]["decode_attention_q8"],
             k10["ms"]["decode_attention_q8"]),
         row("decode_attention_batch_q8", DEC_SOURCE, DECBQ8_REPLACES,
-            served["decode_attention_batch_q8"],
+            served["decode_attention_batch_q8"] + gg["served"]["decode_attention_batch_q8"],
             k10["err"]["decode_attention_batch_q8"], k10["ms"]["decode_attention_batch_q8"]),
         row("vpu_probe", PROBE_SOURCE, PROBE_REPLACES, probe["tool"]["launches"],
             probe["err"]["float32"], probe["ms"]["float32"]),

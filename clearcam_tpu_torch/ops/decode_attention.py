@@ -24,7 +24,8 @@ heads per KV head and scale 1/sqrt(D). On the int8 caches K's scale
 multiplies the score and V's scale the probability before the PV product,
 as the TPU kernels apply them. A row with no live column (pads > pos) gives
 zeros; the TPU kernels give 0/0 there. The kernels take f32 or bf16 q,
-D = 128, any S, and read only each row's own window.
+a head dim in ``HEAD_DIMS``, any rep = H / KvH, any S, and read only each
+row's own window.
 
 On the card every call is two launches (flash-decoding): one block per
 (split, KV head, row) writes the softmax partials of its chunk of the
@@ -38,8 +39,10 @@ import torch
 
 from . import _build
 
-HEAD_DIM = 128
-MAX_REP = 8
+# the head dims the kernels are built for (HeadDims in csrc/decode_attention.cu):
+# 64 (Llama-3.2-1B, Qwen2.5-0.5B), 128 (Qwen3, Llama-3.x 3B/8B), 256
+# (Qwen3-Next's attention blocks); any number of query heads per KV head
+HEAD_DIMS = (64, 128, 256)
 TILE = 32               # positions per shared-memory ring slot (csrc/decode_attention.cu)
 # the plan's grid size: the live blocks of a long window fill 132 SMs
 # (1,024 and 4,096 each read slower at a served shape on the H100)
@@ -127,13 +130,13 @@ def _check(name, q, k, v, scales=()):
         raise ValueError(f"{name}: q {tuple(q.shape)} must be [B,H,D] and the caches "
                          f"{tuple(k.shape)}, {tuple(v.shape)} one [B,KvH,S,D]")
     b, h, d = q.shape
-    if d != HEAD_DIM or k.shape[3] != HEAD_DIM:
-        raise ValueError(f"{name}: head dim {d} / {k.shape[3]}; the kernel takes "
-                         f"{HEAD_DIM}")
+    if d not in HEAD_DIMS or k.shape[3] != d:
+        raise ValueError(f"{name}: head dim {d} / {k.shape[3]}; the kernel takes one of "
+                         f"{HEAD_DIMS}")
     kvh = k.shape[1]
-    if k.shape[0] != b or h % kvh or h // kvh > MAX_REP:
+    if k.shape[0] != b or kvh == 0 or h % kvh:
         raise ValueError(f"{name}: q {tuple(q.shape)} against caches {tuple(k.shape)}: "
-                         f"need equal B, H % KvH == 0 and H / KvH <= {MAX_REP}")
+                         f"need equal B and H % KvH == 0")
     if b > MAX_GRID_YZ or kvh > MAX_GRID_YZ:
         raise ValueError(f"{name}: B = {b}, KvH = {kvh}; the grid takes at most "
                          f"{MAX_GRID_YZ} of each")
@@ -181,7 +184,7 @@ def _launch(name, q, k, v, pos, pads, k_s=None, v_s=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_s.data_ptr() if scales else None, v_s.data_ptr() if scales else None,
             out.data_ptr(), pos_v.data_ptr(), pad_v.data_ptr(),
-            part.data_ptr(), part.data_ptr() + b * h * splits * d * 4, b, h, kvh, s,
+            part.data_ptr(), part.data_ptr() + b * h * splits * d * 4, b, h, kvh, s, d,
             chunk, splits, float(1.0 / (d ** 0.5)), _DTYPES[q.dtype], _DTYPES[k.dtype],
             stream)
     _build.check(err, f"{name} kernel launch")

@@ -451,14 +451,21 @@ def test_quant_matmul_leading_dims_and_raises(cuda):
 DEC_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
+# (H, KvH, D): rep 1-8 at 128, Llama-3.2-1B (32/8 of 64), Qwen2.5-0.5B (14/2
+# of 64: rep 7), Qwen3-Next's attention (16/2 of 256), rep 10 (two head
+# groups of 8 and 2), Qwen3-235B-A22B (64/4 of 128: rep 16)
+DEC_SHAPES = [(8, 4, 128), (16, 8, 128), (16, 2, 128), (8, 8, 128), (32, 8, 64), (14, 2, 64),
+              (16, 2, 256), (40, 4, 128), (64, 4, 128)]
+
+
 @pytest.mark.parametrize("qdt,cdt", [(torch.float32, torch.float32),
                                      (torch.float32, torch.bfloat16),
                                      (torch.bfloat16, torch.bfloat16)])
-@pytest.mark.parametrize("h,kvh", [(8, 4), (16, 8), (16, 2), (8, 8)])
-def test_decode_attention_kernel_matches_plain(cuda, qdt, cdt, h, kvh):
+@pytest.mark.parametrize("h,kvh,d", DEC_SHAPES)
+def test_decode_attention_kernel_matches_plain(cuda, qdt, cdt, h, kvh, d):
     from clearcam_tpu_torch.ops import decode_attention as tdec
-    rng = np.random.default_rng(h * kvh)
-    b, s, d = 4, 517, 128
+    rng = np.random.default_rng(h * kvh + d)
+    b, s = 4, 517
     q = torch.from_numpy(rng.standard_normal((b, h, d), np.float32)).to(cuda, qdt)
     k, v = (torch.from_numpy(rng.standard_normal((b, kvh, s, d), np.float32)).to(cuda, cdt)
             for _ in range(2))
@@ -478,18 +485,21 @@ def test_decode_attention_kernel_matches_plain(cuda, qdt, cdt, h, kvh):
 
 
 def test_decode_attention_kernel_raises_on_bad_input(cuda):
+    """Head dims outside HEAD_DIMS (48, 100) and H % KvH != 0 are refused
+    before a launch; 64 and rep 10 are kernel shapes now (above)."""
     from clearcam_tpu_torch.ops import decode_attention as tdec
     q = torch.randn(2, 8, 128, device=cuda)
     k = torch.randn(2, 4, 64, 128, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        tdec.decode_attention_batch(q[..., :64].contiguous(), k[..., :64].contiguous(),
-                                    k[..., :64].contiguous(), 3)
+    for d in (48, 100):
+        with pytest.raises(ValueError, match=r"head dim .*\(64, 128, 256\)"):
+            tdec.decode_attention_batch(q[..., :d].contiguous(), k[..., :d].contiguous(),
+                                        k[..., :d].contiguous(), 3)
     with pytest.raises(TypeError):
         tdec.decode_attention_batch(q, k, k.bfloat16(), 3)
     with pytest.raises(ValueError, match="contiguous"):
         tdec.decode_attention_batch(q, k.transpose(2, 3).contiguous().transpose(2, 3), k, 3)
-    with pytest.raises(ValueError, match="H / KvH"):
-        tdec.decode_attention_batch(torch.randn(2, 40, 128, device=cuda), k[:, :4], k[:, :4], 3)
+    with pytest.raises(ValueError, match="H % KvH"):
+        tdec.decode_attention_batch(torch.randn(2, 42, 128, device=cuda), k[:, :4], k[:, :4], 3)
 
 
 def _small_llm_cfg():
@@ -576,8 +586,8 @@ def test_bf16_model_gpu_matches_cpu(cuda, pallas):
         assert (got - ref).abs().max().item() < LLM_BF16_TOL
 
 
-def _q8_cache(rng, b, kvh, s, cuda):
-    kq, vq = (torch.from_numpy(rng.integers(-127, 128, (b, kvh, s, 128)).astype(np.int8))
+def _q8_cache(rng, b, kvh, s, cuda, d=128):
+    kq, vq = (torch.from_numpy(rng.integers(-127, 128, (b, kvh, s, d)).astype(np.int8))
               .to(cuda) for _ in range(2))
     ks, vs = (torch.from_numpy(rng.uniform(0.002, 0.02, (b, kvh, s)).astype(np.float32))
               .to(cuda) for _ in range(2))
@@ -585,16 +595,16 @@ def _q8_cache(rng, b, kvh, s, cuda):
 
 
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,kvh", [(8, 4), (16, 8), (16, 2), (8, 8)])
-def test_decode_attention_q8_kernel_matches_plain(cuda, qdt, h, kvh):
+@pytest.mark.parametrize("h,kvh,d", DEC_SHAPES)
+def test_decode_attention_q8_kernel_matches_plain(cuda, qdt, h, kvh, d):
     """The int8-cache kernel against its plain version on the same int8
     bytes and scales: f32 q bounded as the f32 caches (summation order
     only); a row with no live column gives zeros on both."""
     from clearcam_tpu_torch.ops import decode_attention as tdec
-    rng = np.random.default_rng(h * kvh + 1)
+    rng = np.random.default_rng(h * kvh + d + 1)
     b, s = 4, 517
-    q = torch.from_numpy(rng.standard_normal((b, h, 128), np.float32)).to(cuda, qdt)
-    kq, ks, vq, vs = _q8_cache(rng, b, kvh, s, cuda)
+    q = torch.from_numpy(rng.standard_normal((b, h, d), np.float32)).to(cuda, qdt)
+    kq, ks, vq, vs = _q8_cache(rng, b, kvh, s, cuda, d)
     for pos, pads in ((torch.tensor([0, 63, 300, 516], dtype=torch.int32), None),
                       (torch.tensor([64, 300, 10, 516], dtype=torch.int32),
                        torch.tensor([64, 0, 299, 37], dtype=torch.int32)),
@@ -614,20 +624,21 @@ def test_decode_attention_q8_kernel_matches_plain(cuda, qdt, h, kvh):
 
 @pytest.mark.parametrize("q8,cdt", [(False, torch.float32), (False, torch.bfloat16),
                                     (True, torch.int8)])
-def test_single_stream_kernels_match_plain(cuda, q8, cdt):
+@pytest.mark.parametrize("h,kvh,d", [(16, 8, 128), (32, 8, 64), (16, 2, 256)])
+def test_single_stream_kernels_match_plain(cuda, q8, cdt, h, kvh, d):
     """decode_attention and decode_attention_q8 (the batch kernels at
-    B = 1, scalar pos) against their plain versions; each counts its own
-    launches only."""
+    B = 1, scalar pos) against their plain versions at Qwen3's, Llama-3.2-1B's
+    and Qwen3-Next's head shapes; each counts its own launches only."""
     from clearcam_tpu_torch.ops import decode_attention as tdec
     rng = np.random.default_rng(3)
-    h, kvh, s = 16, 8, 2048
-    q = torch.from_numpy(rng.standard_normal((h, 128), np.float32)).to(cuda)
+    s = 2048
+    q = torch.from_numpy(rng.standard_normal((h, d), np.float32)).to(cuda)
     if q8:
-        kq, ks, vq, vs = (t[0] for t in _q8_cache(rng, 1, kvh, s, cuda))
+        kq, ks, vq, vs = (t[0] for t in _q8_cache(rng, 1, kvh, s, cuda, d))
         fn, ref_fn, args = tdec.decode_attention_q8, tdec.decode_attention_q8_reference, \
             (kq, ks, vq, vs)
     else:
-        k, v = (torch.from_numpy(rng.standard_normal((kvh, s, 128), np.float32))
+        k, v = (torch.from_numpy(rng.standard_normal((kvh, s, d), np.float32))
                 .to(cuda, cdt) for _ in range(2))
         fn, ref_fn, args = tdec.decode_attention, tdec.decode_attention_reference, (k, v)
     for pos in (0, 63, 256, 1000, 2047):
@@ -641,7 +652,7 @@ def test_single_stream_kernels_match_plain(cuda, q8, cdt):
                                       tdec.decode_attention_batch,
                                       tdec.decode_attention_batch_q8)]
         assert after == [c + (i == int(q8)) for i, c in enumerate(counts)]
-        assert got.shape == (h, 128)
+        assert got.shape == (h, d)
         assert (got - ref).abs().max().item() < DEC_TOL[torch.float32]
 
 

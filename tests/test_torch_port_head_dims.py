@@ -1,0 +1,296 @@
+"""The port's decode attention at every head dim and query-group size the
+JAX package's LLM stacks take, on the CPU: the four forms of
+clearcam_tpu_torch.ops.decode_attention (their plain versions here)
+against the JAX package's Pallas kernels in interpret mode at head dims
+64, 128 and 256 and rep = H / KvH of 4, 7, 8 and 16; then a Llama-style
+GGUF at head dim 64 served through ``tools.serve_llm``'s engine with
+``--pallas`` and generated by ``Transformer`` on the decode-kernel route,
+token for token against the JAX package. The CUDA kernels against these
+plain versions are in test_torch_port_cuda.py.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from clearcam_tpu.models import llm as jllm
+from clearcam_tpu.ops import decode_attention as jdec
+from clearcam_tpu.serving import ServingEngine as JaxEngine
+from clearcam_tpu_torch.io import gguf
+from clearcam_tpu_torch.models import llm as tllm
+from clearcam_tpu_torch.ops import decode_attention as tdec
+from clearcam_tpu_torch.testing import torch_threads
+from clearcam_tpu_torch.utils.tokenizer import byte_encoder
+
+from test_llm import tiny_cfg
+
+# f32: summation order only; bf16: both widen the same bf16 values to f32,
+# and the output is rounded to q's dtype
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+Q8_TOL = 1e-5
+B, S = 3, 256            # S: one chunk of the JAX kernels
+# (H, KvH, D): Llama-3.2-1B's rep 4 at head dim 64, Qwen2.5-0.5B's rep 7,
+# Qwen3-Next's attention blocks (rep 8 at 256), Qwen3-235B-A22B's rep 16
+SHAPES = [(8, 2, 64), (14, 2, 64), (16, 2, 256), (16, 1, 128)]
+# per-row positions; left pads with a one-column window (row 2)
+CASES = {"positions": ([0, 130, 255], [0, 0, 0]), "pads": ([255, 100, 200], [0, 37, 200])}
+SINGLE_POS = [17, 255]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    with torch_threads(2):
+        yield
+
+
+def _shape_id(shape):
+    return "h{}_kvh{}_d{}".format(*shape)
+
+
+def _float_inputs(shape, dtype, seed):
+    h, kvh, d = shape
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, h, d), np.float32)
+    k, v = (rng.standard_normal((B, kvh, S, d), np.float32) for _ in range(2))
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = torch.float32 if dtype == "float32" else torch.bfloat16
+    return ([jnp.asarray(a, jd) for a in (q, k, v)],
+            [torch.from_numpy(a).to(td) for a in (q, k, v)])
+
+
+def _q8_inputs(shape, seed):
+    """q f32, int8 caches and f32 per-token scales, as numpy."""
+    h, kvh, d = shape
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, h, d), np.float32)
+    kq, vq = (rng.integers(-127, 128, (B, kvh, S, d)).astype(np.int8) for _ in range(2))
+    ks, vs = (rng.uniform(0.002, 0.02, (B, kvh, S)).astype(np.float32) for _ in range(2))
+    return q, kq, ks, vq, vs
+
+
+@functools.cache
+def _jax(name):
+    """The JAX package's kernel ``name`` in interpret mode, jitted once per
+    shape and dtype, positions traced: the cases of one shape share its
+    compile."""
+    return jax.jit(functools.partial(getattr(jdec, name), interpret=True))
+
+
+def _rows(pos, pads):
+    return (jnp.asarray(pos, jnp.int32), jnp.asarray(pads, jnp.int32),
+            torch.tensor(pos, dtype=torch.int32), torch.tensor(pads, dtype=torch.int32))
+
+
+def _close(got, ref, tol):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=_shape_id)
+def test_batch_matches_jax_kernel(shape, dtype, case):
+    (jq, jk, jv), (tq, tk, tv) = _float_inputs(shape, dtype, seed=shape[0] + shape[2])
+    jpos, jpads, tpos, tpads = _rows(*CASES[case])
+    ref = _jax("decode_attention_batch")(jq, jk, jv, jpos, jpads)
+    before = tdec.decode_attention_batch.launches
+    got = tdec.decode_attention_batch(tq, tk, tv, tpos, tpads)
+    assert tdec.decode_attention_batch.launches == before     # CPU: plain version
+    assert got.shape == (B, shape[0], shape[2]) and got.dtype == tq.dtype
+    _close(got, ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("shape", SHAPES, ids=_shape_id)
+def test_batch_q8_matches_jax_kernel(shape, case):
+    arrays = _q8_inputs(shape, seed=shape[1] + shape[2])
+    jpos, jpads, tpos, tpads = _rows(*CASES[case])
+    ref = _jax("decode_attention_batch_q8")(*(jnp.asarray(a) for a in arrays), jpos, jpads)
+    before = tdec.decode_attention_batch_q8.launches
+    got = tdec.decode_attention_batch_q8(*(torch.from_numpy(a) for a in arrays), tpos, tpads)
+    assert tdec.decode_attention_batch_q8.launches == before
+    assert got.shape == (B, shape[0], shape[2]) and got.dtype == torch.float32
+    _close(got, ref, Q8_TOL)
+
+
+@pytest.mark.parametrize("pos", SINGLE_POS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=_shape_id)
+def test_single_stream_matches_jax_kernel(shape, dtype, pos):
+    (jq, jk, jv), (tq, tk, tv) = _float_inputs(shape, dtype, seed=pos + shape[2])
+    ref = _jax("decode_attention")(jq[0], jk[0], jv[0], jnp.int32(pos))
+    before = tdec.decode_attention.launches
+    got = tdec.decode_attention(tq[0], tk[0], tv[0], pos)
+    assert tdec.decode_attention.launches == before
+    assert got.shape == (shape[0], shape[2]) and got.dtype == tq.dtype
+    _close(got, ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("pos", SINGLE_POS)
+@pytest.mark.parametrize("shape", SHAPES, ids=_shape_id)
+def test_single_stream_q8_matches_jax_kernel(shape, pos):
+    arrays = [a[0] for a in _q8_inputs(shape, seed=pos + shape[0])]
+    ref = _jax("decode_attention_q8")(*(jnp.asarray(a) for a in arrays), jnp.int32(pos))
+    before = tdec.decode_attention_q8.launches
+    got = tdec.decode_attention_q8(*(torch.from_numpy(a) for a in arrays), pos)
+    assert tdec.decode_attention_q8.launches == before
+    assert got.shape == (shape[0], shape[2]) and got.dtype == torch.float32
+    _close(got, ref, Q8_TOL)
+
+
+@pytest.mark.parametrize("d", [48, 100, 32, 512])
+def test_head_dims_outside_the_set_are_named(d):
+    """The check a CUDA call runs before its launch: an unsupported head
+    dim raises ValueError naming the set (on meta tensors here)."""
+    assert d not in tdec.HEAD_DIMS
+    q = torch.empty(2, 8, d, device="meta")
+    k = torch.empty(2, 2, 64, d, device="meta")
+    with pytest.raises(ValueError, match=r"head dim .*\(64, 128, 256\)"):
+        tdec._check("decode_attention_batch", q, k, k)
+
+
+@pytest.mark.parametrize("h,kvh", [(16, 1), (14, 2), (40, 4), (64, 4)])
+def test_any_query_group_passes_the_check(h, kvh):
+    """Any rep = H / KvH passes (rep 16, 7, 10, 16); H % KvH != 0 is refused."""
+    q = torch.empty(2, h, 64, device="meta")
+    k = torch.empty(2, kvh, 64, 64, device="meta")
+    tdec._check("decode_attention_batch", q, k, k)
+    k3 = torch.empty(2, 3, 64, 64, device="meta")
+    with pytest.raises(ValueError, match="H % KvH"):
+        tdec._check("decode_attention_batch", q, k3, k3)
+
+
+# ---------------------------------------------------------------------------
+# a head-64 llama GGUF through the served path
+
+# Llama-3.2-1B's shape cut to size: head dim 64, 8 heads on 2 KV heads
+# (rep 4), hidden = heads x head dim, tied embeddings (no output.weight)
+LLAMA = dict(num_blocks=2, dim=512, hidden_dim=256, n_heads=8, n_kv_heads=2, head_dim=64,
+             rope_dim=64, v_head_dim=64, vocab_size=384, max_context=256, norm_eps=1e-5,
+             rope_theta=500000.0)
+SPECIALS = ["<|begin_of_text|>", "<|end_of_text|>", "<|start_header_id|>",
+            "<|end_header_id|>", "<|eot_id|>", "<|reserved_0|>", "<|reserved_1|>",
+            "<|reserved_2|>"]
+
+
+def llama_gguf(path, cfg, params):
+    """Write ``params`` (GGUF-named numpy arrays, without output.weight) as
+    an arch ``llama`` GGUF with the metadata a llama.cpp conversion carries:
+    the head dim from embedding_length / head_count, a byte-level vocab
+    (256 byte tokens, filler merges, the Llama-3 specials) with its
+    token types."""
+    be = byte_encoder()
+    n_fill = cfg.vocab_size - 256 - len(SPECIALS)
+    tokens = [be[b] for b in range(256)] + [be[97] + be[98] + str(i) for i in range(n_fill)]
+    tokens += SPECIALS
+    bos = 256 + n_fill
+    kv = {"general.architecture": "llama", "llama.block_count": cfg.num_blocks,
+          "llama.context_length": cfg.max_context, "llama.embedding_length": cfg.dim,
+          "llama.feed_forward_length": cfg.hidden_dim,
+          "llama.attention.head_count": cfg.n_heads,
+          "llama.attention.head_count_kv": cfg.n_kv_heads,
+          "llama.attention.layer_norm_rms_epsilon": cfg.norm_eps,
+          "llama.rope.freq_base": cfg.rope_theta,
+          "tokenizer.ggml.pre": "llama-bpe", "tokenizer.ggml.tokens": tokens,
+          "tokenizer.ggml.token_type": [1] * (256 + n_fill) + [3] * len(SPECIALS),
+          "tokenizer.ggml.bos_token_id": bos, "tokenizer.ggml.eos_token_id": bos + 4}
+    assert "output.weight" not in params
+    gguf.save(path, kv, params)
+    return kv
+
+
+@pytest.fixture(scope="module")
+def head64_gguf(tmp_path_factory):
+    cfg = tiny_cfg(**LLAMA)
+    params = {k: np.asarray(v) for k, v in jllm.init_params(cfg, seed=11).items()
+              if k != "output.weight"}
+    path = tmp_path_factory.mktemp("gguf") / "llama-head64.gguf"
+    llama_gguf(path, cfg, params)
+    return path
+
+
+PROMPTS = [[376, 5, 9, 100, 7], list(range(30, 75)), [376, 200, 3]]
+
+
+def _staggered(engine):
+    """Three requests joining a 2-slot engine at different times (one
+    prompt of two chunks), so rows decode at different positions."""
+    r1 = engine.submit(PROMPTS[0], max_new=10)
+    engine.step()
+    engine.step()
+    r2 = engine.submit(PROMPTS[1], max_new=8)
+    engine.step()
+    r3 = engine.submit(PROMPTS[2], max_new=6)
+    engine.run_until_idle()
+    return [r.wait(1) for r in (r1, r2, r3)]
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_head64_gguf_served_with_pallas_matches_jax(head64_gguf, kv_quant, monkeypatch):
+    """``serve_llm --gguf FILE --pallas [--kv-quant]``'s engine on the CPU
+    (bf16 weights as loaded, a bf16 or int8 cache, the decode step through
+    the batched kernels' plain versions) gives the JAX engine's greedy
+    tokens on the same file: ``use_pallas_decode=True, interpret=True``
+    with the bf16 cache. With the int8 cache the JAX engine's Pallas route
+    attends over the raw int8 values without their scales (its
+    make_serving_fns), so the port is held to the JAX engine's plain int8
+    route there, as in test_torch_port_serving.py."""
+    from clearcam_tpu_torch.tools import serve_llm
+    calls = []
+    name = "decode_attention_batch_q8" if kv_quant else "decode_attention_batch"
+    plain = getattr(tdec, f"{name}_reference")
+
+    def counted(*a, **kw):
+        calls.append(tuple(a[0].shape))
+        return plain(*a, **kw)
+    monkeypatch.setattr(tdec, f"{name}_reference", counted)
+    argv = ["--gguf", str(head64_gguf), "--device", "cpu", "--ctx", "256", "--slots", "2",
+            "--json-depth", "0", "--pallas"] + (["--kv-quant"] if kv_quant else [])
+    served = serve_llm.build_engine(serve_llm.parse_args(argv))
+    cfg = served.engine.cfg
+    assert (cfg.head_dim, cfg.n_heads // cfg.n_kv_heads) == (64, 4)
+    params = served.engine.params                       # the tie: output = embeddings
+    assert torch.equal(params["output.weight"], params["token_embd.weight"])
+    got = _staggered(served.engine)
+    assert calls and {c[1:] for c in calls} == {(8, 64)}
+
+    model, _ = jllm.Transformer.from_gguf(head64_gguf, max_context=256)
+    ref = _staggered(JaxEngine(model.params, model.cfg, n_slots=2, state_dtype=jnp.bfloat16,
+                               kv_quant=kv_quant, use_pallas_decode=not kv_quant,
+                               interpret=True))
+    assert got == ref
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_head64_gguf_single_stream_kernel_route_matches_jax(head64_gguf, kv_quant,
+                                                           monkeypatch):
+    """``Transformer.generate`` with ``use_pallas_decode=True`` (the
+    single-stream forms, decode_attention / decode_attention_q8) on the
+    file's weights in f32 gives the JAX Transformer's greedy tokens on its
+    Pallas single-stream kernels in interpret mode, with a bf16 or an int8
+    cache, across a prefix-cache reuse."""
+    cfg, tp, _ = tllm.load_gguf(head64_gguf, max_context=256, dtype=torch.float32)
+    kv, sd = gguf.load(head64_gguf)
+    jcfg = jllm.config_from_gguf(kv, sd, max_context=256)
+    jp = jllm.convert_state_dict(sd, kv, jnp.float32)
+    sdt = (jnp.bfloat16, torch.bfloat16)
+    jt = jllm.Transformer(jp, jcfg, state_dtype=sdt[0], kv_quant=kv_quant)
+    jt.prefill_fn, jt.decode_fn = jllm.make_step_fns(jcfg, use_pallas_decode=True,
+                                                     interpret=True, kv_quant=kv_quant)
+    tt = tllm.Transformer(tp, cfg, state_dtype=sdt[1], kv_quant=kv_quant,
+                          use_pallas_decode=True)
+    calls = []
+    name = "decode_attention_q8" if kv_quant else "decode_attention"
+    plain = getattr(tdec, f"{name}_reference")
+
+    def counted(*a, **kw):
+        calls.append(tuple(a[0].shape))
+        return plain(*a, **kw)
+    monkeypatch.setattr(tdec, f"{name}_reference", counted)
+    for prompt in (PROMPTS[0], PROMPTS[0] + [11, 12], PROMPTS[1]):
+        want = list(jt.generate(list(prompt), temperature=0.0, max_new=8))
+        assert list(tt.generate(list(prompt), temperature=0.0, max_new=8)) == want
+    assert calls and set(calls) == {(8, 64)}
