@@ -68,13 +68,19 @@ so the script exits non-zero:
      bf16 q (< 2e-2); device times from CUDA-graph replays over operands
      larger than L2 (decode attention: enough distinct caches that the
      live K/V cycled passes 120 MB, at least 2), and per decode-attention
-     form its split plan, launches per call, GB/s of live K/V, share of the
-     bytes bound and ratio to scaled_dot_product_attention; then, checked
-     and timed the same way (f32 and bf16 q, the float caches also in f32),
-     the batched forms at the other LLM stacks' head shapes: Llama-3.2-1B's
-     (32 heads on 8 of 64) at S=8192, bf16 and int8, Qwen2.5-0.5B's (14 on
-     2 of 64: rep 7) at S=8192, Qwen3-Next's attention (16 on 2 of 256)
-     and Qwen3-235B-A22B's (64 on 4 of 128: rep 16) at S=2048
+     form its plan (path, chunk, splits, heads a block), launches per call,
+     GB/s of live K/V, share of the bytes bound and ratio to
+     scaled_dot_product_attention; then, checked and timed the same way
+     (f32 and bf16 q, the float caches also in f32), the batched forms at
+     the other LLM stacks' head shapes: Llama-3.2-1B's (32 heads on 8 of
+     64) at S=8192, bf16 and int8, Qwen2.5-0.5B's (14 on 2 of 64: rep 7) at
+     S=8192, Qwen3-Next's attention (16 on 2 of 256), Qwen3-235B-A22B's (64
+     on 4 of 128: rep 16) and GLM-4.5-Air's (96 on 8 of 128: rep 12) at
+     S=2048, Qwen2.5-7B's (28 on 4 of 128: rep 7) at S=8192, and
+     Qwen2.5-0.5B's on an int8 cache too; then the
+     plan's choices timed at PERF.md's rows (a package with the one-launch
+     design): the CUDA-core and tensor-core paths at rep 2 and 4, and each
+     path's byte target of a chunk
   8  a 2-block Qwen3-1.7B-width model (vocab 151936), f32 weights, int8
      and int4, through prefill_slot, prefill_many and teacher-forced
      decode_all with the decode kernel: card vs CPU logprob rows and
@@ -103,8 +109,9 @@ so the script exits non-zero:
      replays over enough distinct caches that the live K/V cycled passes
      120 MB (27, 52 and 28 caches), printed as in phase 7, and each
      wrapper's host time per eager call (the enqueue time of 200 calls);
-     then the single-stream forms at Llama-3.2-1B's heads (bf16 and int8)
-     and Qwen3-Next's (bf16), S=2048, checked and timed as in phase 7
+     then the single-stream forms at Llama-3.2-1B's and Qwen2.5-0.5B's
+     heads (bf16 and int8) and Qwen3-Next's (bf16), S=2048, checked and
+     timed as in phase 7
  11  a 2-block Qwen3-VL-2B-width model (2 language + 2 vision blocks, the
      deepstack at vision block 1), f32, card vs CPU: vision embeds and the
      deepstack feature (cosine > 1 - 1e-5 per row), then an image prefill
@@ -121,8 +128,8 @@ so the script exits non-zero:
      decode-attention form, quant_matmul and vit_attention must launch; the
      summary by layer (vision tower, image prefill, prompt prefill, decode
      step; CUDA events after a sync) for both caches, with the decode
-     step's kernel launches, kernel time and decode-attention time
-     (torch.profiler), and one summary
+     step's kernel launches, kernel time, decode-attention time and
+     decode-attention launches (torch.profiler), and one summary
      through the engine with CLEARCAM_SPEC_LOOKUP=4, whose notification
      must arrive with no decode kernel launched
  13  the FMA-rate probe kernel (csrc/vpu_probe.cu) vs probe_reference at
@@ -243,21 +250,26 @@ so the script exits non-zero:
      the cuDNN stem pair whole and by conv with the card's bounds, the
      stem kernel against the pair (max|d| <= 0.05, launched), and the host
      costs of chained calls, uploads and lagged readbacks
- 20  a GGUF at meta-llama/Llama-3.2-1B-Instruct's widths (hidden 2048, 32
-     heads on 8 KV heads of 64, FFN 8192, vocab 128256, RoPE theta 5e5,
-     tied embeddings; 4 of its 16 blocks), random F16 weights drawn on the
-     card from seed 0 and written with the port's GGUF writer, with a
-     stand-in byte-level vocabulary and the Llama-3 specials: `python -m
-     clearcam_tpu_torch.tools.serve_llm --gguf FILE --int8 --pallas`, then
-     `--int8 --kv-quant --pallas`, both booted at once and driven as phase
-     9's first server (the JSON reply may start with whitespace), each
-     reporting decode-kernel launches > 0; meanwhile Transformer.generate
-     on the file's bf16 weights with a bf16 and an int8 cache, the decode
-     kernels' route against the plain one (equal greedy tokens) with
-     decode_attention / decode_attention_q8 launched
+ 20  two GGUFs, 4 blocks each, random F16 weights drawn on the card from
+     seed 0 and written with the port's GGUF writer, each with a stand-in
+     byte-level vocabulary of its size and its specials: arch llama at
+     meta-llama/Llama-3.2-1B-Instruct's widths (hidden 2048, 32 heads on 8
+     KV heads of 64, FFN 8192, vocab 128256, RoPE theta 5e5, tied
+     embeddings; 4 of 16 blocks) and arch qwen2 at
+     Qwen/Qwen2.5-0.5B-Instruct's (hidden 896, 14 heads on 2 KV heads of 64:
+     rep 7, FFN 4864, vocab 151936, RoPE theta 1e6, RMS eps 1e-6, q/k/v
+     biases, tied embeddings; 4 of 24 blocks): for each, `python -m
+     clearcam_tpu_torch.tools.serve_llm --gguf FILE --int8 --pallas` and
+     `--int8 --kv-quant --pallas`, the four booted at once and driven as
+     phase 9's first server (the JSON reply may start with whitespace),
+     each reporting decode-kernel launches > 0; meanwhile
+     Transformer.generate on each file's bf16 weights with a bf16 and an
+     int8 cache through decode_attention / decode_attention_q8 (launches
+     counted), then on its f32 weights teacher-forced: the kernels' logits
+     within 1e-3 of max|logit| of their plain versions'
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on a served path (phases 4, 9, 12,
-13 and 20; int4 from phase 8's engine run; the stem's adds phase 17's training
+13 and 20's two models; int4 from phase 8's engine run; the stem's adds phase 17's training
 runs and replay and phase 19's probe), its error against the plain version,
 its time, the plain version's, the bound (the larger of its bytes over
 3.35 TB/s and its operations over the data sheet's peak for their type)
@@ -275,6 +287,7 @@ from __future__ import annotations
 import argparse
 import base64
 import gzip
+import inspect
 import json
 import os
 import pickle
@@ -582,7 +595,7 @@ def phase3(torch):
                 f"{out[b][0]:.1f} frames/s (frames resident); detect_many "
                 f"(numpy in, rows out) {e2e * 1e3:.3f} ms = {out[b][1]:.1f} frames/s")
             if b == 32:
-                n, kms, sms = _kernels(
+                n, kms, sms, _ = _kernels(
                     torch, lambda: yolov9.detect(p_bf16, fb, size="t", res=640,
                                                  compute_dtype=torch.bfloat16), ("stem",))
                 out["profile_b32"] = (n, kms, sms)
@@ -1085,19 +1098,25 @@ def _distinct(pool: list, make, live: int) -> list:
     return pool[:n]
 
 
-DEC_LAUNCHES = 2        # kernel launches per decode-attention call: split, merge
+def _dec_plan(dec, b, kvh, s, d, cache_bytes, rep) -> str:
+    """The plan a decode-attention call runs with, as phases 7 and 10 print
+    it. A package from before the one-launch design (``--package``) plans
+    (chunk, splits) from (B, KvH, S) alone and launches twice a call (the
+    split kernel, then the merge)."""
+    if len(inspect.signature(dec.plan).parameters) == 3:
+        chunk, splits = dec.plan(b, kvh, s)
+        return f"{splits} splits of {chunk} positions, 2 launches a call"
+    pl = dec.plan(b, kvh, s, d, cache_bytes, rep)
+    return (f"{pl.splits} splits of {pl.chunk} positions, "
+            f"{'tensor' if pl.tensor_cores else 'CUDA'} cores, {pl.groups} block(s) of "
+            f"{pl.heads} heads a KV head, 1 launch a call")
 
 
-def _dec_line(dec, kt, pt, lib, bms, live, n, b, kvh, s) -> str:
-    """What phases 7 and 10 print per timed form: the split plan, launches
-    per call, GB/s of live K/V, the share of the bytes bound, the plain
-    version and the one-call yardstick (with its ratio to the kernel). A
-    package from before the split design (``--package``) has no plan: one
-    block walks each row, one launch a call."""
-    plan = getattr(dec, "plan", None)
-    chunk, splits = plan(b, kvh, s) if plan else (s, 1)
-    return (f"{splits} splits of {chunk} positions, {DEC_LAUNCHES if plan else 1} launches "
-            f"a call; kernel "
+def _dec_line(dec, kt, pt, lib, bms, live, n, b, kvh, s, d, cache_bytes, rep) -> str:
+    """What phases 7 and 10 print per timed form: the plan, GB/s of live
+    K/V, the share of the bytes bound, the plain version and the one-call
+    yardstick (with its ratio to the kernel)."""
+    return (_dec_plan(dec, b, kvh, s, d, cache_bytes, rep) + "; kernel "
             f"{kt:.4f} ms = {live / kt / 1e6:.0f} GB/s of live K/V ({bms / kt:.1%} of the "
             f"bytes bound, {bms:.4f} ms), plain {pt:.4f} ms, scaled_dot_product_attention "
             + ("none" if lib is None else f"{lib:.4f} ms = {lib / kt:.2f}x the kernel's time")
@@ -1174,6 +1193,7 @@ def phase7(torch):
         "over 989 TFLOP/s bf16 (f32 x: / 3, its three bf16 terms)")
     _phase7_decode(torch, gen, out)
     out["head_shapes"] = _dec_head_shapes(torch, gen, 7)
+    out["dec_variants"] = _dec_variants(torch, gen)
     return out
 
 
@@ -1227,7 +1247,8 @@ def _phase7_decode(torch, gen, out):
             out["dec_ms"][(case, cname)] = (kt, pt, lib, bms, by)
             log(f"decode attention B=8 H=16 KvH=8 S=8192 {cname} cache, {case}: max|d| "
                 f"{err32:.2e} (bound {DEC_TOL['float32']}); "
-                + _dec_line(dec, kt, pt, lib, bms, live, len(caches), b, kvh, s)
+                + _dec_line(dec, kt, pt, lib, bms, live, len(caches), b, kvh, s, d,
+                            k.element_size(), h // kvh)
                 + "; the plain version reads the whole cache")
         del pool, k, v
         torch.cuda.empty_cache()
@@ -1620,16 +1641,21 @@ def _q8_operands(torch, gen, b, kvh, s, d=128):
 
 
 # the head shapes the JAX package's LLM stacks take beyond Qwen3's (PERF.md
-# §6 rows 4b-7b): (model, form, B, H, KvH, S, D, cache). Phase 7 takes the
-# batched forms, phase 10 the single-stream ones
+# §6 rows 4b-7b, 5f-5g): (model, form, B, H, KvH, S, D, cache). Phase 7
+# takes the batched forms, phase 10 the single-stream ones
 DEC_HEAD_SHAPES = {
     7: [("Llama-3.2-1B", "batch", 8, 32, 8, 8192, 64, "bfloat16"),
         ("Llama-3.2-1B", "batch_q8", 8, 32, 8, 8192, 64, "int8"),
         ("Qwen2.5-0.5B", "batch", 8, 14, 2, 8192, 64, "bfloat16"),
+        ("Qwen2.5-0.5B", "batch_q8", 8, 14, 2, 8192, 64, "int8"),
         ("Qwen3-Next-80B-A3B", "batch", 8, 16, 2, 2048, 256, "bfloat16"),
-        ("Qwen3-235B-A22B", "batch", 8, 64, 4, 2048, 128, "bfloat16")],
+        ("Qwen3-235B-A22B", "batch", 8, 64, 4, 2048, 128, "bfloat16"),
+        ("GLM-4.5-Air", "batch", 8, 96, 8, 2048, 128, "bfloat16"),
+        ("Qwen2.5-7B", "batch", 8, 28, 4, 8192, 128, "bfloat16")],
     10: [("Llama-3.2-1B", "single", 1, 32, 8, 2048, 64, "bfloat16"),
          ("Llama-3.2-1B", "single_q8", 1, 32, 8, 2048, 64, "int8"),
+         ("Qwen2.5-0.5B", "single", 1, 14, 2, 2048, 64, "bfloat16"),
+         ("Qwen2.5-0.5B", "single_q8", 1, 14, 2, 2048, 64, "int8"),
          ("Qwen3-Next-80B-A3B", "single", 1, 16, 2, 2048, 256, "bfloat16")]}
 
 
@@ -1700,12 +1726,104 @@ def _dec_head_shape(torch, gen, model, form, b, h, kvh, s, d, cache) -> dict:
     log(f"{name} at {model}'s heads (B={b} H={h} KvH={kvh} rep {h // kvh} S={s} D={d}, "
         f"{cache} cache): max|d| f32 q {err['float32']:.2e}, bf16 q {err['bfloat16']:.2e}"
         + (f", f32 cache {err['float32 cache']:.2e}" if not q8 else "") + "; "
-        + _dec_line(dec, kt, pt, lib, bms, live, len(caches), b, kvh, s))
+        + _dec_line(dec, kt, pt, lib, bms, live, len(caches), b, kvh, s, d,
+                    c[0].element_size(), h // kvh))
     del pool, caches
     torch.cuda.empty_cache()
     return {"name": name, "model": model, "shape": [b, h, kvh, s, d], "cache": cache,
             "max_abs_err": err["float32"], "ms": kt, "plain_ms": pt, "library_ms": lib,
             "bound_ms": bms, "bound_by": by}
+
+
+# the decode plan's choices, timed at PERF.md §6's shapes (a package with
+# the one-launch design only): (row, form, B, H, KvH, S, D, cache, window)
+DEC_VARIANT_SHAPES = [
+    ("5", "batch", 8, 16, 8, 8192, 128, "bfloat16", "spread"),
+    ("4", "single", 1, 16, 8, 2048, 128, "bfloat16", 1100),
+    ("6", "batch_q8", 8, 16, 8, 2048, 128, "int8", 256),
+    ("7", "single_q8", 1, 16, 8, 2048, 128, "int8", 1100),
+    ("5b", "batch", 8, 32, 8, 8192, 64, "bfloat16", "spread"),
+    ("4b", "single", 1, 32, 8, 2048, 64, "bfloat16", 1100),
+    ("6b", "batch_q8", 8, 32, 8, 8192, 64, "int8", "spread"),
+    ("5c", "batch", 8, 14, 2, 8192, 64, "bfloat16", "spread"),
+    ("5d", "batch", 8, 16, 2, 2048, 256, "bfloat16", "spread"),
+    ("5e", "batch", 8, 64, 4, 2048, 128, "bfloat16", "spread"),
+    ("5f", "batch", 8, 96, 8, 2048, 128, "bfloat16", "spread")]
+# the path at rep 2 and 4 (TC_MIN_REP: above any rep, or 1), and the byte
+# target of a chunk on each path
+DEC_PATHS = {"CUDA cores": 1 << 30, "tensor cores": 1}
+DEC_TARGETS = {"CC_TARGET_BYTES": (16 << 10, 32 << 10, 64 << 10),
+               "TC_TARGET_BYTES": (32 << 10, 64 << 10, 128 << 10, 256 << 10)}
+
+
+def _dec_variants(torch, gen) -> list:
+    """Each DEC_VARIANT_SHAPES form timed (CUDA-graph replays over distinct
+    caches past L2_FLUSH, as rows 4-7 are) on both paths where rep is 2 or
+    4, and at each of its path's DEC_TARGETS byte targets, each variant
+    checked against the plain version first."""
+    from clearcam_tpu_torch.ops import decode_attention as dec
+    if not hasattr(dec, "TC_MIN_REP"):
+        log("decode attention plan variants: not in this package")
+        return []
+    knobs = ("TC_MIN_REP",) + tuple(DEC_TARGETS)
+    base = {n: getattr(dec, n) for n in knobs}
+    out = []
+    for row, form, b, h, kvh, s, d, cache, window in DEC_VARIANT_SHAPES:
+        q8, single = form.endswith("q8"), form.startswith("single")
+        name = "decode_attention" + ("" if single else "_batch") + ("_q8" if q8 else "")
+        fn, ref_fn = getattr(dec, name), getattr(dec, name + "_reference")
+
+        def make():
+            if q8:
+                return _q8_operands(torch, gen, b, kvh, s, d)
+            return tuple(torch.randn((b, kvh, s, d), generator=gen, device="cuda").bfloat16()
+                         for _ in range(2))
+        spread = [min(p, s - 1) for p in DEC_POS]
+        if single:
+            pos, npos = window, window + 1
+        elif window == "spread":
+            pos, npos = torch.tensor(spread, dtype=torch.int32, device="cuda"), sum(spread) + b
+        else:
+            pos, npos = torch.full((b,), window, dtype=torch.int32, device="cuda"), \
+                b * (window + 1)
+        live = npos * kvh * (d * 2 * (1 if q8 else 2) + (8 if q8 else 0))
+        caches = _distinct([], make, live)
+        q = torch.randn((b, h, d), generator=gen, device="cuda")
+
+        def call(f, c):
+            return f(q[0], *(t[0] for t in c), pos) if single else f(q, *c, pos)
+        ref = call(ref_fn, caches[0])
+        rep, cbytes = h // kvh, caches[0][0].element_size()
+        variants = [(path, {"TC_MIN_REP": min_rep}) for path, min_rep in DEC_PATHS.items()
+                    if rep in (2, 4)]
+        knob = "TC_TARGET_BYTES" if dec.plan(b, kvh, s, d, cbytes, rep).tensor_cores \
+            else "CC_TARGET_BYTES"
+        variants += [(f"target {tb >> 10} KB", {knob: tb}) for tb in DEC_TARGETS[knob]]
+        try:
+            for what, setting in variants:
+                for n in knobs:
+                    setattr(dec, n, setting.get(n, base[n]))
+                got = call(fn, caches[0])
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                tol = DEC_Q8_TOL if q8 else DEC_TOL["float32"]
+                if not err < tol:
+                    raise AssertionError(f"{name} row {row} {what}: max|d| {err}")
+                ms = graph_ms([lambda c=c: call(fn, c) for c in caches])
+                pl = dec.plan(b, kvh, s, d, cbytes, rep)
+                out.append({"row": row, "name": name, "variant": what,
+                            "tensor_cores": pl.tensor_cores, "chunk": pl.chunk,
+                            "splits": pl.splits, "ms": ms, "max_abs_err": err})
+                log(f"decode plan variant, row {row} ({name} B={b} H={h} KvH={kvh} rep {rep} "
+                    f"S={s} D={d} {cache}): {what} -> "
+                    f"{'tensor' if pl.tensor_cores else 'CUDA'} cores, chunk {pl.chunk} x "
+                    f"{pl.splits}: {ms:.4f} ms (max|d| {err:.2e})")
+        finally:
+            for n in knobs:
+                setattr(dec, n, base[n])
+        del caches
+        torch.cuda.empty_cache()
+    return out
 
 
 def _dec_head_shapes(torch, gen, phase: int) -> list:
@@ -1849,7 +1967,8 @@ def _phase10_times(torch, gen, out):
         b = 8 if name.startswith("decode_attention_batch") else 1
         live = (liveb if b == 8 else live1) * (d * 4 if name == "decode_attention" else d * 2 + 8)
         log(f"{name} at the summary path's shape (B={b} S={s}): "
-            + _dec_line(dec, kt, pt, lib, bms, live, counts[name], b, kvh, s)
+            + _dec_line(dec, kt, pt, lib, bms, live, counts[name], b, kvh, s, d,
+                        2 if name == "decode_attention" else 1, h // kvh)
             + f"; host {out['host_us'][name]:.1f} us a call")
     log(f"decode_attention_batch (B=8 S={s} bf16): host "
         f"{out['host_us']['decode_attention_batch']:.1f} us a call")
@@ -2052,7 +2171,8 @@ def _summary_layers(torch, qwen, lang, img, prompt, steps: int = 16) -> dict:
     the tower); the prompt's prefill and first token; one greedy decode
     step ((prompt + 1 + steps tokens) - (prompt + 1 token)) / steps; and,
     by the same difference under torch.profiler, the decode step's kernel
-    launches, their device time and the decode-attention kernels' share."""
+    launches, their device time, the decode-attention kernels' share and
+    their launches (one a language block on the one-launch design)."""
     qwen.lang = lang
     x = qwen.image_tensor(img)
 
@@ -2073,23 +2193,31 @@ def _summary_layers(torch, qwen, lang, img, prompt, steps: int = 16) -> dict:
             "decode_step_ms": (more - first) / steps,
             "launches_per_decode_step": per_step[0],
             "kernel_ms_per_decode_step": per_step[1],
-            "decode_attention_ms_per_decode_step": per_step[2]}
+            "decode_attention_ms_per_decode_step": per_step[2],
+            "decode_attention_launches_per_decode_step": per_step[3]}
 
 
-def _kernels(torch, fn, match=("decode_split", "decode_merge")) -> tuple:
+# the decode-attention kernels' names: the one-launch design's two paths,
+# and the split and merge pair of a package from before it (--package)
+DEC_KERNELS = ("decode_attn_cc", "decode_attn_tc", "decode_split", "decode_merge")
+
+
+def _kernels(torch, fn, match=DEC_KERNELS) -> tuple:
     """(kernels launched, their device ms, the device ms of the kernels
     whose name holds one of ``match``, by default the decode-attention
-    ones) in one call of ``fn``, from torch.profiler's CUDA rows."""
+    ones, and how many of those were launched) in one call of ``fn``, from
+    torch.profiler's CUDA rows."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+    hits = [e for e in rows if any(m in e.key for m in match)]
     return (sum(e.count for e in rows),
             sum(e.self_device_time_total for e in rows) / 1e3,
-            sum(e.self_device_time_total for e in rows
-                if any(m in e.key for m in match)) / 1e3)
+            sum(e.self_device_time_total for e in hits) / 1e3,
+            sum(e.count for e in hits))
 
 
 # the summary model's language depth: 6 of Qwen3-VL-2B's 28 blocks (28 until
@@ -3065,7 +3193,7 @@ def _phase16_rfdetr(torch) -> dict:
                    f"{e2e * 1e3:.2f} ms = {b / e2e:.1f} frames/s; one step on resident "
                    f"frames {ms:.3f} ms")
             if b == 8:
-                n, kms, _ = _kernels(torch, step, ())
+                n, kms, _, _ = _kernels(torch, step, ())
                 out[b].update(kernels=n, kernel_ms=kms, busy=kms / ms)
                 msg += (f"; under torch.profiler (CUDA rows): {n} kernels, {kms:.3f} ms of "
                         f"kernel time = {kms / ms:.1%} of the step")
@@ -4283,10 +4411,10 @@ def phase19(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 20: a head-64 Llama GGUF through serve_llm --gguf ... --pallas
+# phase 20: head-64 GGUFs (Llama, Qwen2) through serve_llm --gguf ... --pallas
 
-# of Llama-3.2-1B's 16 blocks (the smoke's time limit); widths are the
-# published ones
+# of Llama-3.2-1B's 16 and Qwen2.5-0.5B's 24 blocks (the smoke's time
+# limit); widths are the published ones
 GGUF_BLOCKS = 4
 # the decode kernels against their plain versions inside the 4-block model
 # with f32 weights, max|d| of every decode step's logits over max|logit|:
@@ -4309,6 +4437,47 @@ def llama32_1b_cfg(llm, blocks: int = 16, ctx: int = 8192):
         num_blocks=blocks, dim=2048, hidden_dim=8192, n_heads=32, n_kv_heads=8,
         norm_eps=1e-5, vocab_size=128256, head_dim=64, rope_theta=500000.0, rope_dim=64,
         v_head_dim=64, max_context=ctx)
+
+
+# Qwen2's special tokens at their ids (the rest up to the vocabulary's
+# 151936 stand-ins)
+QWEN2_SPECIALS = {151643: "<|endoftext|>", 151644: "<|im_start|>", 151645: "<|im_end|>"}
+
+
+def qwen25_05b_cfg(llm, blocks: int = 24, ctx: int = 8192):
+    """Qwen/Qwen2.5-0.5B-Instruct's config.json: hidden 896, 24 layers, 14
+    heads and 2 KV heads of 64 (rep 7), intermediate 4864, vocab 151936,
+    RoPE theta 1e6, RMS eps 1e-6, q/k/v biases, tied embeddings."""
+    return llm.TransformerConfig(
+        num_blocks=blocks, dim=896, hidden_dim=4864, n_heads=14, n_kv_heads=2,
+        norm_eps=1e-6, vocab_size=151936, head_dim=64, rope_theta=1000000.0, rope_dim=64,
+        v_head_dim=64, max_context=ctx, qkv_bias=True)
+
+
+def _qwen2_gguf_kv(cfg) -> dict:
+    """The metadata a llama.cpp conversion of Qwen2.5-0.5B-Instruct carries
+    (context_length 8192 here), with a stand-in vocabulary of the same
+    size: the 256 byte tokens, filler merges up to id 151643, then the
+    Qwen2 specials and stand-ins (token type 3)."""
+    from clearcam_tpu_torch.utils.tokenizer import byte_encoder
+    be = byte_encoder()
+    n_normal = 151643
+    tokens = [be[i] for i in range(256)] + [be[97] + be[98] + str(i)
+                                            for i in range(n_normal - 256)]
+    tokens += [QWEN2_SPECIALS.get(i, f"[PAD{i}]") for i in range(n_normal, cfg.vocab_size)]
+    a = "qwen2"
+    return {"general.architecture": a, "general.name": "Qwen2.5-0.5B-Instruct (random)",
+            f"{a}.block_count": cfg.num_blocks, f"{a}.context_length": 8192,
+            f"{a}.embedding_length": cfg.dim, f"{a}.feed_forward_length": cfg.hidden_dim,
+            f"{a}.attention.head_count": cfg.n_heads,
+            f"{a}.attention.head_count_kv": cfg.n_kv_heads,
+            f"{a}.attention.layer_norm_rms_epsilon": cfg.norm_eps,
+            f"{a}.rope.freq_base": cfg.rope_theta,
+            "tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "qwen2",
+            "tokenizer.ggml.tokens": tokens,
+            "tokenizer.ggml.token_type": [1] * n_normal + [3] * (cfg.vocab_size - n_normal),
+            "tokenizer.ggml.bos_token_id": 151643, "tokenizer.ggml.eos_token_id": 151645,
+            "tokenizer.ggml.add_bos_token": False}
 
 
 def _llama_gguf_kv(cfg) -> dict:
@@ -4340,17 +4509,21 @@ def _llama_gguf_kv(cfg) -> dict:
             "tokenizer.ggml.bos_token_id": 128000, "tokenizer.ggml.eos_token_id": 128009}
 
 
-def _write_llama_gguf(torch, llm, path: Path, cfg) -> None:
+def _write_gguf(torch, llm, path: Path, cfg, kv: dict) -> None:
     """Random weights (a torch.Generator on the card, seed 0) at ``cfg``'s
-    widths, written as F16 with the port's GGUF writer; no output.weight,
-    so the loader ties the LM head to the embeddings."""
+    widths, q/k/v biases too where it has them, written as F16 with the
+    port's GGUF writer under the metadata ``kv``; no output.weight, so the
+    loader ties the LM head to the embeddings."""
     from clearcam_tpu_torch.io import gguf
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = llm.init_params(cfg, seed=0, dtype=torch.float16, device="cuda", generator=gen)
     del params["output.weight"]
+    for k, v in params.items():
+        if k.endswith((".attn_q.bias", ".attn_k.bias", ".attn_v.bias")):
+            v.normal_(0.0, 0.5, generator=gen)
     tensors = {k: v.cpu().numpy() for k, v in params.items()}
     del params
-    gguf.save(path, _llama_gguf_kv(cfg), tensors)
+    gguf.save(path, kv, tensors)
 
 
 def _teacher_forced(torch, llm, model, prompt: list, feed: list):
@@ -4384,7 +4557,7 @@ def _teacher_forced(torch, llm, model, prompt: list, feed: list):
     return torch.stack(rows)
 
 
-def _gguf_generate(torch, llm, path: Path) -> dict:
+def _gguf_generate(torch, llm, path: Path, want, prompt: list) -> dict:
     """``Transformer.generate`` with ``use_pallas_decode=True`` on the GGUF's
     weights (bf16, as loaded and served) with a bf16 and an int8 cache: 24
     greedy tokens through the single-stream kernels (decode_attention,
@@ -4399,13 +4572,12 @@ def _gguf_generate(torch, llm, path: Path) -> dict:
     gaps below that rounding, so greedy tokens are no reference)."""
     from clearcam_tpu_torch.ops import decode_attention as dec
     cfg, params, _ = llm.load_gguf(path, max_context=8192, device="cuda")
-    want = llama32_1b_cfg(llm, GGUF_BLOCKS)
     keys = ("num_blocks", "dim", "hidden_dim", "n_heads", "n_kv_heads", "head_dim",
-            "rope_dim", "vocab_size", "max_context", "rope_theta", "qk_norm", "num_experts")
+            "rope_dim", "vocab_size", "max_context", "rope_theta", "qk_norm", "num_experts",
+            "qkv_bias")
     if any(getattr(cfg, k) != getattr(want, k) for k in keys) \
             or not torch.equal(params["output.weight"], params["token_embd.weight"]):
         raise AssertionError(f"the GGUF loads as {cfg}, not {want} with tied embeddings")
-    prompt = [128000] + np.random.default_rng(20).integers(256, 128000, 60).tolist()
     p32 = llm.load_gguf(path, max_context=8192, dtype=torch.float32, device="cuda")[1]
     out = {}
     for kvq, name in ((False, "decode_attention"), (True, "decode_attention_q8")):
@@ -4441,7 +4613,8 @@ def _gguf_generate(torch, llm, path: Path) -> dict:
             raise AssertionError(
                 f"Transformer.generate, {cache} cache: tokens {toks}, teacher-forced logits "
                 f"max|d| / max|logit| {gaps}, {name} launched {n} times")
-        log(f"Transformer.generate, {cache} cache, a 61-token prompt + 24 greedy tokens in "
+        log(f"Transformer.generate, {path.name}, {cache} cache, a {len(prompt)}-token "
+            f"prompt + 24 greedy tokens in "
             f"{dt:.2f} s, {name} launched {n} times; f32 weights teacher-forced over the 23 "
             f"decode steps, logits max|d| / max|logit| ({scale:.2f}) from the kernels': their "
             f"plain "
@@ -4456,33 +4629,56 @@ def _gguf_generate(torch, llm, path: Path) -> dict:
 
 
 def phase20(torch):
-    log(f"== phase 20: a Llama-3.2-1B-width GGUF (head dim 64, 32 heads on 8; {GGUF_BLOCKS} "
-        "of 16 blocks) through serve_llm --gguf --int8 --pallas and --int8 --kv-quant "
-        "--pallas; Transformer.generate on the single-stream decode kernels")
+    log(f"== phase 20: head-64 GGUFs, {GGUF_BLOCKS} blocks each: Llama-3.2-1B's widths (32 "
+        "heads on 8) and Qwen2.5-0.5B's (14 on 2, rep 7, q/k/v biases), each through "
+        "serve_llm --gguf --int8 --pallas and --int8 --kv-quant --pallas; "
+        "Transformer.generate on the single-stream decode kernels")
     from clearcam_tpu_torch.models import llm
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gguf_"))
+    models = {"Llama-3.2-1B": (llama32_1b_cfg(llm, GGUF_BLOCKS), _llama_gguf_kv,
+                               [128000] + np.random.default_rng(20).integers(
+                                   256, 128000, 60).tolist()),
+              "Qwen2.5-0.5B": (qwen25_05b_cfg(llm, GGUF_BLOCKS), _qwen2_gguf_kv,
+                               [151644] + np.random.default_rng(21).integers(
+                                   256, 151643, 60).tolist())}
+    out = {"models": {}, "generate": {}, "served": {}}
     try:
-        path = tmp / "Llama-3.2-1B-Instruct-random-f16.gguf"
-        t = time.time()
-        _write_llama_gguf(torch, llm, path, llama32_1b_cfg(llm, GGUF_BLOCKS))
-        log(f"wrote {path.name} ({path.stat().st_size / 1e9:.2f} GB) in {time.time() - t:.1f} s")
-        # both servers boot at once; the single stream runs while they load
-        servers = [_serve_llm_boot(["--gguf", str(path), "--int8", "--pallas"]),
-                   _serve_llm_boot(["--gguf", str(path), "--int8", "--kv-quant", "--pallas"])]
+        paths = {}
+        for model, (cfg, kv, _) in models.items():
+            paths[model] = tmp / f"{model}-Instruct-random-f16.gguf"
+            t = time.time()
+            _write_gguf(torch, llm, paths[model], cfg, kv(cfg))
+            log(f"wrote {paths[model].name} ({paths[model].stat().st_size / 1e9:.2f} GB) in "
+                f"{time.time() - t:.1f} s")
+        # the four servers boot at once; the single streams run while they load
+        forms = ("decode_attention_batch", "decode_attention_batch_q8")
+        servers = {(model, form): _serve_llm_boot(
+            ["--gguf", str(paths[model]), "--int8"]
+            + (["--kv-quant"] if form.endswith("q8") else []) + ["--pallas"])
+            for model in models for form in forms}
         try:
-            out = {"generate": _gguf_generate(torch, llm, path), "served": {}}
-            for server, name in zip(servers, ("decode_attention", "decode_attention_batch_q8")):
-                n, res = _serve_llm(server, lambda base: _drive_text(base, brace_first=False),
-                                    ("quant_matmul", name))
-                out["served"][name] = n[name]
-                out["served"]["quant_matmul"] = out["served"].get("quant_matmul", 0) \
-                    + n["quant_matmul"]
+            for model, (cfg, _, prompt) in models.items():
+                got = _gguf_generate(torch, llm, paths[model], cfg, prompt)
+                out["models"][model] = {"generate": got, "served": {}}
+            for (model, form), server in servers.items():
+                name = "decode_attention" if form == "decode_attention_batch" else form
+                n, _ = _serve_llm(server, lambda base: _drive_text(base, brace_first=False),
+                                  ("quant_matmul", name))
+                out["models"][model]["served"][form] = n[name]
+                out["models"][model]["served"]["quant_matmul"] = \
+                    out["models"][model]["served"].get("quant_matmul", 0) + n["quant_matmul"]
         finally:
-            for server in servers:
+            for server in servers.values():
                 if server["proc"].poll() is None:
                     _serve_llm_stop(server)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # over both models, for the kernels line
+    for part in ("generate", "served"):
+        for m in out["models"].values():
+            for k, n in m[part].items():
+                if isinstance(n, int):
+                    out[part][k] = out[part].get(k, 0) + n
     print(json.dumps({"phase20": out}), flush=True)
     return out
 
@@ -4602,8 +4798,8 @@ def main(argv=None) -> int:
     # batch form's from phase 9's --kv-quant --pallas server; the probe's
     # f32 tile, launches from phase 13's run of the tool. The stem's launches
     # add phase 17's training and replay and phase 19's stem_kernel_probe, its
-    # error the larger of phase 2's and the probe's. Phase 20's head-64
-    # GGUF adds its servers' launches (quant, the two batched decode forms)
+    # error the larger of phase 2's and the probe's. Phase 20's two head-64
+    # GGUFs add their servers' launches (quant, the two batched decode forms)
     # and Transformer.generate's (the two single-stream forms)
     def row(name, source, replaces, n, err, t):
         ms, plain, lib, bms, by = t
@@ -4627,7 +4823,8 @@ def main(argv=None) -> int:
         row("quant_matmul_int4", QM_SOURCE, QM_REPLACES[4], int4_launches["int4"],
             kern["qm_err"][4], kern["qm_ms"][(4,) + QM_JSON_SHAPE]),
         row("decode_attention_batch", DEC_SOURCE, DEC_REPLACES,
-            served["decode_attention"] + gg["served"]["decode_attention"], kern["dec_err"],
+            served["decode_attention"] + gg["served"]["decode_attention_batch"],
+            kern["dec_err"],
             kern["dec_ms"][("spread", "bfloat16")]),
         row("decode_attention", DEC_SOURCE, DEC1_REPLACES,
             vl["bf16 KV"]["decode_attention"] + gg["generate"]["decode_attention"],

@@ -48,11 +48,12 @@ SIGNATURES = {
                               _P], _I),
     # once per device, before its first quant_matmul_forward
     "quant_matmul_prepare": ([], _I),
-    # q, k, v, k scales, v scales (null unless int8), out, pos, pads, the
-    # partials' scratch (acc, then m and l), B, H, KvH, S, D, chunk, splits,
-    # scale, q/out dtype, cache dtype, stream
-    "decode_attention_forward": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _F, _I, _I, _P], _I),
+    # q, k, v, k scales, v scales (null unless int8), out, pos, pads (null:
+    # the two ints that follow, for every row), the partials' scratch (acc,
+    # then m and l), the merge's counters, B, H, KvH, S, D, chunk, splits,
+    # heads a block, tensor cores, scale, q/out dtype, cache dtype, stream
+    "decode_attention_forward": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
     # once per device, before its first decode_attention_forward
     "decode_attention_prepare": ([], _I),
     # x, out, elements, FMAs per chain, dtype, stream

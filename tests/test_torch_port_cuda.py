@@ -453,9 +453,11 @@ DEC_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 # (H, KvH, D): rep 1-8 at 128, Llama-3.2-1B (32/8 of 64), Qwen2.5-0.5B (14/2
 # of 64: rep 7), Qwen3-Next's attention (16/2 of 256), rep 10 (two head
-# groups of 8 and 2), Qwen3-235B-A22B (64/4 of 128: rep 16)
+# groups of 8 and 2 on the CUDA cores, one of 16 on the tensor cores),
+# Qwen3-235B-A22B (64/4 of 128: rep 16), GLM-4.5-Air (96/8 of 128: rep 12),
+# Qwen2.5-7B (28/4 of 128: rep 7)
 DEC_SHAPES = [(8, 4, 128), (16, 8, 128), (16, 2, 128), (8, 8, 128), (32, 8, 64), (14, 2, 64),
-              (16, 2, 256), (40, 4, 128), (64, 4, 128)]
+              (16, 2, 256), (40, 4, 128), (64, 4, 128), (96, 8, 128), (28, 4, 128)]
 
 
 @pytest.mark.parametrize("qdt,cdt", [(torch.float32, torch.float32),
@@ -691,9 +693,9 @@ def test_decode_attention_split_windows_match_plain(cuda, cache, h, kvh):
     from clearcam_tpu_torch.ops import decode_attention as tdec
     rng = np.random.default_rng(h + kvh)
     b, s = 8, 8192
-    chunk, splits = tdec.plan(b, kvh, s)
-    assert splits > 8
-    pos, pads = (t.to(cuda) for t in _split_windows(chunk, s))
+    pl = tdec.plan(b, kvh, s, 128, getattr(torch, cache).itemsize, h // kvh)
+    assert pl.splits > 8
+    pos, pads = (t.to(cuda) for t in _split_windows(pl.chunk, s))
     q = torch.from_numpy(rng.standard_normal((b, h, 128), np.float32)).to(cuda)
     if cache == "int8":
         kq, ks, vq, vs = _q8_cache(rng, b, kvh, s, cuda)
@@ -715,14 +717,18 @@ def test_decode_attention_split_windows_match_plain(cuda, cache, h, kvh):
         assert (got.float() - ref.float()).abs().max().item() < DEC_TOL[qq.dtype]
 
 
+@pytest.mark.parametrize("h,kvh", [(16, 8), (14, 2)])
 @pytest.mark.parametrize("form", ["batch", "batch_q8", "single", "single_q8"])
-def test_decode_attention_replays_in_a_cuda_graph(cuda, form):
-    """Each form captured once in a CUDA graph and replayed with new
-    positions (and pads) written in place: the plan reads nothing from pos,
-    so each replay matches the plain version at the new window."""
+def test_decode_attention_replays_in_a_cuda_graph(cuda, form, h, kvh):
+    """Each form captured once in a CUDA graph and replayed many times with
+    new positions (and pads) written in place, on the CUDA-core path (rep
+    2) and the tensor-core path (rep 7): the plan reads nothing from pos,
+    and each call's last block of a row and head group leaves the merge's
+    counters at zero, so every replay matches the plain version at its new
+    window and the counters are all zero after each."""
     from clearcam_tpu_torch.ops import decode_attention as tdec
     rng = np.random.default_rng(7)
-    b, h, kvh, s = (8 if form.startswith("batch") else 1), 16, 8, 8192
+    b, s = (8 if form.startswith("batch") else 1), 8192
     q = torch.from_numpy(rng.standard_normal((b, h, 128), np.float32)).to(cuda)
     if form.endswith("q8"):
         cache = _q8_cache(rng, b, kvh, s, cuda)
@@ -752,8 +758,11 @@ def test_decode_attention_replays_in_a_cuda_graph(cuda, form):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = call(fn)
+    counters = tdec._split_counters(q.device)
     windows = [([0] * b, [0] * b), ([8191] * b, [0] * b),
                ([100, 8000, 4096, 255, 5, 7000, 1, 2047][:b], [0, 6000, 100, 255, 9, 0, 0, 64][:b])]
+    windows += [(rng.integers(0, s, b).tolist(), rng.integers(0, 3000, b).tolist())
+                for _ in range(6)]
     for p_new, pad_new in windows:
         if batch:
             pos.copy_(torch.tensor(p_new, dtype=torch.int32))
@@ -764,6 +773,35 @@ def test_decode_attention_replays_in_a_cuda_graph(cuda, form):
         torch.cuda.synchronize()
         ref = call(ref_fn)
         assert (out - ref).abs().max().item() < DEC_TOL[torch.float32], (form, p_new)
+        assert not counters.any(), (form, p_new)
+
+
+def test_decode_attention_back_to_back_shapes_on_one_stream(cuda):
+    """Calls of two shapes (the CUDA-core path at rep 2, the tensor-core
+    path at rep 7, each with windows over many chunks) queued back to back
+    on one stream before one sync: they share the merge's counters, and
+    each call leaves its own at zero for the next."""
+    from clearcam_tpu_torch.ops import decode_attention as tdec
+    rng = np.random.default_rng(11)
+    b, s = 8, 8192
+    shapes = [(16, 8), (14, 2)]
+    ops = []
+    for h, kvh in shapes:
+        q = torch.from_numpy(rng.standard_normal((b, h, 128), np.float32)).to(cuda)
+        k, v = (torch.from_numpy(rng.standard_normal((b, kvh, s, 128), np.float32))
+                .to(cuda, torch.bfloat16) for _ in range(2))
+        ops.append((q, k, v))
+    calls = [(i % 2, torch.tensor(rng.integers(2000, s, b), dtype=torch.int32, device=cuda),
+              torch.tensor(rng.integers(0, 1000, b), dtype=torch.int32, device=cuda))
+             for i in range(12)]
+    before = tdec.decode_attention_batch.launches
+    outs = [tdec.decode_attention_batch(*ops[i], pos, pads) for i, pos, pads in calls]
+    torch.cuda.synchronize()
+    assert tdec.decode_attention_batch.launches == before + len(calls)
+    assert not tdec._split_counters(cuda).any()
+    for got, (i, pos, pads) in zip(outs, calls):
+        ref = tdec.decode_attention_batch_reference(*ops[i], pos, pads)
+        assert (got - ref).abs().max().item() < DEC_TOL[torch.float32]
 
 
 @pytest.mark.parametrize("kv", ["bf16", "int8"])

@@ -202,27 +202,34 @@ def _live_blocks(chunk, kvh, pos, pads):
     (1, 2, 8192), (8, 2, 8192), (1, 8, 131072),    # KvH 2 and 8, long caches
     (64, 8, 8192), (512, 8, 4096), (1, 1, 0),      # past MAX_BLOCKS rows; an empty cache
 ])
-def test_plan_covers_every_position_once(b, kvh, s):
-    chunk, splits = tdec.plan(b, kvh, s)
-    assert chunk % tdec.TILE == 0 and chunk >= tdec.TILE
+@pytest.mark.parametrize("d,cache_bytes,rep", [(128, 2, 2), (128, 1, 2), (128, 4, 2),
+                                               (64, 2, 7), (256, 2, 8), (128, 1, 16)])
+def test_plan_covers_every_position_once(b, kvh, s, d, cache_bytes, rep):
+    pl = tdec.plan(b, kvh, s, d, cache_bytes, rep)
+    tile = tdec.TC_TILE if pl.tensor_cores else tdec.TILE
+    assert pl.chunk % tile == 0 and pl.chunk >= tile
     cover = np.zeros(max(s, 1), np.int64)
-    for j in range(splits):
-        cover[j * chunk:(j + 1) * chunk] += 1
+    for j in range(pl.splits):
+        cover[j * pl.chunk:(j + 1) * pl.chunk] += 1
     assert (cover[:s] == 1).all()                  # each position in exactly one split
-    assert splits == max(1, -(-s // chunk))        # no split past the cache
-    assert splits <= GRID_X and kvh <= GRID_YZ and b <= GRID_YZ
-    assert b * kvh * splits <= max(tdec.MAX_BLOCKS, b * kvh)
+    assert pl.splits == max(1, -(-s // pl.chunk))  # no split past the cache
+    assert pl.splits <= tdec.MAX_SPLITS
+    assert pl.splits * pl.groups <= GRID_X and kvh <= GRID_YZ and b <= GRID_YZ
+    assert b * kvh * pl.splits <= max(tdec.MAX_BLOCKS, b * kvh)
 
 
-@pytest.mark.parametrize("b,kvh,s,pos,pads,max_tiles", [
-    (1, 8, 2048, [1100], [0], 2),                                   # row 4 / 7
-    (8, 8, 8192, [0, 17, 255, 256, 1000, 4095, 8191, 3000], [0] * 8, 8),   # row 5
-    (8, 8, 2048, [256] * 8, [0] * 8, 2),                            # row 6
+@pytest.mark.parametrize("b,kvh,s,d,cache_bytes,rep,pos,pads,max_tiles", [
+    (1, 8, 2048, 128, 2, 2, [1100], [0], 2),                                 # row 4
+    (1, 8, 2048, 128, 1, 2, [1100], [0], 2),                                 # row 7
+    (8, 8, 8192, 128, 2, 2, [0, 17, 255, 256, 1000, 4095, 8191, 3000], [0] * 8, 8),   # row 5
+    (8, 8, 2048, 128, 1, 2, [256] * 8, [0] * 8, 2),                          # row 6
 ])
-def test_plan_fills_the_card_at_the_served_shapes(b, kvh, s, pos, pads, max_tiles):
+def test_plan_fills_the_card_at_the_served_shapes(b, kvh, s, d, cache_bytes, rep, pos, pads,
+                                                  max_tiles):
     """The live blocks cover the 132 SMs at least once where the window is
     long enough, and no block walks more than ``max_tiles`` tiles."""
-    chunk, _ = tdec.plan(b, kvh, s)
-    assert chunk // tdec.TILE <= max_tiles
-    live = _live_blocks(chunk, kvh, pos, pads)
-    assert live >= SMS, (chunk, live)
+    pl = tdec.plan(b, kvh, s, d, cache_bytes, rep)
+    tile = tdec.TC_TILE if pl.tensor_cores else tdec.TILE
+    assert pl.chunk // tile <= max_tiles
+    live = _live_blocks(pl.chunk, kvh, pos, pads) * pl.groups
+    assert live >= SMS, (pl, live)

@@ -294,3 +294,96 @@ def test_head64_gguf_single_stream_kernel_route_matches_jax(head64_gguf, kv_quan
         want = list(jt.generate(list(prompt), temperature=0.0, max_new=8))
         assert list(tt.generate(list(prompt), temperature=0.0, max_new=8)) == want
     assert calls and set(calls) == {(8, 64)}
+
+
+# ---------------------------------------------------------------------------
+# a qwen2 GGUF at rep 7 and head dim 64 through the served path
+
+# Qwen2.5-0.5B's heads cut to size: 14 heads on 2 KV heads of 64 (rep 7),
+# q/k/v biases, tied embeddings; hidden 256 with key_length 64 (the file
+# names the head dim, as for a model whose heads do not split the hidden
+# size)
+QWEN2 = dict(num_blocks=2, dim=256, hidden_dim=256, n_heads=14, n_kv_heads=2, head_dim=64,
+             rope_dim=64, v_head_dim=64, vocab_size=384, max_context=256, norm_eps=1e-6,
+             rope_theta=1000000.0, qkv_bias=True)
+QWEN2_SPECIALS = ["<|endoftext|>", "<|im_start|>", "<|im_end|>", "[PAD0]", "[PAD1]"]
+
+
+def qwen2_gguf(path, cfg, params):
+    """Write ``params`` (GGUF-named numpy arrays, without output.weight) as
+    an arch ``qwen2`` GGUF as llama.cpp converts a Qwen2.5 model: a
+    byte-level vocab with the Qwen2 specials, no BOS added."""
+    be = byte_encoder()
+    n_fill = cfg.vocab_size - 256 - len(QWEN2_SPECIALS)
+    tokens = [be[b] for b in range(256)] + [be[97] + be[98] + str(i) for i in range(n_fill)]
+    tokens += QWEN2_SPECIALS
+    eot = 256 + n_fill
+    a = "qwen2"
+    kv = {"general.architecture": a, f"{a}.block_count": cfg.num_blocks,
+          f"{a}.context_length": cfg.max_context, f"{a}.embedding_length": cfg.dim,
+          f"{a}.feed_forward_length": cfg.hidden_dim,
+          f"{a}.attention.head_count": cfg.n_heads,
+          f"{a}.attention.head_count_kv": cfg.n_kv_heads,
+          f"{a}.attention.key_length": cfg.head_dim,
+          f"{a}.attention.value_length": cfg.head_dim,
+          f"{a}.attention.layer_norm_rms_epsilon": cfg.norm_eps,
+          f"{a}.rope.freq_base": cfg.rope_theta,
+          "tokenizer.ggml.pre": "qwen2", "tokenizer.ggml.tokens": tokens,
+          "tokenizer.ggml.token_type": [1] * (256 + n_fill) + [3] * len(QWEN2_SPECIALS),
+          "tokenizer.ggml.bos_token_id": eot, "tokenizer.ggml.eos_token_id": eot + 2,
+          "tokenizer.ggml.add_bos_token": False}
+    assert "output.weight" not in params
+    gguf.save(path, kv, params)
+    return kv
+
+
+@pytest.fixture(scope="module")
+def qwen2_rep7_gguf(tmp_path_factory):
+    cfg = tiny_cfg(**QWEN2)
+    params = {k: np.asarray(v) for k, v in jllm.init_params(cfg, seed=13).items()
+              if k != "output.weight"}
+    rng = np.random.default_rng(13)
+    for k in params:                                  # biases that matter
+        if k.endswith(".bias"):
+            params[k] = rng.normal(0.0, 0.5, params[k].shape).astype(params[k].dtype)
+    path = tmp_path_factory.mktemp("gguf") / "qwen2-rep7.gguf"
+    qwen2_gguf(path, cfg, params)
+    return path
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_qwen2_rep7_gguf_served_with_pallas_matches_jax(qwen2_rep7_gguf, kv_quant,
+                                                       monkeypatch):
+    """``serve_llm --gguf FILE --pallas [--kv-quant]`` on a ``qwen2`` file
+    at Qwen2.5-0.5B's rep 7 and head dim 64 (the tensor-core path of the
+    decode kernels on the card; their plain versions here), bf16 or int8
+    cache: the JAX engine's greedy tokens on the same file, with its Pallas
+    route in interpret mode on the bf16 cache and its plain int8 route on
+    the int8 one (as test_head64_gguf_served_with_pallas_matches_jax)."""
+    from clearcam_tpu_torch.tools import serve_llm
+    calls = []
+    name = "decode_attention_batch_q8" if kv_quant else "decode_attention_batch"
+    plain = getattr(tdec, f"{name}_reference")
+
+    def counted(*a, **kw):
+        calls.append(tuple(a[0].shape))
+        return plain(*a, **kw)
+    monkeypatch.setattr(tdec, f"{name}_reference", counted)
+    argv = ["--gguf", str(qwen2_rep7_gguf), "--device", "cpu", "--ctx", "256", "--slots",
+            "2", "--json-depth", "0", "--pallas"] + (["--kv-quant"] if kv_quant else [])
+    served = serve_llm.build_engine(serve_llm.parse_args(argv))
+    cfg = served.engine.cfg
+    assert (cfg.head_dim, cfg.n_heads // cfg.n_kv_heads, cfg.qkv_bias) == (64, 7, True)
+    params = served.engine.params
+    assert torch.equal(params["output.weight"], params["token_embd.weight"])
+    got = _staggered(served.engine)
+    assert calls and {c[1:] for c in calls} == {(14, 64)}
+    plan = tdec.plan(2, 2, 256, 64, 1 if kv_quant else 2, 7)
+    assert plan.tensor_cores and plan.heads == 16
+
+    model, _ = jllm.Transformer.from_gguf(qwen2_rep7_gguf, max_context=256)
+    assert model.cfg.qkv_bias
+    ref = _staggered(JaxEngine(model.params, model.cfg, n_slots=2, state_dtype=jnp.bfloat16,
+                               kv_quant=kv_quant, use_pallas_decode=not kv_quant,
+                               interpret=True))
+    assert got == ref
