@@ -77,7 +77,10 @@ so the script exits non-zero:
      S=8192, Qwen3-Next's attention (16 on 2 of 256), Qwen3-235B-A22B's (64
      on 4 of 128: rep 16) and GLM-4.5-Air's (96 on 8 of 128: rep 12) at
      S=2048, Qwen2.5-7B's (28 on 4 of 128: rep 7) at S=8192, and
-     Qwen2.5-0.5B's on an int8 cache too; then the
+     Qwen2.5-0.5B's on an int8 cache too; at head dims below the kernels'
+     128 width, bf16 and int8 at S=8192: H2O-Danube2-1.8B's (32 on 8 of
+     80), H2O-Danube3-500M's (16 on 8 of 96) and H2O-Danube3-4B's (32 on 8
+     of 120); then the
      plan's choices timed at PERF.md's rows (a package with the one-launch
      design): the CUDA-core and tensor-core paths at rep 2 and 4, and each
      path's byte target of a chunk
@@ -109,9 +112,9 @@ so the script exits non-zero:
      replays over enough distinct caches that the live K/V cycled passes
      120 MB (27, 52 and 28 caches), printed as in phase 7, and each
      wrapper's host time per eager call (the enqueue time of 200 calls);
-     then the single-stream forms at Llama-3.2-1B's and Qwen2.5-0.5B's
-     heads (bf16 and int8) and Qwen3-Next's (bf16), S=2048, checked and
-     timed as in phase 7
+     then the single-stream forms at Llama-3.2-1B's, Qwen2.5-0.5B's,
+     H2O-Danube2-1.8B's and H2O-Danube3-500M's heads (bf16 and int8) and
+     Qwen3-Next's (bf16), S=2048, checked and timed as in phase 7
  11  a 2-block Qwen3-VL-2B-width model (2 language + 2 vision blocks, the
      deepstack at vision block 1), f32, card vs CPU: vision embeds and the
      deepstack feature (cosine > 1 - 1e-5 per row), then an image prefill
@@ -250,7 +253,7 @@ so the script exits non-zero:
      the cuDNN stem pair whole and by conv with the card's bounds, the
      stem kernel against the pair (max|d| <= 0.05, launched), and the host
      costs of chained calls, uploads and lagged readbacks
- 20  two GGUFs, 4 blocks each, random F16 weights drawn on the card from
+ 20  GGUFs, 4 blocks each, random F16 weights drawn on the card from
      seed 0 and written with the port's GGUF writer, each with a stand-in
      byte-level vocabulary of its size and its specials: arch llama at
      meta-llama/Llama-3.2-1B-Instruct's widths (hidden 2048, 32 heads on 8
@@ -260,16 +263,23 @@ so the script exits non-zero:
      rep 7, FFN 4864, vocab 151936, RoPE theta 1e6, RMS eps 1e-6, q/k/v
      biases, tied embeddings; 4 of 24 blocks): for each, `python -m
      clearcam_tpu_torch.tools.serve_llm --gguf FILE --int8 --pallas` and
-     `--int8 --kv-quant --pallas`, the four booted at once and driven as
-     phase 9's first server (the JSON reply may start with whitespace),
+     `--int8 --kv-quant --pallas`, all the phase's servers booted at once
+     and driven side by side, each as phase 9's first server (the JSON
+     reply may start with whitespace),
      each reporting decode-kernel launches > 0; meanwhile
      Transformer.generate on each file's bf16 weights with a bf16 and an
      int8 cache through decode_attention / decode_attention_q8 (launches
      counted), then on its f32 weights teacher-forced: the kernels' logits
-     within 1e-3 of max|logit| of their plain versions'
+     within 1e-3 of max|logit| of their plain versions'; then the same for
+     two arch llama GGUFs at head dims below the kernels' 128 width, with a
+     stand-in byte vocabulary of 32000 and the Llama-2 specials <unk>, <s>,
+     </s> at ids 0-2, untied LM heads: h2oai/h2o-danube2-1.8b-chat's widths
+     (hidden 2560, 32 heads on 8 of 80: rep 4, FFN 6912; 4 of 24 blocks)
+     and h2oai/h2o-danube3-500m-chat's (hidden 1536, 16 heads on 8 of 96:
+     rep 2, FFN 4096; 4 of 16 blocks)
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on a served path (phases 4, 9, 12,
-13 and 20's two models; int4 from phase 8's engine run; the stem's adds phase 17's training
+13 and 20's four models; int4 from phase 8's engine run; the stem's adds phase 17's training
 runs and replay and phase 19's probe), its error against the plain version,
 its time, the plain version's, the bound (the larger of its bytes over
 3.35 TB/s and its operations over the data sheet's peak for their type)
@@ -1641,8 +1651,9 @@ def _q8_operands(torch, gen, b, kvh, s, d=128):
 
 
 # the head shapes the JAX package's LLM stacks take beyond Qwen3's (PERF.md
-# §6 rows 4b-7b, 5f-5g): (model, form, B, H, KvH, S, D, cache). Phase 7
-# takes the batched forms, phase 10 the single-stream ones
+# §6 rows 4b-7c, 5d-5g, and 4e-7e at head dims below a built width): (model,
+# form, B, H, KvH, S, D, cache). Phase 7 takes the batched forms, phase 10
+# the single-stream ones
 DEC_HEAD_SHAPES = {
     7: [("Llama-3.2-1B", "batch", 8, 32, 8, 8192, 64, "bfloat16"),
         ("Llama-3.2-1B", "batch_q8", 8, 32, 8, 8192, 64, "int8"),
@@ -1651,12 +1662,22 @@ DEC_HEAD_SHAPES = {
         ("Qwen3-Next-80B-A3B", "batch", 8, 16, 2, 2048, 256, "bfloat16"),
         ("Qwen3-235B-A22B", "batch", 8, 64, 4, 2048, 128, "bfloat16"),
         ("GLM-4.5-Air", "batch", 8, 96, 8, 2048, 128, "bfloat16"),
-        ("Qwen2.5-7B", "batch", 8, 28, 4, 8192, 128, "bfloat16")],
+        ("Qwen2.5-7B", "batch", 8, 28, 4, 8192, 128, "bfloat16"),
+        ("H2O-Danube2-1.8B", "batch", 8, 32, 8, 8192, 80, "bfloat16"),
+        ("H2O-Danube2-1.8B", "batch_q8", 8, 32, 8, 8192, 80, "int8"),
+        ("H2O-Danube3-500M", "batch", 8, 16, 8, 8192, 96, "bfloat16"),
+        ("H2O-Danube3-500M", "batch_q8", 8, 16, 8, 8192, 96, "int8"),
+        ("H2O-Danube3-4B", "batch", 8, 32, 8, 8192, 120, "bfloat16"),
+        ("H2O-Danube3-4B", "batch_q8", 8, 32, 8, 8192, 120, "int8")],
     10: [("Llama-3.2-1B", "single", 1, 32, 8, 2048, 64, "bfloat16"),
          ("Llama-3.2-1B", "single_q8", 1, 32, 8, 2048, 64, "int8"),
          ("Qwen2.5-0.5B", "single", 1, 14, 2, 2048, 64, "bfloat16"),
          ("Qwen2.5-0.5B", "single_q8", 1, 14, 2, 2048, 64, "int8"),
-         ("Qwen3-Next-80B-A3B", "single", 1, 16, 2, 2048, 256, "bfloat16")]}
+         ("Qwen3-Next-80B-A3B", "single", 1, 16, 2, 2048, 256, "bfloat16"),
+         ("H2O-Danube2-1.8B", "single", 1, 32, 8, 2048, 80, "bfloat16"),
+         ("H2O-Danube2-1.8B", "single_q8", 1, 32, 8, 2048, 80, "int8"),
+         ("H2O-Danube3-500M", "single", 1, 16, 8, 2048, 96, "bfloat16"),
+         ("H2O-Danube3-500M", "single_q8", 1, 16, 8, 2048, 96, "int8")]}
 
 
 def _dec_head_shape(torch, gen, model, form, b, h, kvh, s, d, cache) -> dict:
@@ -1827,13 +1848,27 @@ def _dec_variants(torch, gen) -> list:
 
 
 def _dec_head_shapes(torch, gen, phase: int) -> list:
-    """Phase ``phase``'s head shapes; a package from before them
-    (``--package``) takes head dim 128 and rep <= 8 only: none are run."""
+    """Phase ``phase``'s head shapes. A package from before them
+    (``--package`` naming another checkout) refuses some head dims or reps,
+    checked on meta tensors by its own wrapper, and those are not run; the
+    package under test must take every one."""
     from clearcam_tpu_torch.ops import decode_attention as dec
-    if not hasattr(dec, "HEAD_DIMS"):
-        log("decode attention at other head shapes: not in this package")
-        return []
-    return [_dec_head_shape(torch, gen, *shape) for shape in DEC_HEAD_SHAPES[phase]]
+    out = []
+    for shape in DEC_HEAD_SHAPES[phase]:
+        model, form, b, h, kvh, s, d, cache = shape
+        if PKG_ROOT != ROOT:
+            q8 = form.endswith("q8")
+            q = torch.empty((b, h, d), device="meta")
+            k = torch.empty((b, kvh, s, d), device="meta", dtype=getattr(torch, cache))
+            scales = (torch.empty((b, kvh, s), device="meta"),) * 2 if q8 else ()
+            try:
+                dec._check(form, q, k, k, scales)
+            except ValueError as e:
+                log(f"decode attention at {model}'s heads ({form}, D={d}): not in the "
+                    f"package at {PKG_ROOT} ({e})")
+                continue
+        out.append(_dec_head_shape(torch, gen, *shape))
+    return out
 
 
 def phase10(torch):
@@ -4411,10 +4446,13 @@ def phase19(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 20: head-64 GGUFs (Llama, Qwen2) through serve_llm --gguf ... --pallas
+# phase 20: GGUFs through serve_llm --gguf ... --pallas: head dim 64 (Llama,
+# Qwen2), and 80 and 96 (H2O-Danube2/3, arch llama), below the kernels' 128
+# width
 
-# of Llama-3.2-1B's 16 and Qwen2.5-0.5B's 24 blocks (the smoke's time
-# limit); widths are the published ones
+# of Llama-3.2-1B's 16, Qwen2.5-0.5B's 24, H2O-Danube2-1.8B's 24 and
+# H2O-Danube3-500M's 16 blocks (the smoke's time limit); widths are the
+# published ones
 GGUF_BLOCKS = 4
 # the decode kernels against their plain versions inside the 4-block model
 # with f32 weights, max|d| of every decode step's logits over max|logit|:
@@ -4480,20 +4518,12 @@ def _qwen2_gguf_kv(cfg) -> dict:
             "tokenizer.ggml.add_bos_token": False}
 
 
-def _llama_gguf_kv(cfg) -> dict:
-    """The metadata a llama.cpp conversion of Llama-3.2-1B-Instruct carries
-    (context_length 8192 here), with a stand-in vocabulary of the same
-    size: the 256 byte tokens, filler merges up to id 128000, then the
-    Llama-3 specials and reserved tokens (token type 3)."""
-    from clearcam_tpu_torch.utils.tokenizer import byte_encoder
-    be = byte_encoder()
-    n_normal = 128000
-    tokens = [be[i] for i in range(256)] + [be[97] + be[98] + str(i)
-                                            for i in range(n_normal - 256)]
-    tokens += [LLAMA3_SPECIALS.get(i, f"<|reserved_special_token_{i - 128000}|>")
-               for i in range(n_normal, cfg.vocab_size)]
+def _llama_arch_kv(cfg, name: str) -> dict:
+    """The llama arch keys of a llama.cpp conversion named ``name``
+    (context_length 8192 here; the head dim as embedding_length /
+    head_count)."""
     a = "llama"
-    return {"general.architecture": a, "general.name": "Llama-3.2-1B-Instruct (random)",
+    return {"general.architecture": a, "general.name": f"{name} (random)",
             f"{a}.block_count": cfg.num_blocks, f"{a}.context_length": 8192,
             f"{a}.embedding_length": cfg.dim, f"{a}.feed_forward_length": cfg.hidden_dim,
             f"{a}.attention.head_count": cfg.n_heads,
@@ -4502,22 +4532,85 @@ def _llama_gguf_kv(cfg) -> dict:
             f"{a}.attention.value_length": cfg.head_dim,
             f"{a}.attention.layer_norm_rms_epsilon": cfg.norm_eps,
             f"{a}.rope.freq_base": cfg.rope_theta, f"{a}.rope.dimension_count": cfg.rope_dim,
-            f"{a}.vocab_size": cfg.vocab_size,
-            "tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "llama-bpe",
+            f"{a}.vocab_size": cfg.vocab_size}
+
+
+def _llama_gguf_kv(cfg) -> dict:
+    """The metadata a llama.cpp conversion of Llama-3.2-1B-Instruct carries
+    (_llama_arch_kv), with a stand-in vocabulary of the same size: the 256
+    byte tokens, filler merges up to id 128000, then the Llama-3 specials
+    and reserved tokens (token type 3)."""
+    out = _llama_arch_kv(cfg, "Llama-3.2-1B-Instruct")
+    from clearcam_tpu_torch.utils.tokenizer import byte_encoder
+    be = byte_encoder()
+    n_normal = 128000
+    tokens = [be[i] for i in range(256)] + [be[97] + be[98] + str(i)
+                                            for i in range(n_normal - 256)]
+    tokens += [LLAMA3_SPECIALS.get(i, f"<|reserved_special_token_{i - 128000}|>")
+               for i in range(n_normal, cfg.vocab_size)]
+    return {**out, "tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "llama-bpe",
             "tokenizer.ggml.tokens": tokens,
             "tokenizer.ggml.token_type": [1] * n_normal + [3] * (cfg.vocab_size - n_normal),
             "tokenizer.ggml.bos_token_id": 128000, "tokenizer.ggml.eos_token_id": 128009}
 
 
-def _write_gguf(torch, llm, path: Path, cfg, kv: dict) -> None:
+# the Llama-2 vocabulary's specials at their ids (H2O-Danube2/3 keep it)
+LLAMA2_SPECIALS = ["<unk>", "<s>", "</s>"]
+
+
+def danube2_18b_cfg(llm, blocks: int = 24, ctx: int = 8192):
+    """h2oai/h2o-danube2-1.8b-chat's config.json widths (llama arch):
+    hidden 2560, 24 layers, 32 heads and 8 KV heads of 80 (rep 4), FFN
+    6912, vocab 32000, an LM head of its own. RoPE theta 1e4 and RMS eps
+    1e-5, written as the llama helper writes them: they move no kernel
+    shape, and the weights are random."""
+    return llm.TransformerConfig(
+        num_blocks=blocks, dim=2560, hidden_dim=6912, n_heads=32, n_kv_heads=8,
+        norm_eps=1e-5, vocab_size=32000, head_dim=80, rope_theta=10000.0, rope_dim=80,
+        v_head_dim=80, max_context=ctx)
+
+
+def danube3_500m_cfg(llm, blocks: int = 16, ctx: int = 8192):
+    """h2oai/h2o-danube3-500m-chat's config.json widths (llama arch):
+    hidden 1536, 16 layers, 16 heads and 8 KV heads of 96 (rep 2), FFN
+    4096, vocab 32000, an LM head of its own; RoPE theta and RMS eps as for
+    danube2_18b_cfg."""
+    return llm.TransformerConfig(
+        num_blocks=blocks, dim=1536, hidden_dim=4096, n_heads=16, n_kv_heads=8,
+        norm_eps=1e-5, vocab_size=32000, head_dim=96, rope_theta=10000.0, rope_dim=96,
+        v_head_dim=96, max_context=ctx)
+
+
+def _danube_gguf_kv(name: str):
+    """The metadata writer for an H2O-Danube GGUF named ``name``: the
+    llama arch keys (_llama_arch_kv), with a stand-in vocabulary of 32000:
+    the Llama-2 specials <unk>, <s>, </s> at ids 0-2 (BOS 1, EOS 2), the 256
+    byte tokens, then filler merges."""
+    def kv(cfg) -> dict:
+        from clearcam_tpu_torch.utils.tokenizer import byte_encoder
+        be = byte_encoder()
+        n_fill = cfg.vocab_size - len(LLAMA2_SPECIALS) - 256
+        tokens = LLAMA2_SPECIALS + [be[i] for i in range(256)] + [
+            be[97] + be[98] + str(i) for i in range(n_fill)]
+        out = _llama_arch_kv(cfg, name)
+        out.update({"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "llama-bpe",
+                    "tokenizer.ggml.tokens": tokens,
+                    "tokenizer.ggml.token_type": [2, 3, 3] + [1] * (256 + n_fill),
+                    "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2})
+        return out
+    return kv
+
+
+def _write_gguf(torch, llm, path: Path, cfg, kv: dict, tied: bool = True) -> None:
     """Random weights (a torch.Generator on the card, seed 0) at ``cfg``'s
     widths, q/k/v biases too where it has them, written as F16 with the
-    port's GGUF writer under the metadata ``kv``; no output.weight, so the
-    loader ties the LM head to the embeddings."""
+    port's GGUF writer under the metadata ``kv``; ``tied``: no
+    output.weight, so the loader ties the LM head to the embeddings."""
     from clearcam_tpu_torch.io import gguf
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = llm.init_params(cfg, seed=0, dtype=torch.float16, device="cuda", generator=gen)
-    del params["output.weight"]
+    if tied:
+        del params["output.weight"]
     for k, v in params.items():
         if k.endswith((".attn_q.bias", ".attn_k.bias", ".attn_v.bias")):
             v.normal_(0.0, 0.5, generator=gen)
@@ -4557,7 +4650,7 @@ def _teacher_forced(torch, llm, model, prompt: list, feed: list):
     return torch.stack(rows)
 
 
-def _gguf_generate(torch, llm, path: Path, want, prompt: list) -> dict:
+def _gguf_generate(torch, llm, path: Path, want, prompt: list, tied: bool = True) -> dict:
     """``Transformer.generate`` with ``use_pallas_decode=True`` on the GGUF's
     weights (bf16, as loaded and served) with a bf16 and an int8 cache: 24
     greedy tokens through the single-stream kernels (decode_attention,
@@ -4576,8 +4669,9 @@ def _gguf_generate(torch, llm, path: Path, want, prompt: list) -> dict:
             "rope_dim", "vocab_size", "max_context", "rope_theta", "qk_norm", "num_experts",
             "qkv_bias")
     if any(getattr(cfg, k) != getattr(want, k) for k in keys) \
-            or not torch.equal(params["output.weight"], params["token_embd.weight"]):
-        raise AssertionError(f"the GGUF loads as {cfg}, not {want} with tied embeddings")
+            or torch.equal(params["output.weight"], params["token_embd.weight"]) != tied:
+        raise AssertionError(f"the GGUF loads as {cfg}, not {want} with tied={tied} "
+                             f"embeddings")
     p32 = llm.load_gguf(path, max_context=8192, dtype=torch.float32, device="cuda")[1]
     out = {}
     for kvq, name in ((False, "decode_attention"), (True, "decode_attention_q8")):
@@ -4629,44 +4723,61 @@ def _gguf_generate(torch, llm, path: Path, want, prompt: list) -> dict:
 
 
 def phase20(torch):
-    log(f"== phase 20: head-64 GGUFs, {GGUF_BLOCKS} blocks each: Llama-3.2-1B's widths (32 "
-        "heads on 8) and Qwen2.5-0.5B's (14 on 2, rep 7, q/k/v biases), each through "
-        "serve_llm --gguf --int8 --pallas and --int8 --kv-quant --pallas; "
-        "Transformer.generate on the single-stream decode kernels")
+    log(f"== phase 20: GGUFs, {GGUF_BLOCKS} blocks each: Llama-3.2-1B's widths (32 heads on "
+        "8 of 64) and Qwen2.5-0.5B's (14 on 2 of 64, rep 7, q/k/v biases); H2O-Danube2-1.8B's "
+        "(32 on 8 of 80) and H2O-Danube3-500M's (16 on 8 of 96), head dims below the "
+        "kernels' 128 width; each through serve_llm --gguf --int8 --pallas and --int8 "
+        "--kv-quant --pallas; Transformer.generate on the single-stream decode kernels")
     from clearcam_tpu_torch.models import llm
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gguf_"))
+    # model: (config, metadata writer, prompt, tied embeddings)
     models = {"Llama-3.2-1B": (llama32_1b_cfg(llm, GGUF_BLOCKS), _llama_gguf_kv,
                                [128000] + np.random.default_rng(20).integers(
-                                   256, 128000, 60).tolist()),
+                                   256, 128000, 60).tolist(), True),
               "Qwen2.5-0.5B": (qwen25_05b_cfg(llm, GGUF_BLOCKS), _qwen2_gguf_kv,
                                [151644] + np.random.default_rng(21).integers(
-                                   256, 151643, 60).tolist())}
+                                   256, 151643, 60).tolist(), True),
+              "H2O-Danube2-1.8B": (danube2_18b_cfg(llm, GGUF_BLOCKS),
+                                   _danube_gguf_kv("h2o-danube2-1.8b-chat"),
+                                   [1] + np.random.default_rng(22).integers(
+                                       259, 32000, 60).tolist(), False),
+              "H2O-Danube3-500M": (danube3_500m_cfg(llm, GGUF_BLOCKS),
+                                   _danube_gguf_kv("h2o-danube3-500m-chat"),
+                                   [1] + np.random.default_rng(23).integers(
+                                       259, 32000, 60).tolist(), False)}
     out = {"models": {}, "generate": {}, "served": {}}
     try:
         paths = {}
-        for model, (cfg, kv, _) in models.items():
-            paths[model] = tmp / f"{model}-Instruct-random-f16.gguf"
+        for model, (cfg, kv, _, tied) in models.items():
+            paths[model] = tmp / f"{model}-random-f16.gguf"
             t = time.time()
-            _write_gguf(torch, llm, paths[model], cfg, kv(cfg))
+            _write_gguf(torch, llm, paths[model], cfg, kv(cfg), tied)
             log(f"wrote {paths[model].name} ({paths[model].stat().st_size / 1e9:.2f} GB) in "
                 f"{time.time() - t:.1f} s")
-        # the four servers boot at once; the single streams run while they load
+        # the eight servers boot at once; the single streams run while they load
         forms = ("decode_attention_batch", "decode_attention_batch_q8")
         servers = {(model, form): _serve_llm_boot(
             ["--gguf", str(paths[model]), "--int8"]
             + (["--kv-quant"] if form.endswith("q8") else []) + ["--pallas"])
             for model in models for form in forms}
         try:
-            for model, (cfg, _, prompt) in models.items():
-                got = _gguf_generate(torch, llm, paths[model], cfg, prompt)
+            for model, (cfg, _, prompt, tied) in models.items():
+                got = _gguf_generate(torch, llm, paths[model], cfg, prompt, tied)
                 out["models"][model] = {"generate": got, "served": {}}
-            for (model, form), server in servers.items():
+            # the servers are driven side by side, each as phase 9's first
+            import concurrent.futures as cf
+
+            def serve(item):
+                (model, form), server = item
                 name = "decode_attention" if form == "decode_attention_batch" else form
                 n, _ = _serve_llm(server, lambda base: _drive_text(base, brace_first=False),
                                   ("quant_matmul", name))
-                out["models"][model]["served"][form] = n[name]
-                out["models"][model]["served"]["quant_matmul"] = \
-                    out["models"][model]["served"].get("quant_matmul", 0) + n["quant_matmul"]
+                return model, form, n[name], n["quant_matmul"]
+            with cf.ThreadPoolExecutor(len(servers)) as ex:
+                for model, form, n_dec, n_qm in ex.map(serve, servers.items()):
+                    served = out["models"][model]["served"]
+                    served[form] = n_dec
+                    served["quant_matmul"] = served.get("quant_matmul", 0) + n_qm
         finally:
             for server in servers.values():
                 if server["proc"].poll() is None:
@@ -4798,7 +4909,7 @@ def main(argv=None) -> int:
     # batch form's from phase 9's --kv-quant --pallas server; the probe's
     # f32 tile, launches from phase 13's run of the tool. The stem's launches
     # add phase 17's training and replay and phase 19's stem_kernel_probe, its
-    # error the larger of phase 2's and the probe's. Phase 20's two head-64
+    # error the larger of phase 2's and the probe's. Phase 20's four
     # GGUFs add their servers' launches (quant, the two batched decode forms)
     # and Transformer.generate's (the two single-stream forms)
     def row(name, source, replaces, n, err, t):

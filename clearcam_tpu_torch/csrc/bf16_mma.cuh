@@ -13,12 +13,17 @@
 
 namespace {
 
-// cp.async: 16 (cp16) or 4 (cp4) bytes from global to shared memory,
-// zero-filled when !on (nothing is read then)
+// cp.async: 16 (cp16), 8 (cp8) or 4 (cp4) bytes from global to shared
+// memory, zero-filled when !on (nothing is read then)
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool on) {
     const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(s), "l"(src), "r"(on ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp8(void* dst, const void* src, bool on) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(s), "l"(src), "r"(on ? 8 : 0) : "memory");
 }
 __device__ __forceinline__ void cp4(void* dst, const void* src, bool on) {
     const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));

@@ -24,8 +24,10 @@ heads per KV head and scale 1/sqrt(D). On the int8 caches K's scale
 multiplies the score and V's scale the probability before the PV product,
 as the TPU kernels apply them. A row with no live column (pads > pos) gives
 zeros; the TPU kernels give 0/0 there. The kernels take f32 or bf16 q,
-a head dim in ``HEAD_DIMS``, any rep = H / KvH, any S, and read only each
-row's own window.
+any head dim that is a multiple of ``HEAD_DIM_STEP`` up to
+``MAX_HEAD_DIM``, any rep = H / KvH, any S, and read only each row's own
+window. A head dim runs on the smallest of the built ``WIDTHS`` that holds
+it (at a head dim below the width, with the dims past it zero).
 
 On the card every call is one launch (flash-decoding): one block per
 (chunk, head group, KV head, row) walks its chunk of the window, and the
@@ -47,10 +49,15 @@ import torch
 
 from . import _build
 
-# the head dims the kernels are built for (HeadDims in csrc/decode_attention.cu):
+# the widths the kernels are built at (HeadDims in csrc/decode_attention.cu):
 # 64 (Llama-3.2-1B, Qwen2.5-0.5B), 128 (Qwen3, Llama-3.x 3B/8B), 256
-# (Qwen3-Next's attention blocks); any number of query heads per KV head
-HEAD_DIMS = (64, 128, 256)
+# (Qwen3-Next's attention blocks). Any head dim D <= MAX_HEAD_DIM that is a
+# multiple of HEAD_DIM_STEP runs, on the smallest width >= D (80 and 96,
+# H2O-Danube2/3, on 128); a wider D or another step raises (an int8 row is
+# copied 8 bytes at a time at least). Any number of query heads per KV head
+WIDTHS = (64, 128, 256)
+MAX_HEAD_DIM = WIDTHS[-1]
+HEAD_DIM_STEP = 8
 SMS = 132               # the H100's streaming multiprocessors
 # the CUDA-core path (f32 caches, small rep): positions per ring slot, and
 # the query heads a block may take (4 at most above head dim 128)
@@ -161,9 +168,9 @@ def _check(name, q, k, v, scales=()) -> Plan:
         raise ValueError(f"{name}: q {tuple(q.shape)} must be [B,H,D] and the caches "
                          f"{tuple(k.shape)}, {tuple(v.shape)} one [B,KvH,S,D]")
     b, h, d = q.shape
-    if d not in HEAD_DIMS or k.shape[3] != d:
-        raise ValueError(f"{name}: head dim {d} / {k.shape[3]}; the kernel takes one of "
-                         f"{HEAD_DIMS}")
+    if not 0 < d <= MAX_HEAD_DIM or d % HEAD_DIM_STEP or k.shape[3] != d:
+        raise ValueError(f"{name}: head dim {d} / {k.shape[3]}; the kernel takes a multiple "
+                         f"of {HEAD_DIM_STEP} up to {MAX_HEAD_DIM}")
     kvh = k.shape[1]
     if k.shape[0] != b or kvh == 0 or h % kvh:
         raise ValueError(f"{name}: q {tuple(q.shape)} against caches {tuple(k.shape)}: "

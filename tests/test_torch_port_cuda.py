@@ -455,9 +455,15 @@ DEC_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # of 64: rep 7), Qwen3-Next's attention (16/2 of 256), rep 10 (two head
 # groups of 8 and 2 on the CUDA cores, one of 16 on the tensor cores),
 # Qwen3-235B-A22B (64/4 of 128: rep 16), GLM-4.5-Air (96/8 of 128: rep 12),
-# Qwen2.5-7B (28/4 of 128: rep 7)
+# Qwen2.5-7B (28/4 of 128: rep 7); head dims below the 128 width:
+# H2O-Danube2-1.8B (32/8 of 80: rep 4, tensor cores), H2O-Danube3-500M (16/8
+# of 96: rep 2, CUDA cores), H2O-Danube3-4B (32/8 of 120); below the 64
+# width: 48 on the CUDA cores (rep 2) and the tensor cores (rep 4); below the
+# 256 width: 192 on the tensor cores (rep 8) and the CUDA cores (rep 2)
 DEC_SHAPES = [(8, 4, 128), (16, 8, 128), (16, 2, 128), (8, 8, 128), (32, 8, 64), (14, 2, 64),
-              (16, 2, 256), (40, 4, 128), (64, 4, 128), (96, 8, 128), (28, 4, 128)]
+              (16, 2, 256), (40, 4, 128), (64, 4, 128), (96, 8, 128), (28, 4, 128),
+              (32, 8, 80), (16, 8, 96), (32, 8, 120), (16, 8, 48), (32, 8, 48),
+              (16, 2, 192), (16, 8, 192)]
 
 
 @pytest.mark.parametrize("qdt,cdt", [(torch.float32, torch.float32),
@@ -487,15 +493,16 @@ def test_decode_attention_kernel_matches_plain(cuda, qdt, cdt, h, kvh, d):
 
 
 def test_decode_attention_kernel_raises_on_bad_input(cuda):
-    """Head dims outside HEAD_DIMS (48, 100) and H % KvH != 0 are refused
-    before a launch; 64 and rep 10 are kernel shapes now (above)."""
+    """Head dims the kernel does not take (100: not a multiple of 8; 260:
+    above 256) and H % KvH != 0 are refused before a launch; 80, 96, 120
+    and rep 10 are kernel shapes (above)."""
     from clearcam_tpu_torch.ops import decode_attention as tdec
     q = torch.randn(2, 8, 128, device=cuda)
     k = torch.randn(2, 4, 64, 128, device=cuda)
-    for d in (48, 100):
-        with pytest.raises(ValueError, match=r"head dim .*\(64, 128, 256\)"):
-            tdec.decode_attention_batch(q[..., :d].contiguous(), k[..., :d].contiguous(),
-                                        k[..., :d].contiguous(), 3)
+    for d in (100, 260):
+        qd, kd = torch.randn(2, 8, d, device=cuda), torch.randn(2, 4, 64, d, device=cuda)
+        with pytest.raises(ValueError, match=r"head dim .*multiple of 8 up to 256"):
+            tdec.decode_attention_batch(qd, kd, kd, 3)
     with pytest.raises(TypeError):
         tdec.decode_attention_batch(q, k, k.bfloat16(), 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -626,11 +633,13 @@ def test_decode_attention_q8_kernel_matches_plain(cuda, qdt, h, kvh, d):
 
 @pytest.mark.parametrize("q8,cdt", [(False, torch.float32), (False, torch.bfloat16),
                                     (True, torch.int8)])
-@pytest.mark.parametrize("h,kvh,d", [(16, 8, 128), (32, 8, 64), (16, 2, 256)])
+@pytest.mark.parametrize("h,kvh,d", [(16, 8, 128), (32, 8, 64), (16, 2, 256), (32, 8, 80),
+                                     (16, 8, 96)])
 def test_single_stream_kernels_match_plain(cuda, q8, cdt, h, kvh, d):
     """decode_attention and decode_attention_q8 (the batch kernels at
-    B = 1, scalar pos) against their plain versions at Qwen3's, Llama-3.2-1B's
-    and Qwen3-Next's head shapes; each counts its own launches only."""
+    B = 1, scalar pos) against their plain versions at Qwen3's, Llama-3.2-1B's,
+    Qwen3-Next's and H2O-Danube2/3's head shapes; each counts its own
+    launches only."""
     from clearcam_tpu_torch.ops import decode_attention as tdec
     rng = np.random.default_rng(3)
     s = 2048
@@ -717,23 +726,25 @@ def test_decode_attention_split_windows_match_plain(cuda, cache, h, kvh):
         assert (got.float() - ref.float()).abs().max().item() < DEC_TOL[qq.dtype]
 
 
-@pytest.mark.parametrize("h,kvh", [(16, 8), (14, 2)])
+@pytest.mark.parametrize("h,kvh,d", [(16, 8, 128), (14, 2, 128), (32, 8, 80), (16, 8, 96)])
 @pytest.mark.parametrize("form", ["batch", "batch_q8", "single", "single_q8"])
-def test_decode_attention_replays_in_a_cuda_graph(cuda, form, h, kvh):
+def test_decode_attention_replays_in_a_cuda_graph(cuda, form, h, kvh, d):
     """Each form captured once in a CUDA graph and replayed many times with
     new positions (and pads) written in place, on the CUDA-core path (rep
-    2) and the tensor-core path (rep 7): the plan reads nothing from pos,
-    and each call's last block of a row and head group leaves the merge's
-    counters at zero, so every replay matches the plain version at its new
-    window and the counters are all zero after each."""
+    2) and the tensor-core path (rep 7), and at head dims below the 128
+    width (H2O-Danube2-1.8B's rep 4 of 80, H2O-Danube3-500M's rep 2 of 96):
+    the plan reads nothing from pos, and each call's last block of a row
+    and head group leaves the merge's counters at zero, so every replay
+    matches the plain version at its new window and the counters are all
+    zero after each."""
     from clearcam_tpu_torch.ops import decode_attention as tdec
     rng = np.random.default_rng(7)
     b, s = (8 if form.startswith("batch") else 1), 8192
-    q = torch.from_numpy(rng.standard_normal((b, h, 128), np.float32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((b, h, d), np.float32)).to(cuda)
     if form.endswith("q8"):
-        cache = _q8_cache(rng, b, kvh, s, cuda)
+        cache = _q8_cache(rng, b, kvh, s, cuda, d)
     else:
-        cache = tuple(torch.from_numpy(rng.standard_normal((b, kvh, s, 128), np.float32))
+        cache = tuple(torch.from_numpy(rng.standard_normal((b, kvh, s, d), np.float32))
                       .to(cuda, torch.bfloat16) for _ in range(2))
     batch = form.startswith("batch")
     pos = torch.zeros(b if batch else (), dtype=torch.int32, device=cuda)

@@ -2,8 +2,9 @@
 JAX package's LLM stacks take, on the CPU: the four forms of
 clearcam_tpu_torch.ops.decode_attention (their plain versions here)
 against the JAX package's Pallas kernels in interpret mode at head dims
-64, 128 and 256 and rep = H / KvH of 4, 7, 8 and 16; then a Llama-style
-GGUF at head dim 64 served through ``tools.serve_llm``'s engine with
+64, 128 and 256 (the kernels' built widths) and 80, 96 and 120 (below
+one) and rep = H / KvH of 2, 4, 7, 8 and 16; then Llama-style GGUFs at
+head dims 64 and 80 served through ``tools.serve_llm``'s engine with
 ``--pallas`` and generated by ``Transformer`` on the decode-kernel route,
 token for token against the JAX package. The CUDA kernels against these
 plain versions are in test_torch_port_cuda.py.
@@ -33,8 +34,12 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 Q8_TOL = 1e-5
 B, S = 3, 256            # S: one chunk of the JAX kernels
 # (H, KvH, D): Llama-3.2-1B's rep 4 at head dim 64, Qwen2.5-0.5B's rep 7,
-# Qwen3-Next's attention blocks (rep 8 at 256), Qwen3-235B-A22B's rep 16
-SHAPES = [(8, 2, 64), (14, 2, 64), (16, 2, 256), (16, 1, 128)]
+# Qwen3-Next's attention blocks (rep 8 at 256), Qwen3-235B-A22B's rep 16;
+# H2O-Danube2-1.8B's 32 on 8 of 80, H2O-Danube3-500M's 16 on 8 of 96 and
+# H2O-Danube3-4B's 32 on 8 of 120 (head dims below the 128 width); 48 below
+# the 64 width and 192 (rep 8) below the 256 width
+SHAPES = [(8, 2, 64), (14, 2, 64), (16, 2, 256), (16, 1, 128), (32, 8, 80), (16, 8, 96),
+          (32, 8, 120), (16, 8, 48), (16, 2, 192)]
 # per-row positions; left pads with a one-column window (row 2)
 CASES = {"positions": ([0, 130, 255], [0, 0, 0]), "pads": ([255, 100, 200], [0, 37, 200])}
 SINGLE_POS = [17, 255]
@@ -141,15 +146,29 @@ def test_single_stream_q8_matches_jax_kernel(shape, pos):
     _close(got, ref, Q8_TOL)
 
 
-@pytest.mark.parametrize("d", [48, 100, 32, 512])
+@pytest.mark.parametrize("d", [100, 260, 12, 512])
 def test_head_dims_outside_the_set_are_named(d):
-    """The check a CUDA call runs before its launch: an unsupported head
-    dim raises ValueError naming the set (on meta tensors here)."""
-    assert d not in tdec.HEAD_DIMS
+    """The check a CUDA call runs before its launch: a head dim above 256
+    or not a multiple of 8 raises ValueError naming what the kernel takes
+    (on meta tensors here)."""
+    assert d > tdec.MAX_HEAD_DIM or d % tdec.HEAD_DIM_STEP
     q = torch.empty(2, 8, d, device="meta")
     k = torch.empty(2, 2, 64, d, device="meta")
-    with pytest.raises(ValueError, match=r"head dim .*\(64, 128, 256\)"):
+    with pytest.raises(ValueError, match=r"head dim .*multiple of 8 up to 256"):
         tdec._check("decode_attention_batch", q, k, k)
+
+
+@pytest.mark.parametrize("d", [32, 48, 80, 96, 120, 200])
+def test_head_dims_below_a_width_pass_the_check(d):
+    """A multiple of 8 up to 256 that is not a built width passes, with
+    the plan of its own D (chunks sized by its bytes) and the group size of
+    the smallest width that holds it."""
+    assert d not in tdec.WIDTHS
+    q = torch.empty(2, 16, d, device="meta")
+    k = torch.empty(2, 2, 4096, d, device="meta")
+    pl = tdec._check("decode_attention_batch", q, k, k)
+    assert pl == tdec.plan(2, 2, 4096, d, 4, 8)
+    assert pl.heads == (4 if d > 128 else 8)          # a lane holds width / 32 dims
 
 
 @pytest.mark.parametrize("h,kvh", [(16, 1), (14, 2), (40, 4), (64, 4)])
@@ -164,7 +183,7 @@ def test_any_query_group_passes_the_check(h, kvh):
 
 
 # ---------------------------------------------------------------------------
-# a head-64 llama GGUF through the served path
+# llama GGUFs at head dims 64 and 80 through the served path
 
 # Llama-3.2-1B's shape cut to size: head dim 64, 8 heads on 2 KV heads
 # (rep 4), hidden = heads x head dim, tied embeddings (no output.weight)
@@ -202,42 +221,94 @@ def llama_gguf(path, cfg, params):
     return kv
 
 
-@pytest.fixture(scope="module")
-def head64_gguf(tmp_path_factory):
-    cfg = tiny_cfg(**LLAMA)
-    params = {k: np.asarray(v) for k, v in jllm.init_params(cfg, seed=11).items()
+# H2O-Danube2-1.8B's heads cut to size: head dim 80 (below the kernels'
+# 128 width), 8 heads on 2 KV heads (rep 4, Danube2's 32 on 8), hidden =
+# heads x head dim
+DANUBE2 = dict(LLAMA, dim=640, head_dim=80, rope_dim=80, v_head_dim=80, rope_theta=10000.0)
+
+
+def _llama_file(tmp_path_factory, spec, seed, name):
+    cfg = tiny_cfg(**spec)
+    params = {k: np.asarray(v) for k, v in jllm.init_params(cfg, seed=seed).items()
               if k != "output.weight"}
-    path = tmp_path_factory.mktemp("gguf") / "llama-head64.gguf"
+    path = tmp_path_factory.mktemp("gguf") / name
     llama_gguf(path, cfg, params)
     return path
+
+
+@pytest.fixture(scope="module")
+def head64_gguf(tmp_path_factory):
+    return _llama_file(tmp_path_factory, LLAMA, 11, "llama-head64.gguf")
+
+
+@pytest.fixture(scope="module")
+def head80_gguf(tmp_path_factory):
+    return _llama_file(tmp_path_factory, DANUBE2, 17, "danube2-head80.gguf")
 
 
 PROMPTS = [[376, 5, 9, 100, 7], list(range(30, 75)), [376, 200, 3]]
 
 
-def _staggered(engine):
+def _staggered_requests(engine, logprobs=0):
     """Three requests joining a 2-slot engine at different times (one
-    prompt of two chunks), so rows decode at different positions."""
-    r1 = engine.submit(PROMPTS[0], max_new=10)
+    prompt of two chunks), so rows decode at different positions; each
+    records its top ``logprobs`` alternatives per token."""
+    r1 = engine.submit(PROMPTS[0], max_new=10, logprobs=logprobs)
     engine.step()
     engine.step()
-    r2 = engine.submit(PROMPTS[1], max_new=8)
+    r2 = engine.submit(PROMPTS[1], max_new=8, logprobs=logprobs)
     engine.step()
-    r3 = engine.submit(PROMPTS[2], max_new=6)
+    r3 = engine.submit(PROMPTS[2], max_new=6, logprobs=logprobs)
     engine.run_until_idle()
-    return [r.wait(1) for r in (r1, r2, r3)]
+    for r in (r1, r2, r3):
+        r.wait(1)
+    return [r1, r2, r3]
 
 
-@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_cache", "int8_cache"])
-def test_head64_gguf_served_with_pallas_matches_jax(head64_gguf, kv_quant, monkeypatch):
+def _staggered(engine):
+    """The tokens of _staggered_requests."""
+    return [r.tokens for r in _staggered_requests(engine)]
+
+
+def _agree_up_to_near_ties(got, ref):
+    """``got`` and ``ref`` (requests with 2 logprobs each) give the same
+    tokens up to each request's first difference, and there only where the
+    two packages' logprobs cannot tell the two tokens apart: if each
+    token's logprob differs between the packages by at most ``spread``
+    (the most the chosen tokens' logprobs differ at the steps that agree),
+    the ranking of two tokens can flip only if the port's gap between them
+    and the JAX engine's add up to at most 2 x spread. Nothing after a
+    difference is compared: the prefixes differ from there."""
+    firsts, spread = [], 0.0
+    for a, b in zip(got, ref):
+        n = next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y), None)
+        if n is None:
+            assert a.tokens == b.tokens
+        firsts.append(n)
+        spread = max([spread] + [abs(x[0] - y[0]) for x, y in zip(a.lp[:n], b.lp[:n])])
+    assert 0 < spread < 0.1
+    for a, b, n in zip(got, ref, firsts):
+        if n is None:
+            continue
+        (ta, la), (tb, lb) = a.lp[n][1]
+        (ua, ma), (ub, mb) = b.lp[n][1]
+        assert (ta, tb) == (ub, ua), "a difference that is not a swap of the top two"
+        assert (la - lb) + (ma - mb) <= 2 * spread, (n, la - lb, ma - mb, spread)
+    return firsts
+
+
+def _served_matches_jax(path, kv_quant, monkeypatch, head_dim, near_ties=False):
     """``serve_llm --gguf FILE --pallas [--kv-quant]``'s engine on the CPU
     (bf16 weights as loaded, a bf16 or int8 cache, the decode step through
-    the batched kernels' plain versions) gives the JAX engine's greedy
-    tokens on the same file: ``use_pallas_decode=True, interpret=True``
-    with the bf16 cache. With the int8 cache the JAX engine's Pallas route
-    attends over the raw int8 values without their scales (its
-    make_serving_fns), so the port is held to the JAX engine's plain int8
-    route there, as in test_torch_port_serving.py."""
+    the batched kernels' plain versions, 8 heads on 2 of ``head_dim``)
+    gives the JAX engine's greedy tokens on the same file:
+    ``use_pallas_decode=True, interpret=True`` with the bf16 cache. With
+    the int8 cache the JAX engine's Pallas route attends over the raw int8
+    values without their scales (its make_serving_fns), so the port is
+    held to the JAX engine's plain int8 route there, as in
+    test_torch_port_serving.py. ``near_ties``: the tokens agree up to a
+    difference where the two packages cannot tell two tokens apart
+    (_agree_up_to_near_ties)."""
     from clearcam_tpu_torch.tools import serve_llm
     calls = []
     name = "decode_attention_batch_q8" if kv_quant else "decode_attention_batch"
@@ -247,33 +318,35 @@ def test_head64_gguf_served_with_pallas_matches_jax(head64_gguf, kv_quant, monke
         calls.append(tuple(a[0].shape))
         return plain(*a, **kw)
     monkeypatch.setattr(tdec, f"{name}_reference", counted)
-    argv = ["--gguf", str(head64_gguf), "--device", "cpu", "--ctx", "256", "--slots", "2",
+    argv = ["--gguf", str(path), "--device", "cpu", "--ctx", "256", "--slots", "2",
             "--json-depth", "0", "--pallas"] + (["--kv-quant"] if kv_quant else [])
     served = serve_llm.build_engine(serve_llm.parse_args(argv))
     cfg = served.engine.cfg
-    assert (cfg.head_dim, cfg.n_heads // cfg.n_kv_heads) == (64, 4)
+    assert (cfg.head_dim, cfg.n_heads // cfg.n_kv_heads) == (head_dim, 4)
     params = served.engine.params                       # the tie: output = embeddings
     assert torch.equal(params["output.weight"], params["token_embd.weight"])
-    got = _staggered(served.engine)
-    assert calls and {c[1:] for c in calls} == {(8, 64)}
+    got = _staggered_requests(served.engine, 2 if near_ties else 0)
+    assert calls and {c[1:] for c in calls} == {(8, head_dim)}
 
-    model, _ = jllm.Transformer.from_gguf(head64_gguf, max_context=256)
-    ref = _staggered(JaxEngine(model.params, model.cfg, n_slots=2, state_dtype=jnp.bfloat16,
-                               kv_quant=kv_quant, use_pallas_decode=not kv_quant,
-                               interpret=True))
-    assert got == ref
+    model, _ = jllm.Transformer.from_gguf(path, max_context=256)
+    ref = _staggered_requests(JaxEngine(model.params, model.cfg, n_slots=2,
+                                        state_dtype=jnp.bfloat16, kv_quant=kv_quant,
+                                        use_pallas_decode=not kv_quant, interpret=True),
+                              2 if near_ties else 0)
+    if near_ties:
+        return _agree_up_to_near_ties(got, ref)
+    assert [r.tokens for r in got] == [r.tokens for r in ref]
+    return [None] * len(got)
 
 
-@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_cache", "int8_cache"])
-def test_head64_gguf_single_stream_kernel_route_matches_jax(head64_gguf, kv_quant,
-                                                           monkeypatch):
+def _single_stream_matches_jax(path, kv_quant, monkeypatch, head_dim):
     """``Transformer.generate`` with ``use_pallas_decode=True`` (the
     single-stream forms, decode_attention / decode_attention_q8) on the
     file's weights in f32 gives the JAX Transformer's greedy tokens on its
     Pallas single-stream kernels in interpret mode, with a bf16 or an int8
     cache, across a prefix-cache reuse."""
-    cfg, tp, _ = tllm.load_gguf(head64_gguf, max_context=256, dtype=torch.float32)
-    kv, sd = gguf.load(head64_gguf)
+    cfg, tp, _ = tllm.load_gguf(path, max_context=256, dtype=torch.float32)
+    kv, sd = gguf.load(path)
     jcfg = jllm.config_from_gguf(kv, sd, max_context=256)
     jp = jllm.convert_state_dict(sd, kv, jnp.float32)
     sdt = (jnp.bfloat16, torch.bfloat16)
@@ -293,7 +366,41 @@ def test_head64_gguf_single_stream_kernel_route_matches_jax(head64_gguf, kv_quan
     for prompt in (PROMPTS[0], PROMPTS[0] + [11, 12], PROMPTS[1]):
         want = list(jt.generate(list(prompt), temperature=0.0, max_new=8))
         assert list(tt.generate(list(prompt), temperature=0.0, max_new=8)) == want
-    assert calls and set(calls) == {(8, 64)}
+    assert calls and set(calls) == {(8, head_dim)}
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_head64_gguf_served_with_pallas_matches_jax(head64_gguf, kv_quant, monkeypatch):
+    """The served path at Llama-3.2-1B's head dim 64 (_served_matches_jax)."""
+    _served_matches_jax(head64_gguf, kv_quant, monkeypatch, 64)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_head64_gguf_single_stream_kernel_route_matches_jax(head64_gguf, kv_quant,
+                                                           monkeypatch):
+    """The single-stream route at head dim 64 (_single_stream_matches_jax)."""
+    _single_stream_matches_jax(head64_gguf, kv_quant, monkeypatch, 64)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_head80_gguf_served_with_pallas_matches_jax(head80_gguf, kv_quant, monkeypatch):
+    """The served path at H2O-Danube2-1.8B's head dim 80, which the kernels
+    run on their 128 width (_served_matches_jax). With the int8 cache the
+    chosen tokens' logprobs differ between the packages by up to 0.034 at
+    the steps that agree, and on this file request 2's sixth token is a
+    near tie: the port ranks 122 over 301 by 0.016, the JAX engine 301 over
+    122 by 0.033 (0.049 together, under 2 x 0.034). That request is
+    compared up to it."""
+    firsts = _served_matches_jax(head80_gguf, kv_quant, monkeypatch, 80,
+                                 near_ties=kv_quant)
+    assert firsts == ([None, 5, None] if kv_quant else [None] * 3)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_head80_gguf_single_stream_kernel_route_matches_jax(head80_gguf, kv_quant,
+                                                           monkeypatch):
+    """The single-stream route at head dim 80 (_single_stream_matches_jax)."""
+    _single_stream_matches_jax(head80_gguf, kv_quant, monkeypatch, 80)
 
 
 # ---------------------------------------------------------------------------
