@@ -22,6 +22,8 @@ import threading
 import time
 from pathlib import Path
 
+from ..runtime import metrics
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
@@ -138,22 +140,25 @@ def _compile(out: Path) -> str:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once per process."""
+    """The kernel library, built on first use and loaded once per process;
+    the span ``ops.library`` (``runtime.metrics``; attribute: whether a
+    build was found) times the build or load."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        out = library_path()
-        t0 = time.perf_counter()
-        cached = out.exists()
-        log = out.with_suffix(".log").read_text() \
-            if cached and out.with_suffix(".log").exists() else ""
-        if not cached:
-            log = _compile(out)
-        lib = ctypes.CDLL(str(out))
-        for name, (argtypes, restype) in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = argtypes, restype
+        with metrics.timer("ops.library") as span:
+            out = library_path()
+            t0 = time.perf_counter()
+            span.attr = cached = out.exists()
+            log = out.with_suffix(".log").read_text() \
+                if cached and out.with_suffix(".log").exists() else ""
+            if not cached:
+                log = _compile(out)
+            lib = ctypes.CDLL(str(out))
+            for name, (argtypes, restype) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
         last_build.update(path=str(out), seconds=time.perf_counter() - t0,
                           cached=cached, log=log)
         _lib = lib

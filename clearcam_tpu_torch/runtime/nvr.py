@@ -36,6 +36,7 @@ from ..ops import stem as stem_ops
 from ..track.multicam import MultiCamOCSort
 from ..utils.annotate import draw_predictions
 from ..utils.labels import COCO_LABELS
+from . import metrics
 from .counters import RollingClassCounter
 from .ingest import (FramePump, FrameSlot, OpenCVSource, SyntheticSource,
                      open_source, VOD_SUFFIXES)
@@ -126,6 +127,7 @@ class BatchDetector:
             self.device, dtype)
         self.mesh = mesh
         self._dp = 1
+        self._seen: set[tuple] = set()      # (shape, bucket) groups run so far
         if mesh is not None:
             from ..parallel import mesh as pmesh
             self._dp = mesh.shape["data"]
@@ -147,31 +149,62 @@ class BatchDetector:
     def detect_many(self, frames: list[np.ndarray]) -> list[np.ndarray]:
         """uint8 BGR frames, mixed shapes allowed -> one float32 [300, 6]
         array of rows per frame (x1,y1,x2,y2,score,class; zero rows for
-        suppressed slots)."""
+        suppressed slots).
+
+        Spans (``runtime.metrics``): ``detect.call`` around the call and,
+        in it for each shape group, ``detect.stack`` (the host's stack of
+        its frames), ``detect.upload`` (their copy to the device and the
+        zeroing of the bucket's padding; attribute: bytes copied),
+        ``detect.model`` (the host's enqueue of the model, or the mesh's
+        step), ``detect.readback`` (the wait for the rows and their copy
+        back), all under ``detect.first_call`` where this process has not
+        run the group's (shape, bucket) before. Counters: ``detect.frames``,
+        ``detect.calls`` (one a group), ``detect.pad_rows`` (bucket rows
+        without a frame), ``detect.h2d_bytes``, ``detect.d2h_bytes``."""
         out: list[np.ndarray | None] = [None] * len(frames)
-        groups: dict[tuple, list[int]] = {}
-        for i, f in enumerate(frames):
-            groups.setdefault(f.shape, []).append(i)
-        for shape, idxs in groups.items():
-            # only the real frames cross to the device; the bucket's padding
-            # is zeroed there
-            n = len(idxs)
-            batch = torch.empty((self._bucket(n), *shape), dtype=torch.uint8,
-                                device=self.device)
-            batch[:n].copy_(torch.from_numpy(np.stack([frames[i] for i in idxs])))
+        with metrics.timer("detect.call"):
+            groups: dict[tuple, list[int]] = {}
+            for i, f in enumerate(frames):
+                groups.setdefault(f.shape, []).append(i)
+            for shape, idxs in groups.items():
+                n = len(idxs)
+                key = (tuple(shape), self._bucket(n))
+                first = key not in self._seen
+                with metrics.timer("detect.first_call") if first else contextlib.nullcontext():
+                    preds = self._detect_group(frames, idxs, *key)
+                self._seen.add(key)
+                for j, i in enumerate(idxs):
+                    out[i] = preds[j]
+                metrics.count("detect.frames", n)
+                metrics.count("detect.calls")
+                metrics.count("detect.pad_rows", key[1] - n)
+                metrics.count("detect.d2h_bytes", preds.nbytes)
+        return out  # type: ignore[return-value]
+
+    def _detect_group(self, frames, idxs, shape, bucket) -> np.ndarray:
+        """One shape group's device call: [bucket, 300, 6] rows on the host."""
+        # only the real frames cross to the device; the bucket's padding
+        # is zeroed there
+        n = len(idxs)
+        with metrics.timer("detect.stack"):
+            host = torch.from_numpy(np.stack([frames[i] for i in idxs]))
+        with metrics.timer("detect.upload", attr=host.nbytes):
+            batch = torch.empty((bucket, *shape), dtype=torch.uint8, device=self.device)
+            batch[:n].copy_(host)
             batch[n:].zero_()
+        metrics.count("detect.h2d_bytes", host.nbytes)
+        with metrics.timer("detect.model"):
             if self.mesh is None:
                 preds = yolov9.detect(self.params, batch, size=self.size,
                                       res=self.res, compute_dtype=self.dtype)
             else:
-                key = (tuple(shape), batch.shape[0])
+                key = (shape, bucket)
                 preds = self.mesh.channel.call(
                     self.name, "sharded_rows", key,
                     lambda: self.sharded_rows(*key, batch))
+        with metrics.timer("detect.readback"):
             preds = preds.cpu().numpy()
-            for j, i in enumerate(idxs):
-                out[i] = preds[j]
-        return out  # type: ignore[return-value]
+        return preds
 
     @torch.inference_mode()
     def sharded_rows(self, shape: tuple, bucket: int, batch=None) -> torch.Tensor:
@@ -565,7 +598,6 @@ class NVR:
                     # schedule/fps-capped cameras skip the ~6 MB memcpy
                     frame = frame.copy()
             except Exception as e:  # noqa: BLE001
-                from . import metrics
                 print(f"frame gather error {cam.name}: {e}")
                 metrics.count("gather_errors")
                 continue
@@ -579,7 +611,6 @@ class NVR:
         # so one bad frame/camera can't kill the loop (reference reopens the
         # stream on process_frame errors, clearcam.py:543-546)
         if todo and self.detector is not None:
-            from . import metrics
             metrics.gauge("batch_size", len(todo))
             try:
                 with metrics.timer("detect_step"):
@@ -625,14 +656,12 @@ class NVR:
         self.executor.drain_one()
         self._drain_object_queue()
         if getattr(self, "_pending_summary", None) is not None:
-            from . import metrics
             with metrics.timer("summary_step"):
                 self._advance_summary()
         if self._summaries or (self._summary_engine is not None
                                and self._summary_engine.has_work()):
             # external /generate requests share the engine, so step it
             # whenever it has work — not only while summaries are pending
-            from . import metrics
             with metrics.timer("summary_step"):
                 self._advance_summary_engine()
 

@@ -334,6 +334,34 @@ def event_img_info(stem: str) -> dict:
             "class_id": int(parts[2]) if len(parts) > 2 else None}
 
 
+# the trace track of the program's spans: a thread id no OS thread has
+SPAN_TRACK = 2 ** 31 - 1
+
+
+def add_program_spans(trace_path: Path, t0: float, t1: float, wall_minus_perf_ns: int):
+    """Add the program's spans that began in [t0, t1) (``time.perf_counter``
+    seconds) to the Chrome trace at ``trace_path``, on its time base: the
+    profiler's wall-clock microseconds from ``baseTimeNanoseconds``, the
+    spans' perf_counter shifted by ``wall_minus_perf_ns``. One track,
+    "program spans", in this process."""
+    from ..runtime import metrics
+    trace = json.loads(trace_path.read_text())
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    events = [{"ph": "M", "name": "thread_name", "pid": pid, "tid": SPAN_TRACK,
+               "args": {"name": "program spans"}}]
+    for sp in metrics.spans(None, t0, t1):
+        start_ns = round(sp.start_s * 1e9) + wall_minus_perf_ns
+        events.append({
+            "ph": "X", "cat": "program_span", "name": sp.name, "pid": pid,
+            "tid": SPAN_TRACK, "ts": (start_ns - base) / 1e3,
+            "dur": (sp.end_s - sp.start_s) * 1e6,
+            "args": {"ident": sp.ident, "parent": sp.parent, "sid": sp.sid,
+                     "attr": None if sp.attr is None else str(sp.attr)}})
+    trace.setdefault("traceEvents", []).extend(events)
+    trace_path.write_text(json.dumps(trace))
+
+
 def make_handler(ctx: AppContext):
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # silenced like the reference (clearcam.py:684)
@@ -473,9 +501,11 @@ def make_handler(ctx: AppContext):
         def _get_profile(self, q, cam):
             """Capture a torch.profiler trace (CPU, and CUDA where a card
             is present) for N seconds -> a Chrome trace (trace.json) in the
-            trace dir (chrome://tracing or Perfetto). Deeper counterpart to
-            /metrics; the reference's profiling story is tinygrad DEBUG env
-            flags."""
+            trace dir (chrome://tracing or Perfetto), with the program's
+            spans of those seconds (``runtime.metrics``) on the trace's own
+            time base, so host spans and kernels share one timeline.
+            Deeper counterpart to /metrics; the reference's profiling story
+            is tinygrad DEBUG env flags."""
             import time as _time
             seconds = float(self._q(q, "seconds", "3"))
             profiles = ctx.base_dir / "profiles"
@@ -492,8 +522,13 @@ def make_handler(ctx: AppContext):
                 if torch.cuda.is_available():
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
                 with torch.profiler.profile(activities=acts) as prof:
+                    # the profiler's clock is the wall clock, the spans'
+                    # perf_counter: one pair of readings maps one onto the other
+                    wall0, perf0 = _time.time_ns(), _time.perf_counter_ns()
                     _time.sleep(min(seconds, 30.0))
+                    t1 = _time.perf_counter()
                 prof.export_chrome_trace(str(out_dir / "trace.json"))
+                add_program_spans(out_dir / "trace.json", perf0 / 1e9, t1, wall0 - perf0)
                 self._json({"trace_dir": str(out_dir)})
             except Exception as e:  # noqa: BLE001
                 self._json({"error": str(e)}, status=500)

@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from ..models import llm
+from ..runtime import metrics
 
 
 @dataclass(eq=False)      # identity eq/hash: queue/cancel bookkeeping must
@@ -108,6 +109,12 @@ class Request:            # never conflate two requests with equal prompts
     t_submit: float = 0.0
     t_first: float | None = None
     t_done: float | None = None
+    # the spans' identifier (runtime.metrics), given at submit, and the
+    # spans' marks on time.perf_counter_ns: submit, admission, first token
+    number: int = -1
+    ns_submit: int = 0
+    ns_admit: int = 0
+    ns_first: int = 0
     _done: threading.Event = field(default_factory=threading.Event)
 
     @property
@@ -316,8 +323,6 @@ class ServingEngine:
         self._acc: list = []                         # (epochs, mask, tok, lp)
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
-        self._ttft_ewma: float | None = None
-        self._tpot_ewma: float | None = None
         self._base_seed = int(seed)
         self._step_n = 0
         self._tick_n = 0
@@ -373,6 +378,8 @@ class ServingEngine:
                     logit_bias=dict(logit_bias) if logit_bias else None,
                     logprobs=int(logprobs), seed=seed, constraint=constraint)
         r.t_submit = time.monotonic()
+        r.ns_submit = time.perf_counter_ns()
+        r.number = metrics.new_ident()
         if timeout_s is not None:
             r.deadline = r.t_submit + timeout_s
         # spec windows are G+1 wide: the last real one must fit in the cache
@@ -663,8 +670,11 @@ class ServingEngine:
 
     def _admit(self):
         free = [b for b in range(self.n_slots) if self.phase[b] == _FREE]
+        now = time.perf_counter_ns()
         while self._waiting and free:
             r = self._waiting.popleft()
+            r.ns_admit = now
+            metrics.span_at("request.queue", r.ns_submit, now, r.number)
             reuses = {s: self._reuse_len(s, r) for s in free}
             b = max(free, key=reuses.__getitem__)
             free.remove(b)
@@ -707,12 +717,11 @@ class ServingEngine:
     def _retire(self, b: int, r: Request) -> None:
         mid_prefill = self.phase[b] == _PREFILL
         r.t_done = time.monotonic()
-        if r.ttft_s is not None:
-            self._ttft_ewma = (r.ttft_s if self._ttft_ewma is None
-                               else 0.8 * self._ttft_ewma + 0.2 * r.ttft_s)
+        if r.t_first is not None:
+            metrics.span_at("request.decode", r.ns_first, time.perf_counter_ns(), r.number)
+            metrics.observe("serving.ttft", r.ttft_s)
         if r.tpot_s is not None:
-            self._tpot_ewma = (r.tpot_s if self._tpot_ewma is None
-                               else 0.8 * self._tpot_ewma + 0.2 * r.tpot_s)
+            metrics.observe("serving.tpot", r.tpot_s)
         if r.deadline is not None:
             self._deadlines -= 1
         self.phase[b] = _FREE
@@ -744,23 +753,20 @@ class ServingEngine:
             r.lp.append((float(lp[0]), list(zip(ids.tolist(), lp[1:1 + k].tolist()))))
         if r.t_first is None:
             r.t_first = time.monotonic()
+            r.ns_first = time.perf_counter_ns()
+            metrics.span_at("request.prefill", r.ns_admit, r.ns_first, r.number)
         ctx_full = r.total_len + len(r.tokens) >= self.cfg.max_context
         if tok in r.stop_ids or len(r.tokens) >= r.max_new or ctx_full:
             self._retire(b, r)
 
     def _publish_metrics(self) -> None:
         """Mirror engine state into the shared metrics registry (/metrics)."""
-        from ..runtime import metrics
         live = sum(1 for p in self.phase if p == _LIVE)
         pref = sum(1 for p in self.phase if p == _PREFILL)
         metrics.gauge("serving.slots_live", live)
         metrics.gauge("serving.slots_prefill", pref)
         metrics.gauge("serving.slots_free", self.n_slots - live - pref)
         metrics.gauge("serving.waiting", len(self._waiting))
-        if self._ttft_ewma is not None:
-            metrics.gauge("serving.ttft_ms", round(self._ttft_ewma * 1e3, 2))
-        if self._tpot_ewma is not None:
-            metrics.gauge("serving.tpot_ms", round(self._tpot_ewma * 1e3, 2))
         for k, v in self.stats.items():
             metrics.gauge("serving." + k, v)
 
@@ -855,15 +861,18 @@ class ServingEngine:
         self.stats["prefill_batched_steps"] += 1
         self._step_n += 1
         if self.spec:
-            self._first_tok, self.state, self.aux = self.prefill_many(
-                self.params, self.state, self.aux, self._first_tok, toks, meta, self.samp,
-                self._base_seed, self._cnt_p, self._cnt_o, self._bias)
+            with metrics.timer("engine.issue", attr="prefill_many"):
+                self._first_tok, self.state, self.aux = self.prefill_many(
+                    self.params, self.state, self.aux, self._first_tok, toks, meta, self.samp,
+                    self._base_seed, self._cnt_p, self._cnt_o, self._bias)
         else:
             self._upload_cinit()
-            self._first_tok, self._first_lp, self.state, self._cstate = self.prefill_many(
-                self.params, self.state, self._first_tok, self._first_lp, toks, meta,
-                self.samp, self._base_seed, self._cnt_p, self._cnt_o, self._bias,
-                self._ctab, self._cinit_dev, self._cstate)
+            with metrics.timer("engine.issue", attr="prefill_many"):
+                self._first_tok, self._first_lp, self.state, self._cstate = \
+                    self.prefill_many(
+                        self.params, self.state, self._first_tok, self._first_lp, toks,
+                        meta, self.samp, self._base_seed, self._cnt_p, self._cnt_o,
+                        self._bias, self._ctab, self._cinit_dev, self._cstate)
         fetched: list = []
         with self._lock:
             for b, r, new_cur, seg_done in fin:
@@ -877,11 +886,24 @@ class ServingEngine:
                         self._first_record(b, fetched)
 
     def step(self) -> bool:
-        """One scheduler tick; returns False when there was nothing to do."""
-        with torch.inference_mode():
+        """One scheduler tick; returns False when there was nothing to do.
+
+        Spans (``runtime.metrics``): ``engine.step`` around the tick and, in
+        it, ``engine.schedule`` (deadlines, cancels, admission, the
+        prefill/decode choice), ``engine.issue`` (the host's call of a
+        serving graph; attribute: its name), ``engine.fetch_wait`` (the
+        host blocked on a token copy) and ``engine.emit`` (the tokens'
+        bookkeeping under the lock). Each request has ``request.queue``
+        (submit to admission), ``request.prefill`` (admission to its first
+        token on the host) and ``request.decode`` (first token to done),
+        under its ``number``."""
+        with torch.inference_mode(), metrics.timer("engine.step"):
             return self._step()
 
-    def _step(self) -> bool:
+    def _schedule(self) -> tuple[list, list]:
+        """Deadlines, cancels and admission, then the tick's choice: the
+        mid-prefill slots to advance (none on a decode tick) and those of
+        them that one batched prefill takes."""
         with self._lock:
             if self._deadlines:
                 now = time.monotonic()
@@ -914,12 +936,17 @@ class ServingEngine:
         # more than one chunk
         if pre and has_dec and self._prefer_decode:
             pre = []
-        did = False
         batch_rows = []
         if pre and self.prefill_many is not None \
                 and self.req[pre[0]].segments[self.seg_idx[pre[0]]][0] == "text":
             batch_rows = [b for b in pre
                           if self.req[b].segments[self.seg_idx[b]][0] == "text"]
+        return pre, batch_rows
+
+    def _step(self) -> bool:
+        with metrics.timer("engine.schedule"):
+            pre, batch_rows = self._schedule()
+        did = False
         if len(batch_rows) >= 2:
             self._prefill_batched(batch_rows)
             self._prefer_decode = True
@@ -932,7 +959,8 @@ class ServingEngine:
             if seg[0] == "custom":
                 # one tick = the whole custom segment (e.g. an image prefill)
                 _, payload, n = seg
-                self.state = self.custom_prefill(self.state, b, cur, payload)
+                with metrics.timer("engine.issue", attr="custom_prefill"):
+                    self.state = self.custom_prefill(self.state, b, cur, payload)
                 with self._lock:
                     self.cursor[b] = cur + n
                     self.seg_idx[b] += 1
@@ -946,21 +974,22 @@ class ServingEngine:
             self._step_n += 1
             self.stats["prefill_chunks"] += 1
             self.stats["prefill_tokens"] += n
+            toks_np = np.asarray([chunk], np.int32)
             if self.spec:
-                self._first_tok, self.state, self.aux = self.prefill_slot(
-                    self.params, self.state, self.aux, self._first_tok,
-                    np.asarray([chunk], np.int32), b, cur, n, self.samp[b],
-                    int(self._seed_np[b]), self._base_seed, self._cnt_p, self._cnt_o,
-                    self._bias)
+                with metrics.timer("engine.issue", attr="prefill_slot"):
+                    self._first_tok, self.state, self.aux = self.prefill_slot(
+                        self.params, self.state, self.aux, self._first_tok, toks_np, b,
+                        cur, n, self.samp[b], int(self._seed_np[b]), self._base_seed,
+                        self._cnt_p, self._cnt_o, self._bias)
             else:
                 self._upload_cinit()
-                self._first_tok, self._first_lp, self.state, self._cstate = \
-                    self.prefill_slot(
-                        self.params, self.state, self._first_tok, self._first_lp,
-                        np.asarray([chunk], np.int32), b, cur, n, self.samp[b],
-                        int(self._seed_np[b]), self._base_seed, self._cnt_p,
-                        self._cnt_o, self._bias, self._ctab, self._cinit_dev,
-                        self._cstate)
+                with metrics.timer("engine.issue", attr="prefill_slot"):
+                    self._first_tok, self._first_lp, self.state, self._cstate = \
+                        self.prefill_slot(
+                            self.params, self.state, self._first_tok, self._first_lp,
+                            toks_np, b, cur, n, self.samp[b], int(self._seed_np[b]),
+                            self._base_seed, self._cnt_p, self._cnt_o, self._bias,
+                            self._ctab, self._cinit_dev, self._cstate)
             with self._lock:
                 self.cursor[b] = cur + n
                 if off + n == len(toks):
@@ -986,9 +1015,11 @@ class ServingEngine:
                 # its row by a length only the card knows): [live, inject, seed]
                 meta = np.stack([mask, self._inject, self._seed_np]).astype(np.int32)
                 self._inject[:] = False
-                out_dev, self.state, self.aux, self._cnt_o = self.decode_all(
-                    self.params, self.state, self.aux, self._first_tok, meta, self.samp,
-                    self._base_seed, self._step_n, self._cnt_o, self._cnt_p, self._bias)
+                with metrics.timer("engine.issue", attr="decode_all"):
+                    out_dev, self.state, self.aux, self._cnt_o = self.decode_all(
+                        self.params, self.state, self.aux, self._first_tok, meta,
+                        self.samp, self._base_seed, self._step_n, self._cnt_o,
+                        self._cnt_p, self._bias)
                 self._acc.append((tuple(self.epoch), mask, out_dev, None))
                 if len(self._acc) >= self.fetch_every:
                     self._flush_acc()
@@ -1006,11 +1037,12 @@ class ServingEngine:
                 meta[3] = self._seed_np
                 meta[4] = self._plen_np
                 self._inject[:] = False
-                tok_dev, self.state, self._cnt_o, lp_dev, self._cstate = \
-                    self.decode_all(self.params, self.state, self._tok_dev,
-                                    self._first_tok, meta, self.samp,
-                                    self._base_seed, self._cnt_o, self._cnt_p,
-                                    self._bias, self._ctab, self._cstate)
+                with metrics.timer("engine.issue", attr="decode_all"):
+                    tok_dev, self.state, self._cnt_o, lp_dev, self._cstate = \
+                        self.decode_all(self.params, self.state, self._tok_dev,
+                                        self._first_tok, meta, self.samp,
+                                        self._base_seed, self._cnt_o, self._cnt_p,
+                                        self._bias, self._ctab, self._cstate)
                 self._tok_dev = tok_dev
                 with self._lock:
                     for b in dec:
@@ -1031,8 +1063,9 @@ class ServingEngine:
         while self._pending and self._step_n - self._pending[0][-1] >= target:
             with self._lock:
                 rec = self._pending.popleft()
-            rec = self._materialize(rec)      # waits outside the lock
-            with self._lock:
+            with metrics.timer("engine.fetch_wait"):
+                rec = self._materialize(rec)      # waits outside the lock
+            with metrics.timer("engine.emit"), self._lock:
                 self._process(rec)
             popped = True
         self._tick_n += 1

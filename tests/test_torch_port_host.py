@@ -1,8 +1,10 @@
 """The port's copies of the JAX package's jax-free host code: each copy is
 byte-equal to its source, except the files the port deliberately changed
 (``runtime/nvr.py``, ``server/http.py``, ``models/objects.py``,
-``models/faces.py``, ``utils/db.py``), each of which has a test of what
-changed here; and the metrics registry is one, the port's.
+``models/faces.py``, ``utils/db.py``, ``runtime/metrics.py``), each of which
+has a test of what changed (the registry's spans:
+``test_torch_port_tracing.py``); and the metrics registry is one, the
+port's.
 """
 import json
 import socket
@@ -27,7 +29,7 @@ COPIED = {f: None for f in (
     "io/__init__.py", "io/fmp4.py", "io/gguf.py", "io/ggml_grids.py", "io/h264.py",
     "io/mpegts.py", "io/safetensors.py",
     "runtime/counters.py", "runtime/fswriter.py", "runtime/ingest.py",
-    "runtime/metrics.py", "runtime/native_loader.py", "runtime/settings.py",
+    "runtime/native_loader.py", "runtime/settings.py",
     "runtime/storage.py", "runtime/zones.py",
     "server/__init__.py", "server/web/cameraview.html", "server/web/mainview.html",
     "track/__init__.py", "track/kalman.py", "track/multicam.py",
@@ -39,7 +41,7 @@ COPIED["jsengine/__init__.py"] = {3: b"have no browser, node, or any JS",
                                   23: b"clearcam.py:960-988) and never tests it"}
 COPIED["jsengine/dom.py"] = {1283: b"API ----"}
 CHANGED = ("runtime/nvr.py", "server/http.py", "models/objects.py", "models/faces.py",
-           "utils/db.py")
+           "utils/db.py", "runtime/metrics.py")
 
 
 @pytest.mark.parametrize("rel", sorted(COPIED))
@@ -75,20 +77,59 @@ def _free_port():
 
 def test_profile_writes_a_torch_trace(tmp_path):
     """/profile (server/http.py's change) traces with torch.profiler and
-    writes a Chrome trace into the trace directory."""
+    writes a Chrome trace into the trace directory, with the program's spans
+    of its seconds (here spans recorded while it profiles)."""
+    import threading
+    import time
+
+    from clearcam_tpu_torch.runtime import metrics
     from clearcam_tpu_torch.server.http import AppContext, serve
     from clearcam_tpu_torch.utils.db import KVStore
     port = _free_port()
     server = serve(AppContext(KVStore(tmp_path / "kv.db"), tmp_path), port=port,
                    host="127.0.0.1")
+    replies = []
+    fetch = threading.Thread(target=lambda: replies.append(urllib.request.urlopen(
+        f"http://127.0.0.1:{port}/profile?seconds=0.2", timeout=60).read()))
     try:
-        reply = json.loads(urllib.request.urlopen(
-            f"http://127.0.0.1:{port}/profile?seconds=0.2", timeout=60).read())
+        fetch.start()
+        while fetch.is_alive():
+            with metrics.timer("test.marker"):
+                time.sleep(0.005)
+            time.sleep(0.005)
+        fetch.join(60)
     finally:
         server.shutdown()
+    reply = json.loads(replies[0])
     trace = Path(reply["trace_dir"]) / "trace.json"
     assert trace.parent.parent == tmp_path / "profiles"
-    assert "traceEvents" in json.loads(trace.read_text())
+    events = json.loads(trace.read_text())["traceEvents"]
+    marks = [e for e in events if e.get("cat") == "program_span" and e["name"] == "test.marker"]
+    assert marks and all(e["dur"] >= 5e3 for e in marks)
+
+
+def test_program_spans_land_on_the_trace_time_base(tmp_path):
+    """``add_program_spans`` puts a span on the profiler's time base: an op
+    run inside the span lies inside it in the written trace."""
+    import time
+
+    from clearcam_tpu_torch.runtime import metrics
+    from clearcam_tpu_torch.server.http import add_program_spans
+    path = tmp_path / "trace.json"
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        wall0, perf0 = time.time_ns(), time.perf_counter_ns()
+        with metrics.timer("test.aligned"):
+            time.sleep(0.002)
+            torch.ones(64).mul_(3.0)
+            time.sleep(0.002)
+        t1 = time.perf_counter()
+    prof.export_chrome_trace(str(path))
+    add_program_spans(path, perf0 / 1e9, t1, wall0 - perf0)
+    events = json.loads(path.read_text())["traceEvents"]
+    (span,) = [e for e in events if e.get("cat") == "program_span"]
+    (mul,) = [e for e in events if e.get("name") == "aten::mul_"]
+    assert span["name"] == "test.aligned"
+    assert span["ts"] <= mul["ts"] and mul["ts"] + mul["dur"] <= span["ts"] + span["dur"]
 
 
 def test_summary_engine_is_the_ports(tmp_path):
