@@ -93,7 +93,9 @@ so the script exits non-zero:
      and the card within 2x the CPU's gap; then 14 of the 28 blocks (cut for
      the smoke's time limit) with int4 weights and a bf16 KV cache in the
      engine, 8 concurrent requests, decode tokens/s with the kernel and with
-     the plain attention
+     the plain attention; its decode steps replay as a CUDA graph (a
+     replay counts the kernels it holds as launched; the replays counted
+     apart too)
   9  `python -m clearcam_tpu_torch.tools.serve_llm --synthetic --int8
      --pallas` (8 blocks, ctx 8192, 8 slots; both servers boot at once,
      their weights drawn on the card): /healthz, /v1/models,
@@ -1556,6 +1558,7 @@ def phase8(torch):
     from clearcam_tpu_torch.models import llm
     from clearcam_tpu_torch.ops import decode_attention as dec
     from clearcam_tpu_torch.ops import quant_matmul as qm
+    from clearcam_tpu_torch.runtime import metrics
     from clearcam_tpu_torch.serving import ServingEngine
     errs = {}
     cfg = llm.qwen3_2b_cfg(2, 512)
@@ -1587,10 +1590,13 @@ def phase8(torch):
         _engine_tokens_per_s(torch, eng, prompts[:, :40], 4)          # warm up
         if pallas and launches is None:
             qm.quant_linear.launches = dec.decode_attention_batch.launches = 0
+            replays = metrics.snapshot()["counters"].get("serving.graph.replays", 0)
         rate, steps, reqs = _engine_tokens_per_s(torch, eng, prompts, 48)
         if pallas and launches is None:
             launches = {"int4": qm.quant_linear.launches,
-                        "decode": dec.decode_attention_batch.launches}
+                        "decode": dec.decode_attention_batch.launches,
+                        "decode_graph_replays": metrics.snapshot()["counters"].get(
+                            "serving.graph.replays", 0) - replays}
         tps.setdefault(pallas, []).append((rate, steps))
         if not all(len(r.tokens) == 48 and all(0 <= t < cfg.vocab_size for t in r.tokens)
                    for r in reqs):
@@ -1601,7 +1607,9 @@ def phase8(torch):
             f"({steps:.1f} decode steps/s, {1e3 / steps:.2f} ms/step)")
         del eng
         torch.cuda.empty_cache()
-    if launches["int4"] < 1 or launches["decode"] < 1:
+    # each replayed step counts its blocks' decode kernels as launched
+    if launches["int4"] < 1 or launches["decode_graph_replays"] < 1 or \
+            launches["decode"] < INT4_BLOCKS * launches["decode_graph_replays"]:
         raise AssertionError(f"{INT4_BLOCKS}-block int4 engine launches: {launches}")
     log(f"launches in the int4 engine run: {launches}")
     del params

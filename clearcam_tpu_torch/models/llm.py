@@ -48,6 +48,7 @@ from ..device import resolve_device
 from ..nn import functional as F
 from ..ops.quant_matmul import (QuantExpert, QuantLinear, QuantLinear4,
                                 quantize_experts_int8, quantize_int4, quantize_int8, true_div)
+from ..runtime import metrics
 
 # Prefill chunk width (the JAX package's CLEARCAM_CHUNK, llm.py:39).
 CHUNK = int(os.environ.get("CLEARCAM_CHUNK", "32"))
@@ -819,12 +820,21 @@ def row_noise(base_seed: int, seeds, idx, vocab: int, device) -> torch.Tensor:
     (base_seed, seeds[b], idx[b]) only: a seeded request redraws the same
     noise on any slot, beside any companions (the port's form of the JAX
     package's serving_row_keys contract)."""
+    return gumbel(_row_uniforms(base_seed, seeds, idx, vocab, device))
+
+
+def _row_uniforms(base_seed: int, seeds, idx, vocab: int, device, out=None) -> torch.Tensor:
+    """row_noise's uniforms before the Gumbel transform, [B, vocab]; drawn
+    into the rows of ``out`` where given (a CUDA graph's static input)."""
     rows = []
-    for s, i in zip(np.asarray(seeds).tolist(), np.asarray(idx).tolist()):
+    for b, (s, i) in enumerate(zip(np.asarray(seeds).tolist(), np.asarray(idx).tolist())):
         g = torch.Generator(device=device)
         g.manual_seed(_mix(base_seed, s, i))
-        rows.append(torch.rand(vocab, generator=g, device=device))
-    return gumbel(torch.stack(rows))
+        if out is None:
+            rows.append(torch.rand(vocab, generator=g, device=device))
+        else:
+            torch.rand(vocab, generator=g, out=out[b])
+    return torch.stack(rows) if out is None else out
 
 
 def _draw(lg, samp, noise, flags=None):
@@ -896,6 +906,139 @@ def upload(a, device) -> torch.Tensor:
     return t.clone()
 
 
+def _stack_refusal(cfg: TransformerConfig) -> str | None:
+    """The blocks' part of ``_graph_refusal``, fixed with the config."""
+    kinds = {cfg.block_kind(i) for i in range(cfg.num_blocks)}
+    if "ssm" in kinds:
+        return "ssm"
+    if "mla" in kinds:
+        return "mla"
+    if any(cfg.block_cfg(i).num_experts > 0 for i in range(cfg.num_blocks)):
+        return "moe"
+    return None
+
+
+def _graph_refusal(stack: str | None, params, device) -> str | None:
+    """Why decode_all runs eagerly rather than as a CUDA graph, or None,
+    from what the call can see: ``stack``, ``_stack_refusal``'s reason
+    (``ssm`` and ``mla``, a stack with GatedDeltaNet or MLA blocks;
+    ``moe``, routed experts: ``_moe_experts`` reads each call's expert
+    counts to the host); ``tp``, params with tensor-parallel splits (their
+    reductions go over gloo or NCCL outside any graph); else the device's
+    type where it is not CUDA."""
+    why = stack
+    if why is None:
+        tp = getattr(params, "tp", None)
+        if tp is not None and tp.split:
+            why = "tp"
+        elif device.type != "cuda":
+            why = device.type
+    return why
+
+
+def _launch_counters():
+    """The hand kernels' wrappers a decode step can call, each counting its
+    launches in ``.launches``."""
+    from ..ops import decode_attention as dec
+    from ..ops.quant_matmul import quant_linear
+    return (quant_linear, dec.decode_attention_batch, dec.decode_attention_batch_q8,
+            dec.decode_attention, dec.decode_attention_q8)
+
+
+class _Graph:
+    """One captured decode step and its static inputs and outputs. The host
+    inputs (meta, samp) go in as one copy of their bytes, the uniforms are
+    drawn into their buffer, and the device tensors the engine replaces
+    between calls (prev_tok, first_tok, cstate) are copied in; the outputs
+    are copied out, since the engine holds them for ``sync_lag`` steps.
+    The capture runs no kernel, so the hand kernels' ``launches`` counters
+    take back what it counted, and each replay adds it again."""
+
+    def __init__(self, step, vocab: int, params, state, prev_tok, first_tok, meta, samp,
+                 flags, cnt_o, cnt_p, bias, ctab, cstate):
+        dev = first_tok.device
+        self.host = torch.empty(meta.nbytes + samp.nbytes, dtype=torch.uint8, device=dev)
+        m = self.host[:meta.nbytes].view(torch.int32).view(meta.shape)
+        s = self.host[meta.nbytes:].view(torch.float32).view(samp.shape)
+        self.u = torch.empty((samp.shape[0], vocab), device=dev)
+        self.ins = [torch.empty_like(t) for t in (prev_tok, first_tok, cstate)]
+        self.graph = torch.cuda.CUDAGraph()
+        counters = _launch_counters()
+        before = [f.launches for f in counters]
+        with torch.cuda.device(dev), \
+                torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.outs = step(params, state, self.ins[0], self.ins[1], m, s, self.u, cnt_o,
+                             cnt_p, bias, ctab, self.ins[2], flags)
+        self.launches = [(f, f.launches - n) for f, n in zip(counters, before)
+                         if f.launches != n]
+        for f, n in self.launches:
+            f.launches -= n
+
+    def __call__(self, draw, prev_tok, first_tok, meta, samp, cstate):
+        host = np.concatenate([meta.reshape(-1).view(np.uint8), samp.reshape(-1).view(np.uint8)])
+        with torch.cuda.device(self.host.device):
+            self.host.copy_(torch.from_numpy(host).pin_memory(), non_blocking=True)
+            draw(self.u)
+            for dst, src in zip(self.ins, (prev_tok, first_tok, cstate)):
+                dst.copy_(src)
+            self.graph.replay()
+            for f, n in self.launches:
+                f.launches += n
+            return tuple(t.clone() for t in self.outs)
+
+
+class _DecodeGraphs:
+    """decode_all as CUDA graphs, one per key: the sampling flags, the batch,
+    the params and the data pointers of the buffers the engine keeps and
+    updates in place (state, cnt_o, cnt_p, bias, ctab). A key's first call
+    runs eagerly, which makes what the step keeps across calls (the rope
+    and inert tables, the kernels' counters) and warms the allocator; its
+    second captures the step and replays it; later calls replay. A call
+    with other buffers (after ``reset_device`` or a recovery) drops every
+    graph of the old ones. Where ``_graph_refusal`` gives a reason every
+    call runs eagerly. Each call is a ``serving.decode_graph`` span whose
+    attribute is ``replay``, ``capture`` or ``eager:<reason>`` (the reason
+    ``warmup`` for a key's first call), and counts one of
+    ``serving.graph.replays``, ``.captures``, ``.eager``."""
+
+    def __init__(self, step, vocab: int):
+        self.step, self.vocab = step, vocab
+        self.params = self.ptrs = None   # what the graphs kept were captured on
+        self.graphs: dict = {}           # (flags, batch) -> _Graph, or None once warm
+
+    def __call__(self, why, draw, params, state, prev_tok, first_tok, meta, samp, flags,
+                 cnt_o, cnt_p, bias, ctab, cstate):
+        key = graph = None
+        if why is None:
+            ptrs = (cnt_o.data_ptr(), cnt_p.data_ptr(), bias.data_ptr(), ctab.data_ptr(),
+                    *(t.data_ptr() for s in state for t in s.values()))
+            if params is not self.params or ptrs != self.ptrs:
+                self.params, self.ptrs, self.graphs = params, ptrs, {}
+            key = (flags, first_tok.shape[0])
+            if key in self.graphs:
+                graph = self.graphs[key]
+            else:
+                why = "warmup"
+        mode = f"eager:{why}" if why else "replay" if graph is not None else "capture"
+        with metrics.timer("serving.decode_graph", attr=mode):
+            if why:
+                metrics.count("serving.graph.eager")
+                if key is not None:
+                    self.graphs[key] = None
+                dev = first_tok.device
+                return self.step(params, state, prev_tok, first_tok, upload(meta, dev),
+                                 upload(samp, dev), draw(), cnt_o, cnt_p, bias, ctab, cstate,
+                                 flags)
+            if graph is None:
+                metrics.count("serving.graph.captures")
+                graph = self.graphs[key] = _Graph(
+                    self.step, self.vocab, params, state, prev_tok, first_tok, meta, samp,
+                    flags, cnt_o, cnt_p, bias, ctab, cstate)
+            else:
+                metrics.count("serving.graph.replays")
+            return graph(draw, prev_tok, first_tok, meta, samp, cstate)
+
+
 def make_serving_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
                      constraints: bool = False, kv_quant: bool = False,
                      spec_lookup: int = 0):
@@ -919,7 +1062,9 @@ def make_serving_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
         plen]. Row b consumes first_tok[b] where inject, prev_tok[b]
         otherwise, writes its K/V at pos[b] and attends cols <= pos[b];
         its noise is keyed by (seed, pos - plen + 1). cnt_o is updated in
-        place with each live row's consumed token.
+        place with each live row's consumed token. On CUDA it replays a
+        CUDA graph of the whole step (``_DecodeGraphs``: the same kernels,
+        one launch from the host) unless ``_graph_refusal`` says why not.
     prefill_many(params, state, first_tok, first_lp, tokens[B,CHUNK],
                  meta[4,B] [start_pos, n_real, valid, seed], samp[B,8],
                  base_seed, cnt_p, cnt_o, bias) -> (first_tok', first_lp', state)
@@ -1043,12 +1188,12 @@ def make_serving_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
         first_lp[slot:slot + 1] = lp
         return first_tok, first_lp, state, cstate
 
-    @torch.inference_mode()
-    def decode_all_c(params, state, prev_tok, first_tok, meta, samp, base_seed,
-                     cnt_o, cnt_p, bias, ctab, cstate):
+    def decode_step(params, state, prev_tok, first_tok, m, samp_d, u, cnt_o, cnt_p,
+                    bias, ctab, cstate, flags):
+        """decode_all's device work, from device inputs alone (what its CUDA
+        graph holds): m the [5,B] meta rows, samp_d the [B,8] specs, u the
+        rows' uniforms for the Gumbel noise -> (token [B], lp, cstate')."""
         dev = first_tok.device
-        meta = np.asarray(meta, np.int32)
-        m = upload(meta, dev)
         pos, live = m[0], m[1] != 0
         token = torch.where(m[2] != 0, first_tok, prev_tok)[:, None]
         # the consumed token joins its row's output histogram before sampling
@@ -1060,12 +1205,27 @@ def make_serving_fns(cfg: TransformerConfig, use_pallas_decode: bool = False,
                             row_live=live if cfg.ssm is not None else None)
         logits = logits_at(params, cfg, hidden, 0)
         cmask, con, crow = _con_mask(ctab, cstate, live)
+        tok, lp = sample_filtered_lp(logits, samp_d, gumbel(u), cnt_p, cnt_o, bias,
+                                     cmask=cmask, flags=flags)
+        return tok.to(torch.int32), lp, _con_advance(con, crow, tok, cstate)
+
+    graphs = _DecodeGraphs(decode_step, cfg.vocab_size)
+    stack = _stack_refusal(cfg)
+
+    @torch.inference_mode()
+    def decode_all_c(params, state, prev_tok, first_tok, meta, samp, base_seed,
+                     cnt_o, cnt_p, bias, ctab, cstate):
+        dev = first_tok.device
+        meta = np.asarray(meta, np.int32)
         samp_np = np.asarray(samp, np.float32).reshape(-1, SAMP_W)
-        tok, lp = sample_filtered_lp(
-            logits, upload(samp_np, dev),
-            row_noise(base_seed, meta[3], meta[0] - meta[4] + 1, cfg.vocab_size, dev),
-            cnt_p, cnt_o, bias, cmask=cmask, flags=samp_flags(samp_np))
-        return tok.to(torch.int32), state, cnt_o, lp, _con_advance(con, crow, tok, cstate)
+
+        def draw(out=None):
+            return _row_uniforms(base_seed, meta[3], meta[0] - meta[4] + 1,
+                                 cfg.vocab_size, dev, out)
+        tok, lp, cst = graphs(_graph_refusal(stack, params, dev), draw, params, state,
+                              prev_tok, first_tok, meta, samp_np, samp_flags(samp_np),
+                              cnt_o, cnt_p, bias, ctab, cstate)
+        return tok, state, cnt_o, lp, cst
 
     @torch.inference_mode()
     def prefill_many_c(params, state, first_tok, first_lp, tokens, meta, samp,

@@ -152,8 +152,10 @@ def true_div(a: torch.Tensor, d: float) -> torch.Tensor:
     """``a / d`` correctly rounded on any device. CUDA divides by a Python
     float as a product with its reciprocal, one bit off at times, and one
     bit of a scale moves values across a rounding edge: the quantized
-    bytes would then depend on the device they were made on."""
-    return a / a.new_tensor(d)
+    bytes would then depend on the device they were made on. The divisor
+    is filled in on a's device (no host copy), so a CUDA graph can hold
+    the division (the int8 cache's quantize-on-write in a decode step)."""
+    return a / a.new_full((), d)
 
 
 def quantize_int8(w: torch.Tensor) -> QuantLinear:

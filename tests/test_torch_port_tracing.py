@@ -1,8 +1,11 @@
 """The port's spans and counters (``runtime/metrics.py``, the port's change
 of the JAX package's registry): the registry's span ring, the spans and
 counters ``BatchDetector.detect_many``, the serving engine and the kernel
-library's load record, and the Prometheus names. On the CPU."""
+library's load record, the Prometheus names, and ``decode_all``'s CUDA-graph
+bookkeeping: which stacks run the eager step and why, and the
+``serving.decode_graph`` spans. On the CPU."""
 import ctypes
+import dataclasses
 import time
 
 import numpy as np
@@ -265,3 +268,131 @@ def test_kernel_library_load_is_a_span(monkeypatch, tmp_path):
     (span,) = metrics.spans("ops.library", t0)
     assert span.attr is True and span.end_s >= span.start_s
     assert _build.last_build["cached"] is True
+
+
+# -- decode_all's CUDA graphs: what runs eagerly, and why ------------------
+
+_DENSE = llm.TransformerConfig(num_blocks=2, dim=32, hidden_dim=64, n_heads=4, n_kv_heads=2,
+                               norm_eps=1e-5, vocab_size=64, head_dim=8, rope_theta=10000.0,
+                               rope_dim=8, v_head_dim=8, max_context=96)
+_FAMILIES = {
+    "dense": {},
+    "moe": dict(num_experts=4, num_experts_per_tok=2, norm_topk_prob=True,
+                shared_expert_dim=16),
+    # dense leading blocks do not make the stack dense
+    "moe_lead": dict(num_experts=4, num_experts_per_tok=2, norm_topk_prob=True,
+                     expert_bias=True, leading_dense_blocks=1, dense_hidden_dim=48),
+    "mla": dict(kv_lora_rank=16, q_lora_rank=0, head_dim=12, rope_dim=4, v_head_dim=8),
+    "ssm": dict(ssm=llm.SSMConfig(conv_kernel=3, state_size=8, group_count=2,
+                                  time_step_rank=4, inner_size=32),
+                full_attention_interval=2, qk_norm=8),
+}
+_REASON = {"dense": "cpu", "moe": "moe", "moe_lead": "moe", "mla": "mla", "ssm": "ssm"}
+
+
+class _TP:
+    def __init__(self, split):
+        self.split = frozenset(split)
+
+
+class _Sharded(dict):
+    """Params as ``parallel.mesh.ShardedParams`` carries them: with ``tp``."""
+    def __init__(self, items, split):
+        super().__init__(items)
+        self.tp = _TP(split)
+
+
+@pytest.mark.parametrize("family", sorted(_FAMILIES))
+def test_graph_refusal_reads_the_blocks_then_the_splits_then_the_device(family):
+    """The stack's kinds refuse on any device; a dense stack with no
+    tensor-parallel splits runs as a graph on CUDA only (the device object
+    alone is read: no card needed)."""
+    stack = llm._stack_refusal(dataclasses.replace(_DENSE, **_FAMILIES[family]))
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    want = _REASON[family]
+    assert stack == (None if want == "cpu" else want)
+    assert llm._graph_refusal(stack, {}, cpu) == want
+    assert llm._graph_refusal(stack, {}, cuda) == (None if want == "cpu" else want)
+    split = _Sharded({}, {"blk.0.attn_output.weight"})
+    assert llm._graph_refusal(stack, split, cuda) == ("tp" if want == "cpu" else want)
+    # a mesh whose model axis is one rank splits nothing: no reductions
+    assert llm._graph_refusal(stack, _Sharded({}, ()), cuda) == \
+        (None if want == "cpu" else want)
+
+
+@pytest.mark.parametrize("family", sorted(_FAMILIES))
+def test_eager_decode_all_is_a_span_with_its_reason(family):
+    """On the CPU every decode_all call runs eagerly: one
+    ``serving.decode_graph`` span with ``eager:<reason>``, and one count of
+    ``serving.graph.eager``; nothing is captured or replayed."""
+    cfg = dataclasses.replace(_DENSE, **_FAMILIES[family])
+    eng = ServingEngine(llm.init_params(cfg, seed=4), cfg, n_slots=2)
+    before = dict(_counters())
+    t0 = time.perf_counter()
+    eng.submit([1, 2, 3], max_new=3, seed=1)
+    eng.run_until_idle()
+    calls = metrics.spans("serving.decode_graph", t0)
+    issues = {s.sid: s for s in metrics.spans("engine.issue", t0) if s.attr == "decode_all"}
+    assert calls and {s.attr for s in calls} == {f"eager:{_REASON[family]}"}
+    # inside the engine's issue of decode_all, one a call
+    assert sorted(s.parent for s in calls) == sorted(issues)
+    after = _counters()
+    assert after["serving.graph.eager"] - before.get("serving.graph.eager", 0) == len(calls)
+    for name in ("serving.graph.replays", "serving.graph.captures"):
+        assert after.get(name, 0) == before.get(name, 0)
+
+
+def test_decode_graphs_warm_capture_replay_and_drop_old_buffers(monkeypatch):
+    """The key's bookkeeping with the graph stood in for (a CUDA graph has
+    no CPU mode): a key's first call eager, its second captures, then
+    replays; new sampling flags are a new key beside the old one; other
+    buffers (a fresh state) drop every graph of the old ones."""
+    made = []
+
+    class Captured:
+        def __init__(self, step, vocab, params, state, *rest):
+            made.append(rest[4])                   # the flags
+            self.state = state
+
+        def __call__(self, draw, prev_tok, first_tok, meta, samp, cstate):
+            return "replayed"
+    monkeypatch.setattr(llm, "_Graph", Captured)
+    graphs = llm._DecodeGraphs(lambda *a: "eager", _DENSE.vocab_size)
+    params = {}
+    b = 2
+    tab = torch.zeros((1, _DENSE.vocab_size), dtype=torch.int16)
+    cnt = torch.zeros((b, _DENSE.vocab_size), dtype=torch.int32)
+    bias = torch.zeros((b, _DENSE.vocab_size))
+    tok = torch.zeros(b, dtype=torch.int32)
+    meta = np.zeros((5, b), np.int32)
+    samp = np.zeros((b, llm.SAMP_W), np.float32)
+    greedy, pen = (False, False, False), (True, False, False)
+
+    def call(state, flags, why=None):
+        return graphs(why, lambda out=None: None, params, state, tok, tok, meta, samp, flags,
+                      cnt, cnt, bias, tab, tok)
+    a = llm.init_state(_DENSE, b)
+    t0 = time.perf_counter()
+    assert [call(a, greedy) for _ in range(4)] == ["eager", "replayed", "replayed", "replayed"]
+    assert [call(a, pen) for _ in range(3)] == ["eager", "replayed", "replayed"]
+    assert call(a, greedy) == "replayed" and made == [greedy, pen]
+    assert call(a, greedy, why="test") == "eager"
+    fresh = llm.init_state(_DENSE, b)
+    assert [call(fresh, greedy) for _ in range(3)] == ["eager", "replayed", "replayed"]
+    assert list(graphs.graphs) == [(greedy, b)] and graphs.graphs[greedy, b].state is fresh
+    assert made == [greedy, pen, greedy]
+    assert [s.attr for s in metrics.spans("serving.decode_graph", t0)] == \
+        ["eager:warmup", "capture", "replay", "replay", "eager:warmup", "capture", "replay",
+         "replay", "eager:test", "eager:warmup", "capture", "replay"]
+
+
+def test_spec_lookup_serving_records_no_decode_graph():
+    """Speculative serving keeps its own decode graph (``decode_spec``),
+    untouched: no ``serving.decode_graph`` span, eager or other."""
+    eng = ServingEngine(llm.init_params(_DENSE, seed=4), _DENSE, n_slots=2, spec_lookup=2)
+    t0 = time.perf_counter()
+    r = eng.submit([5, 6, 7] * 4, max_new=6)
+    eng.run_until_idle()
+    assert r.done and r.tokens
+    assert [s.attr for s in metrics.spans("engine.issue", t0)].count("decode_all") > 0
+    assert metrics.spans("serving.decode_graph", t0) == []
